@@ -1,0 +1,18 @@
+"""granite-34b [dense]: 88L d_model=6144 48H (MQA kv=1) d_ff=24576
+vocab=49152 — llama-arch, code.  [arXiv:2405.04324; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-34b",
+    family="dense",
+    n_layers=88,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=1,
+    d_ff=24576,
+    vocab_size=49152,
+    rope="rope",
+    activation="gelu",
+    norm="layernorm",
+    notes="MQA: kv=1 replicated across TP (cannot shard a single KV head)",
+)

@@ -1,0 +1,19 @@
+"""qwen2-vl-72b [vlm]: 80L d_model=8192 64H (GQA kv=8) d_ff=29568
+vocab=152064 — M-RoPE, dynamic resolution.  Vision frontend is a STUB:
+input_specs() provides precomputed patch embeddings spliced into the token
+stream.  [arXiv:2409.12191; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-vl-72b",
+    family="vlm",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=29568,
+    vocab_size=152064,
+    rope="mrope",
+    mrope_sections=(16, 24, 24),
+    frontend="vision",
+)

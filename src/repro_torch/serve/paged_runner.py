@@ -1,0 +1,120 @@
+"""Decode step over the PUMA paged KV pool (dense family).
+
+Attention reads KV through the *block table* with the paged-attention
+kernel (``repro_torch.kernels.paged_attention``), and the new token's K/V is
+returned for the caller to write into pool blocks placed by the PUMA policy.
+
+The runner mirrors ``LM.decode_step`` (same params, same math) with the
+dense cache swapped for (k_pool, v_pool, block_table, seq_lens); the layer
+loop is a plain Python loop, run eagerly.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch import torch_dtype
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.models import layers as L
+from repro_torch.models.attention import project
+from repro_torch.models.rope import apply_rope
+from repro_torch.models.transformer import layer_params
+
+__all__ = ["paged_decode_step"]
+
+
+def paged_decode_step(
+    params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,        # (B, 1)
+    positions: torch.Tensor,     # (B, 1)
+    k_pool: torch.Tensor,        # (L, nb, bs, KV, hd)
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, max_blocks) int32
+    seq_lens: torch.Tensor,      # (B,) length INCLUDING the current token
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, V), new_k (L, B, KV, hd), new_v (L, B, KV, hd)).
+
+    The caller scatters new_k/new_v into pool blocks.  Attention masks to
+    ``seq_lens``, which already counts the current token; its K/V is merged
+    analytically with the attention over the pool.
+    """
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE decode is not ported yet (ROADMAP.md, 'Modules to port', item 3)"
+        )
+    x = L.embed_tokens(params["embed"], tokens, torch_dtype(cfg.dtype))   # (B, 1, d)
+
+    new_ks, new_vs = [], []
+    for li in range(cfg.n_layers):
+        lp = layer_params(params["layers"], li)
+        h = L.apply_norm(lp["ln1"], x)
+        q = apply_rope(cfg, project(h, lp["attn"]["wq"]), positions)
+        k1 = apply_rope(cfg, project(h, lp["attn"]["wk"]), positions)
+        v1 = project(h, lp["attn"]["wv"])
+
+        attn_out = _paged_attention_with_current(
+            q[:, 0], k_pool[li], v_pool[li], block_tables, seq_lens,
+            k1[:, 0].to(k_pool.dtype), v1[:, 0].to(v_pool.dtype),
+        )
+        wo = lp["attn"]["wo"]
+        a = attn_out.reshape(attn_out.shape[0], -1) @ wo.reshape(-1, wo.shape[-1])
+        x = x + a[:, None]
+        h = L.apply_norm(lp["ln2"], x)
+        x = x + L.apply_mlp(lp["mlp"], h)
+        new_ks.append(k1[:, 0])
+        new_vs.append(v1[:, 0])
+
+    x = L.apply_norm(params["final_ln"], x)
+    logits = L.logits_from(params["embed"], x)[:, 0]
+    return logits, torch.stack(new_ks), torch.stack(new_vs)
+
+
+def _paged_attention_with_current(q, k_pool, v_pool, block_tables, seq_lens, k_cur, v_cur):
+    """Attention over pooled KV plus the in-flight token: attention over the
+    pool with lengths ``seq_len - 1`` (the kernel), then the current token
+    merged exactly through the past logsumexp."""
+    B, H, hd = q.shape
+    KV = k_pool.shape[2]
+    scale = hd ** -0.5
+    group = H // KV
+
+    # past contribution (lengths exclude the current token), in q's dtype
+    past_len = seq_lens - 1
+    out_past = paged_ops.paged_attention(
+        q, k_pool, v_pool, block_tables, past_len, scale=scale,
+    )                                                     # (B, H, hd)
+
+    # merge current token: softmax over [past, current] decomposes into a
+    # weighted average of the past attention output and v_cur.
+    qg = q.reshape(B, KV, group, hd).float()
+    s_cur = torch.einsum("bkgd,bkd->bkg", qg, k_cur.float()) * scale
+
+    lse_past = _paged_lse(q, k_pool, block_tables, past_len, scale)  # (B,KV,group)
+    has_past = (past_len > 0)[:, None, None]
+    m = torch.maximum(torch.where(has_past, lse_past, float("-inf")), s_cur)
+    w_past = torch.where(has_past, torch.exp(lse_past - m), 0.0)
+    w_cur = torch.exp(s_cur - m)
+    denom = w_past + w_cur
+    out = (
+        out_past.reshape(B, KV, group, hd).float() * w_past[..., None]
+        + v_cur.float()[:, :, None, :] * w_cur[..., None]
+    ) / denom[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def _paged_lse(q, k_pool, block_tables, seq_lens, scale):
+    """log-sum-exp of past attention logits, via a plain gather (-inf for an
+    empty past)."""
+    B, H, hd = q.shape
+    nb, bs, KV, _ = k_pool.shape
+    group = H // KV
+    idx = block_tables.long().clamp_min(0)
+    k = k_pool[idx].reshape(B, -1, KV, hd)                  # (B, S, KV, hd)
+    qg = q.reshape(B, KV, group, hd).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
+    pos = torch.arange(s.shape[-1], device=q.device)[None, None, None, :]
+    s = torch.where(pos < seq_lens.long()[:, None, None, None], s, float("-inf"))
+    return torch.logsumexp(s, dim=-1)                       # (B, KV, group)
