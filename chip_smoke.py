@@ -6,16 +6,27 @@
 Run from the repository root (it puts ``src`` on ``sys.path`` itself).  It
 builds the hand-written kernels from ``src/repro_torch/csrc`` into
 ``build/kernels/``, holds each against its plain PyTorch version on the
-card, serves the full-width stablelm_1_6b (random weights from a seeded
-generator) through ``ServeEngine`` with a fork part-way, checks that the
-kernels carried that run, holds the card's generated ids against the CPU at
-smoke size, and times each kernel beside its bound.  Any failed check
-raises, so the script exits non-zero without its last line; that line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
-at once.
+card, and drives the port's two main paths with the launch counts zeroed
+just before each and read just after:
+
+* the bitmap-index query of ``examples/torch_pud_bitwise.py`` at 2**34 rows
+  (2 GiB bitplanes) through the ``bulk_op`` kernel, held bit-exactly against
+  its plain version;
+* the full-width stablelm_1_6b (random weights from a seeded generator)
+  served through ``ServeEngine`` with a fork part-way, once as it is and
+  once with watermark maintenance, whose compaction passes move KV pages
+  through the block-copy kernel and must leave the generated ids unchanged.
+
+It also runs the PUD host model (the quickstart's allocator table and the
+paper's Figure 2, modelled DRAM times), holds the card's generated ids
+against the CPU at smoke size, and times each kernel beside its bound.  Any
+failed check raises, so the script exits non-zero without its last line;
+that line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it
+exits non-zero at once.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import statistics
@@ -37,12 +48,13 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.pud_bulk import ops as bc_ops  # noqa: E402
-from repro_torch.kernels.pud_bulk.ref import block_copy_ref  # noqa: E402
+from repro_torch.kernels.pud_bulk.ref import block_copy_ref, bulk_op_ref  # noqa: E402
 from repro_torch.models.bridge import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.models.layers import pad_vocab  # noqa: E402
 from repro_torch.models.params import count_params  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
-from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.robustness import check_kv_pool  # noqa: E402
+from repro_torch.serve.engine import MaintenanceConfig, Request, ServeEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
@@ -53,10 +65,21 @@ SOURCES = {
                         "src/repro/kernels/paged_attention/kernel.py:74"),
     "block_copy": ("src/repro_torch/csrc/block_copy.cu",
                    "src/repro/kernels/pud_bulk/kernel.py:125"),
+    "bulk_op": ("src/repro_torch/csrc/bulk_op.cu",
+                "src/repro/kernels/pud_bulk/kernel.py:84"),
 }
 # the full-width serving shapes (stablelm_1_6b, bf16)
 N_LAYERS, HEADS, HEAD_DIM, BLOCK = 24, 32, 64, 16
 NUM_BLOCKS, MAX_SEQS, MAX_BLOCKS = 2048, 8, 64
+# the bitmap-index query: 2**34 rows, one bit per row in each uint8 bitplane
+BITMAP_ROWS = 2 ** 34
+BULK_OPS = {"zero": (bc_ops.pud_zero, 1), "copy": (bc_ops.pud_copy, 1),
+            "not": (bc_ops.pud_not, 1), "and": (bc_ops.pud_and, 2),
+            "or": (bc_ops.pud_or, 2), "xor": (bc_ops.pud_xor, 2),
+            "maj": (bc_ops.pud_maj, 3)}
+# watermarks of tests/test_compaction.py's maintenance scenario
+MAINTENANCE = MaintenanceConfig(free_low=0.9, frag_high=0.05, contig_low=0.999,
+                                max_moves=64, every=2)
 
 
 def log(*args) -> None:
@@ -66,6 +89,15 @@ def log(*args) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def load_script(relpath: str):
+    """Import one of the repo's example/benchmark scripts as a module."""
+    path = ROOT / relpath
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -167,7 +199,127 @@ def phase_kernels() -> dict:
     errs["block_copy"] = 0.0
     del pool, orig, plain
     torch.cuda.empty_cache()
+    errs["bulk_op_cases"] = bulk_op_cases()
     return errs
+
+
+def bulk_inputs(gen, shape, dtype, n):
+    """``n`` operands of random bits (random 0/1 for bool), made on the card."""
+    if dtype == torch.bool:
+        return [torch.randint(0, 2, shape, generator=gen, device="cuda").bool() for _ in range(n)]
+    numel = math.prod(shape)
+    return [torch.randint(0, 256, (numel * dtype.itemsize,), generator=gen, device="cuda",
+                          dtype=torch.uint8).view(dtype).view(shape) for _ in range(n)]
+
+
+def bulk_check(op, xs, what) -> None:
+    """One op, kernel against plain version on the same card inputs, bit-exact."""
+    fn, arity = BULK_OPS[op]
+    out = fn(*xs[:arity])
+    torch.cuda.synchronize()
+    plain = bulk_op_ref(*xs[:arity], op=op).contiguous()
+    check(out.shape == xs[0].shape and out.dtype == xs[0].dtype, f"bulk_op {op} {what}: type/shape")
+    check(torch.equal(out.view(torch.uint8), plain.view(torch.uint8)),
+          f"bulk_op {op} {what}: differs from the plain version")
+
+
+def bulk_op_cases() -> int:
+    """The reference's test shapes x dtypes, a bool case, and views 1 byte
+    off a 16-byte boundary (the kernel's byte path), every op."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n = 0
+    for dtype in (torch.int32, torch.uint32, torch.int8, torch.uint8):
+        for shape in ((8, 128), (100,), (3, 5, 7), (1000, 3)):
+            xs = bulk_inputs(gen, shape, dtype, 3)
+            for op in BULK_OPS:
+                bulk_check(op, xs, f"{tuple(shape)} {dtype}")
+                n += 1
+    xs = bulk_inputs(gen, (4097,), torch.bool, 3)
+    for op in BULK_OPS:
+        bulk_check(op, xs, "bool")
+        n += 1
+    not_bool = bc_ops.pud_not(xs[0])
+    check(bool((not_bool == ~xs[0]).all()) and int(not_bool.view(torch.uint8).max()) <= 1,
+          "bulk_op not on bool is not a logical not")
+    base = bulk_inputs(gen, (3, 1 << 20), torch.uint8, 1)[0]
+    xs = [base[i, 1:] for i in range(3)]
+    check(all(x.data_ptr() % 16 for x in xs), "the unaligned case is aligned")
+    for op in BULK_OPS:
+        bulk_check(op, xs, "1-byte offset view")
+        n += 1
+    log(f"[kernels] bulk_op: {n} cases (4 shapes x int32/uint32/int8/uint8, bool, "
+        f"1-byte offset view; 7 ops) bit-exact")
+    return n
+
+
+# -- phase 3b: the bitmap-index query at full size -----------------------------
+
+def bitmap_planes(seed: int = 5) -> dict:
+    """Four packed bitplanes of 2**34 rows (2 GiB of uint8 each), random bits
+    from a seeded generator on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {name: torch.randint(0, 256, (BITMAP_ROWS // 8,), generator=gen, device="cuda",
+                                dtype=torch.uint8)
+            for name in ("age_lo", "age_hi", "active", "vip")}
+
+
+def popcount(x: torch.Tensor) -> int:
+    return sum(int(((x >> k) & 1).sum(dtype=torch.int64)) for k in range(8))
+
+
+def phase_bitmap() -> dict:
+    """The bitmap-index query of examples/torch_pud_bitwise.py at 2**34 rows
+    through ``bulk_op``, with the launch counts zeroed just before it and
+    read just after; held bit-exactly against the plain version."""
+    example = load_script("examples/torch_pud_bitwise.py")
+    small = {dev: example.main(["--device", dev, "--rows", "65536"]) for dev in ("cuda", "cpu")}
+    check(small["cuda"] == small["cpu"], f"bitwise example: card {small['cuda']} != CPU {small['cpu']}")
+    planes = bitmap_planes()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = example.bitmap_query(planes)
+    torch.cuda.synchronize()
+    query_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check(launches["bulk_op"] == 3, f"bitmap query: {launches['bulk_op']} bulk_op launches, not 3")
+    p0 = bulk_op_ref(planes["age_lo"], planes["age_hi"], op="and")
+    p1 = bulk_op_ref(p0, planes["active"], op="and")
+    del p0
+    plain = bulk_op_ref(p1, planes["vip"], op="or")
+    del p1
+    check(res.shape == (BITMAP_ROWS // 8,) and res.dtype == torch.uint8, "bitmap result shape")
+    check(torch.equal(res, plain), "bitmap query: kernel result != plain version")
+    matches = popcount(res)
+    # independent bits: P((a & b & c) | d) = 1/2 + 1/2 * 1/8
+    frac = matches / BITMAP_ROWS
+    check(abs(frac - 0.5625) < 1e-4, f"bitmap query: match fraction {frac}")
+    log(f"[bitmap] (age_lo AND age_hi AND active) OR vip over {BITMAP_ROWS} rows "
+        f"({BITMAP_ROWS // 8 / 2**30:.0f} GiB per plane): {matches} matches "
+        f"({frac:.6f} of rows), bit-exact vs plain; {launches['bulk_op']} bulk_op launches, "
+        f"{query_s * 1e3:.2f} ms host time; example at 65536 rows: {small['cuda']} matches "
+        f"on the card and on the CPU")
+    del planes, res, plain
+    torch.cuda.empty_cache()
+    return {"launches": launches, "matches": matches, "max_abs_err": 0.0}
+
+
+# -- phase 3c: the PUD host model ----------------------------------------------
+
+def phase_pud_host() -> None:
+    """The quickstart's allocator table and Figure 2 on the paper geometry:
+    modelled DRAM times from the PUD cost model, not times of the card."""
+    rows = load_script("examples/torch_quickstart.py").main()
+    check(rows["PUMA"]["pud_fraction"] == 1.0 and rows["malloc"]["pud_fraction"] == 0.0,
+          f"quickstart PUD fractions {rows}")
+    check(rows["PUMA"]["t_ns"] < rows["malloc"]["t_ns"], "PUMA not faster in the model")
+    bench = load_script("benchmarks/torch_microbench.py")
+    table = bench.run(lambda *_: None)
+    bench.print_table(table)
+    for op, row in table.items():
+        speedups = [row[b] for b in bench.SIZES_BITS]
+        check(all(s >= 1.0 for s in speedups) and speedups[-1] > 2.0,
+              f"Figure 2 {op}: {speedups}")
 
 
 def block_copy_case():
@@ -185,7 +337,8 @@ def block_copy_case():
 
 # -- phase 4 -----------------------------------------------------------------
 
-def full_width_engine(n_requests: int, max_new: int, seed: int = 0) -> ServeEngine:
+def full_width_engine(n_requests: int, max_new: int, seed: int = 0,
+                      maintenance: MaintenanceConfig = None) -> ServeEngine:
     """The full-width stablelm_1_6b serve on the card: random weights from a
     seeded generator, the main-path pool, and ``n_requests`` submitted
     requests with seeded prompts of 64-512 tokens.  Phase 4 drives it;
@@ -204,7 +357,7 @@ def full_width_engine(n_requests: int, max_new: int, seed: int = 0) -> ServeEngi
         head_dim=cfg.hd, n_layers=cfg.n_layers, max_seqs=MAX_SEQS,
         max_blocks_per_seq=MAX_BLOCKS, blocks_per_arena=64, dtype=cfg.kv_cache_dtype,
     )
-    engine = ServeEngine(model, params, pool_cfg, device="cuda")
+    engine = ServeEngine(model, params, pool_cfg, device="cuda", maintenance=maintenance)
     log(f"[serve] K+V pool {2 * engine.pool.k.numel() * engine.pool.k.element_size() / 1e9:.2f} GB")
     rng = np.random.default_rng(seed)
     for rid in range(n_requests):
@@ -214,12 +367,18 @@ def full_width_engine(n_requests: int, max_new: int, seed: int = 0) -> ServeEngi
     return engine
 
 
-def phase_serve() -> dict:
+def phase_serve(maintenance: MaintenanceConfig = None) -> dict:
+    """Serve 12 requests at full width with a fork part-way, the launch
+    counts zeroed just before and read just after.  With ``maintenance``,
+    every compaction pass is checked as it happens: the pool's invariants
+    hold and every live sequence's K/V pages moved bit-exactly."""
     max_new = 32
-    engine = full_width_engine(12, max_new)
+    engine = full_width_engine(12, max_new, maintenance=maintenance)
     model, params, cfg = engine.model, engine.params, engine.cfg
+    tag = "[serve+maint]" if maintenance else "[serve]"
     contig = []
     engine.step_hooks.append(lambda eng, s: contig.append(s["contiguity"]) if s["live"] else None)
+    passes = watch_compaction(engine) if maintenance else []
 
     kernels.reset_launches()
     decode_s, decode_tok, step_ms, fork = 0.0, 0, [], None
@@ -227,11 +386,13 @@ def phase_serve() -> dict:
     alive = True
     while alive:
         pre_tok, pre_fill = engine.tokens_decoded, engine.tokens_prefilled
+        pre_passes = engine.compaction_passes
         t0 = time.perf_counter()
         alive = engine.step()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        if engine.tokens_prefilled == pre_fill and engine.tokens_decoded > pre_tok:
+        if (engine.tokens_prefilled == pre_fill and engine.tokens_decoded > pre_tok
+                and engine.compaction_passes == pre_passes):
             decode_s += dt
             decode_tok += engine.tokens_decoded - pre_tok
             step_ms.append(dt * 1e3)
@@ -251,8 +412,13 @@ def phase_serve() -> dict:
               f"request {r.rid}: {len(r.out)} ids")
     check(launches["paged_attention"] == cfg.n_layers * engine.steps,
           f"paged_attention launches {launches['paged_attention']} != 24 x {engine.steps} steps")
-    check(launches["block_copy"] == 2, f"block_copy launches {launches['block_copy']} != 2 (K, V)")
     m = engine.metrics()
+    check(len(passes) == m["compaction_passes"], "a compaction pass went unchecked")
+    check(launches["block_copy"] == 2 + 2 * len(passes),
+          f"block_copy launches {launches['block_copy']} != 2 (fork) + 2 x {len(passes)} passes")
+    if maintenance:
+        check(m["compaction_passes"] > 0 and m["blocks_migrated"] > 0,
+              f"no compaction at these watermarks: {m['compaction_passes']} passes")
     # one more full-width forward, to check the logits themselves
     logits = model.prefill_logits(params, {
         "tokens": torch.tensor([done[0].prompt[:64]], device="cuda"),
@@ -260,7 +426,7 @@ def phase_serve() -> dict:
     check(tuple(logits.shape) == (1, vocab) and bool(torch.isfinite(logits).all()),
           "full-width logits not finite")
     out = {
-        "requests_done": len(done), "steps": engine.steps,
+        "requests_done": len(done), "steps": engine.steps, "clock": engine.clock,
         "tokens_decoded": engine.tokens_decoded, "tokens_prefilled": engine.tokens_prefilled,
         "decode_steps_timed": len(step_ms), "decode_tokens_per_s": decode_tok / decode_s,
         "mean_decode_step_ms": statistics.mean(step_ms),
@@ -269,13 +435,50 @@ def phase_serve() -> dict:
         "mean_live_contiguity": statistics.mean(contig), "final_metrics_contiguity":
             m["mean_contiguous_fraction"], "align_hits": m["align_hits"],
         "align_misses": m["align_misses"], "preemptions": m["preemptions"],
+        "compaction_passes": m["compaction_passes"], "blocks_migrated": m["blocks_migrated"],
+        "maintenance_ns_modelled": m["maintenance_ns"], "compaction_ms": [p["ms"] for p in passes],
         "fork": fork,
     }
     for k, v in out.items():
-        log(f"[serve] {k}: {v}")
+        log(f"{tag} {k}: {v}")
+    out["ids"] = {r.rid: list(r.out) for r in done}
     del engine, params
     torch.cuda.empty_cache()
     return out
+
+
+def watch_compaction(engine) -> list:
+    """Wrap ``engine.pool.compact``: around each pass, snapshot every live
+    sequence's K/V pages, then check the pool's invariants and that each
+    sequence's pages now at its new blocks equal the snapshot.  Returns the
+    list the passes are recorded in."""
+    pool, passes = engine.pool, []
+    compact = pool.compact
+
+    def checked(*args, **kwargs):
+        live = {slot: list(h.tiles) for slot, (h, _) in pool._seqs.items()}
+        snap = {slot: (pool.k[:, t].clone(), pool.v[:, t].clone()) for slot, t in live.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = compact(*args, **kwargs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check_kv_pool(pool).assert_ok()
+        moved = 0
+        for slot, (k, v) in snap.items():
+            now = list(pool._seqs[slot][0].tiles)
+            moved += sum(a != b for a, b in zip(live[slot], now))
+            for name, old in (("k", k), ("v", v)):
+                check(torch.equal(getattr(pool, name)[:, now].view(torch.int16), old.view(torch.int16)),
+                      f"compaction moved {name} pages of slot {slot} wrongly")
+        if report is not None and report.executed:
+            check(moved == report.executed, f"compaction: {moved} live blocks moved, "
+                  f"report says {report.executed}")
+            passes.append({"moves": report.executed, "ms": ms})
+        return report
+
+    pool.compact = checked
+    return passes
 
 
 def fork_and_check(engine) -> dict:
@@ -379,13 +582,50 @@ def phase_times() -> dict:
         "library_ms": time_ms(library, 20),
         "shape": f"pool {tuple(pool.shape)} bf16, {len(src)} pairs of {block_bytes} B",
     }
+    del pool
+    torch.cuda.empty_cache()
+    times.update(bulk_op_times())
     for name, t in times.items():
         t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
         t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
         log(f"[times] {name} ({t['shape']}): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"library {t['library_ms']}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
             f"kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of bound")
-    del pool
+    return times
+
+
+def bulk_op_times() -> dict:
+    """``bulk_op`` at the bitmap query's shape (2 GiB uint8 operands) for
+    and, or, not, maj and zero.  The bound counts each operand read once and
+    the output written once; operations are 32-bit logic ops at the float32
+    rate outside the tensor cores.  The library call is one PyTorch call of
+    the same function: for and, or and not that is the plain version's own
+    call (``torch.bitwise_*``), so its one time stands for both; ``zero_``
+    for zero; none for maj."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n = BITMAP_ROWS // 8
+    xs = [torch.randint(0, 256, (n,), generator=gen, device="cuda", dtype=torch.uint8)
+          for _ in range(3)]
+    out = torch.empty_like(xs[0])
+    word_ops = {"and": 1, "or": 1, "not": 1, "maj": 5, "zero": 0}
+    times = {}
+    for op, per_word in word_ops.items():
+        code, arity = bc_ops._BULK_OPS[op]
+        ins = xs[:arity]
+        plain_ms = time_ms(lambda: bulk_op_ref(*(ins or xs[:1]), op=op), 20)
+        if op == "zero":
+            library_ms = time_ms(out.zero_, 20)
+        else:
+            library_ms = plain_ms if op in ("and", "or", "not") else None
+        times[f"bulk_op:{op}"] = {
+            "ms": time_ms(lambda: bc_ops._launch_bulk(code, out, ins, 0xFF), 50),
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bytes_ms": (arity + 1) * n / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": per_word * (n // 4) / F32_FLOPS * 1e3,
+            "shape": f"{arity} x {n} B uint8 in, {n} B out"
+                     + (" (library = plain, same call)" if op in ("and", "or", "not") else ""),
+        }
+    del xs, out
     torch.cuda.empty_cache()
     return times
 
@@ -394,15 +634,30 @@ def main() -> None:
     name = phase_device()
     phase_build()
     errs = phase_kernels()
+    bitmap = phase_bitmap()
+    phase_pud_host()
     serve = phase_serve()
+    serve_maint = phase_serve(MAINTENANCE)
+    check(serve_maint["ids"] == serve["ids"],
+          "generated ids differ with compaction from the run without it")
+    check(serve_maint["steps"] == serve["steps"]
+          and serve_maint["launches"]["paged_attention"] == serve["launches"]["paged_attention"],
+          "maintenance changed the schedule")
+    log(f"[serve+maint] {serve_maint['compaction_passes']} compaction passes moved "
+        f"{serve_maint['blocks_migrated']} blocks; ids identical to the run without maintenance")
     phase_small_vs_cpu()
     times = phase_times()
+    launches = {"paged_attention": serve_maint["launches"]["paged_attention"],
+                "block_copy": serve_maint["launches"]["block_copy"],
+                "bulk_op": bitmap["launches"]["bulk_op"]}
+    errs["bulk_op"] = bitmap["max_abs_err"]
+    times["bulk_op"] = times["bulk_op:and"]
     line = {"kernels": []}
     for k, (source, replaces) in SOURCES.items():
         t = times[k]
         line["kernels"].append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serve["launches"][k],
+            "launches": launches[k],
             "max_abs_err": errs["main-bf16"] if k == "paged_attention" else errs[k],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

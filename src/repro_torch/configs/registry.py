@@ -1,8 +1,10 @@
 """Architecture registry: ``get_config(name)`` / ``ARCHS`` (all assigned).
 
-``puma_paper`` is the one non-LM entry.  Its config validates itself against
-the DRAM model (``core/dram.py``), which the port does not have yet, so
-``get_config("puma_paper")`` raises until that module is ported."""
+``puma_paper`` is the one non-LM entry: ``get_config("puma_paper")``
+returns a :class:`repro_torch.configs.puma_paper.PumaPaperConfig` — the
+paper's DRAM organization (channel/bank/subarray counts) validated against
+``DramGeometry`` and both interleave schemes at construction.  Use
+``.geometry()`` / ``.address_map()`` on it; ``lm_archs()`` excludes it."""
 from __future__ import annotations
 
 import importlib
@@ -27,11 +29,6 @@ ARCHS: List[str] = [
 
 def get_config(name: str) -> ModelConfig:
     name = name.replace("-", "_")
-    if name == "puma_paper":
-        raise NotImplementedError(
-            "puma_paper needs the DRAM cost model (core/dram.py), which is not "
-            "ported yet: see ROADMAP.md, 'Modules to port'"
-        )
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.CONFIG
 

@@ -47,6 +47,7 @@ from repro_torch.robustness.faults import injected_alloc_miss
 
 if TYPE_CHECKING:
     from repro_torch.robustness.faults import FaultInjector
+    from repro_torch.robustness.journal import Journal
 
 __all__ = ["TileHandle", "PoolStats", "TilePool"]
 
@@ -114,7 +115,7 @@ class TilePool:
         seed: int = 0,
         n_channels: int = 1,
         injector: Optional["FaultInjector"] = None,
-        journal=None,   # any object with append(kind, **fields)
+        journal: Optional["Journal"] = None,
     ):
         assert policy in self.POLICIES, policy
         assert n_channels >= 1 and n_arenas % n_channels == 0, (

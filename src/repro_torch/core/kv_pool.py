@@ -30,6 +30,7 @@ from repro_torch.kernels.pud_bulk.ops import pool_block_copy
 
 if TYPE_CHECKING:
     from repro_torch.robustness.faults import FaultInjector
+    from repro_torch.robustness.journal import Journal
 
 __all__ = ["KVPoolConfig", "PagedKVPool"]
 
@@ -69,14 +70,18 @@ class PagedKVPool:
         self,
         cfg: KVPoolConfig,
         injector: Optional["FaultInjector"] = None,
+        journal: Optional["Journal"] = None,
         *,
         device="cuda",
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
+        #: crash-consistency journal, shared with the inner tile pool so
+        #: slot-level (kv_*) and tile-level events form one total order.
+        self.journal = journal
         self.pool = TilePool(
             cfg.n_arenas, cfg.blocks_per_arena, cfg.policy,
-            n_channels=cfg.n_channels, injector=injector,
+            n_channels=cfg.n_channels, injector=injector, journal=journal,
         )
         dt = torch_dtype(cfg.dtype)
         shape = (cfg.n_layers, cfg.num_blocks, cfg.block_size, cfg.kv_heads, cfg.head_dim)
@@ -110,6 +115,10 @@ class PagedKVPool:
             return None
         slot = self._free_slots.pop(0)
         self._seqs[slot] = (h, n_prompt_tokens)
+        if self.journal is not None:
+            self.journal.append(
+                "kv_admit", slot=slot, hid=h.hid, ntok=n_prompt_tokens
+            )
         if self.trace is not None:
             self.trace.on_admit(slot, h.tiles, alloc=self.cfg.policy)
         return slot
@@ -126,20 +135,24 @@ class PagedKVPool:
         if h is None:
             return None
         if copy_data and parent.tiles:
-            src = np.asarray(parent.tiles, np.int64)
-            dst = np.asarray(h.tiles, np.int64)
-            L = self.cfg.n_layers
-            nb = self.cfg.num_blocks
-            # fold the layer dim into the block index so one kernel call
-            # clones every layer's pages
-            offs = (np.arange(L, dtype=np.int64) * nb)[:, None]
-            src_all = (src[None, :] + offs).reshape(-1)
-            dst_all = (dst[None, :] + offs).reshape(-1)
-            pool_block_copy(self.k.view((L * nb,) + self.k.shape[2:]), src_all, dst_all)
-            pool_block_copy(self.v.view((L * nb,) + self.v.shape[2:]), src_all, dst_all)
+            self._copy_blocks(parent.tiles, h.tiles)
         new_slot = self._free_slots.pop(0)
         self._seqs[new_slot] = (h, ntok)
+        if self.journal is not None:
+            self.journal.append("kv_fork", slot=new_slot, hid=h.hid, ntok=ntok)
         return new_slot
+
+    def _copy_blocks(self, src, dst) -> None:
+        """Copy pool blocks ``src[i]`` onto ``dst[i]`` in K and V, every
+        layer: the layer dim is folded into the block index so one kernel
+        call per pool moves all layers' pages."""
+        L = self.cfg.n_layers
+        nb = self.cfg.num_blocks
+        offs = (np.arange(L, dtype=np.int64) * nb)[:, None]
+        src_all = (np.asarray(src, np.int64)[None, :] + offs).reshape(-1)
+        dst_all = (np.asarray(dst, np.int64)[None, :] + offs).reshape(-1)
+        pool_block_copy(self.k.view((L * nb,) + self.k.shape[2:]), src_all, dst_all)
+        pool_block_copy(self.v.view((L * nb,) + self.v.shape[2:]), src_all, dst_all)
 
     def append_token(self, slot: int) -> bool:
         """Decode step bookkeeping: extend by a block when the current one fills."""
@@ -152,14 +165,55 @@ class PagedKVPool:
                 contig = len(h.tiles) < 2 or h.tiles[-1] == h.tiles[-2] + 1
                 self.trace.on_extend(slot, h.tiles[-1], contig)
         self._seqs[slot] = (h, ntok)
+        if self.journal is not None:
+            self.journal.append("kv_append", slot=slot)
         return True
 
     def release(self, slot: int) -> None:
         h, _ = self._seqs.pop(slot)
         self.pool.free(h)
+        if self.journal is not None:
+            self.journal.append("kv_release", slot=slot)
         if self.trace is not None:
             self.trace.on_release(slot)
         self._free_slots.append(slot)
+
+    # -- maintenance ----------------------------------------------------------
+    def compact(self, max_moves: int = 128, model=None, controller=None):
+        """One defragmentation pass over the block pool.
+
+        Plans with :func:`~repro_torch.robustness.compaction.plan_pool_compaction`
+        (intra-arena run repair first — RowClone-cheap — then arena
+        evacuation), applies every planned move to K and V in place with one
+        layer-folded ``pool_block_copy`` per pool (the plan guarantees
+        sources and destinations are disjoint), then commits the bookkeeping
+        through :func:`~repro_torch.robustness.compaction.compact_pool`, which
+        journals the pass and prices it.  Live block tables pick up the new
+        placement because the moves mutate the handles' tile lists in place.
+
+        Returns the :class:`~repro_torch.robustness.compaction.CompactionReport`,
+        or ``None`` when the planner found nothing worth moving.
+        """
+        from repro_torch.robustness.compaction import compact_pool, plan_pool_compaction
+
+        plan = plan_pool_compaction(self.pool, max_moves=max_moves)
+        if not plan.moves:
+            return None
+        self._copy_blocks([m.src for m in plan.moves], [m.dst for m in plan.moves])
+        cfg = self.cfg
+        tile_bytes = (
+            2 * cfg.n_layers * cfg.block_size * cfg.kv_heads * cfg.head_dim
+            * self.k.element_size()
+        )
+        report = compact_pool(
+            self.pool, plan,
+            tile_bytes=tile_bytes, model=model, controller=controller,
+        )
+        if self.trace is not None and report is not None:
+            self.trace.on_compact(
+                [(m.src, m.dst) for m in plan.moves], report
+            )
+        return report
 
     # -- trace helpers -----------------------------------------------------------
     def tiles_of(self, slot: int) -> List[int]:

@@ -21,10 +21,14 @@ later recomputes its KV from ``prompt + out[:-1]`` and continues bit-exactly;
 a batch that stays empty with a non-empty queue for more than
 ``stall_patience`` steps rejects the stuck requests with a stall report.
 
+Background maintenance: with a :class:`MaintenanceConfig`, a compaction
+pass (:meth:`PagedKVPool.compact`) runs after a step whenever a watermark
+trips, rate-limited; its moves go through the block-copy kernel and never
+change generation.
+
 The host logic is the reference engine's, line for line, so schedules match.
 The model runs eagerly on ``device`` (default ``"cuda"``; without a card the
-caller must ask for ``"cpu"``).  Watermark maintenance (background
-compaction) is the next slice of the port; ``maintenance`` must be None.
+caller must ask for ``"cpu"``).
 """
 from __future__ import annotations
 
@@ -51,11 +55,17 @@ if TYPE_CHECKING:
 
 @dataclasses.dataclass(frozen=True)
 class MaintenanceConfig:
-    """Watermarks for background compaction: a pass triggers when the free
-    fraction falls below ``free_low``, fragmentation rises above
-    ``frag_high`` or live contiguity falls below ``contig_low``, at most once
-    every ``every`` clock ticks and ``max_moves`` moves per pass.  The
-    engine does not take one yet (see the module docstring)."""
+    """Watermarks for the background compaction hook in :meth:`ServeEngine.step`.
+
+    A pass triggers when the pool's free-tile fraction falls below
+    ``free_low`` *or* its fragmentation rises above ``frag_high`` *or* the
+    live block tables' mean contiguous-run fraction falls below
+    ``contig_low`` — but at most once every ``every`` engine clock ticks, so
+    maintenance cannot monopolise the step loop.  ``max_moves`` bounds one
+    pass; the pass cost (RowClone rows + host copies, see
+    :func:`repro_torch.core.pud.price_migration`) lands in the engine's
+    ``maintenance_ns`` counter.
+    """
 
     free_low: float = 0.25
     frag_high: float = 0.5
@@ -104,11 +114,6 @@ class ServeEngine:
         maintenance: Optional[MaintenanceConfig] = None,
         trace=None,
     ):
-        if maintenance is not None:
-            raise NotImplementedError(
-                "watermark maintenance needs PagedKVPool.compact, which is not "
-                "ported yet (ROADMAP.md, 'Modules to port', the compaction slice)"
-            )
         cfg = model.cfg
         assert pool_cfg.kv_heads == cfg.n_kv_heads and pool_cfg.head_dim == cfg.hd
         assert pool_cfg.n_layers == cfg.n_layers
@@ -138,10 +143,12 @@ class ServeEngine:
         #: step-level metric hooks: each callable gets ``(engine, sample)``
         #: after every :meth:`step`, where ``sample`` is :meth:`step_sample`.
         self.step_hooks: List = []
+        # background maintenance (watermark-triggered compaction)
         self.maintenance = maintenance
         self.maintenance_ns = 0.0
         self.compaction_passes = 0
         self.blocks_migrated = 0
+        self._last_maintenance = -(10 ** 9)
         #: trace recorder, shared with the pool (None = no tracing overhead)
         self.trace = trace
         self.pool.trace = trace
@@ -272,6 +279,26 @@ class ServeEngine:
             self._preempt(victim)
         return self.pool.append_token(slot)
 
+    # -- background maintenance ------------------------------------------------
+    def _maybe_maintain(self) -> None:
+        """Run one compaction pass when a watermark trips (rate-limited)."""
+        mc = self.maintenance
+        if mc is None or self.clock - self._last_maintenance < mc.every:
+            return
+        pool = self.pool.pool
+        total = pool.total_tiles
+        free_frac = pool.free_tiles() / total if total else 1.0
+        frag = pool.fragmentation()
+        contig = self.pool.contiguity_report()["mean_contiguous_fraction"]
+        if free_frac > mc.free_low and frag < mc.frag_high and contig > mc.contig_low:
+            return
+        self._last_maintenance = self.clock
+        report = self.pool.compact(max_moves=mc.max_moves)
+        if report is not None and report.executed:
+            self.compaction_passes += 1
+            self.blocks_migrated += report.executed
+            self.maintenance_ns += report.total_ns
+
     # -- prefill --------------------------------------------------------------
     def _prefill(self, req: Request) -> bool:
         """Teacher-forced KV fill over ``prompt + out[:-1]`` — identical for
@@ -379,6 +406,8 @@ class ServeEngine:
                     ))
                 self._stall_steps = 0
                 return False
+            # stalled admission is exactly when defrag helps most
+            self._maybe_maintain()
             return True
         self._stall_steps = 0
 
@@ -434,6 +463,7 @@ class ServeEngine:
                     decoded=len(req.out),
                 ))
         self.steps += 1
+        self._maybe_maintain()
         return bool(self.live or self.queue)
 
     def drain(self, max_steps: int = 10_000) -> List[Request]:

@@ -15,7 +15,7 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pg_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.pud_bulk import ops as pud_ops  # noqa: E402
-from repro_torch.kernels.pud_bulk.ref import block_copy_ref  # noqa: E402
+from repro_torch.kernels.pud_bulk.ref import block_copy_ref, bulk_op_ref  # noqa: E402
 
 # the reference's tolerances: 2e-5 f32 (paged attention), 2e-2 bf16 (attention)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -128,3 +128,87 @@ def test_block_copy_kernel_matches_plain(cuda, dtype):
     torch.cuda.synchronize()
     assert kernels.launches["block_copy"] == before + 1
     assert torch.equal(out, plain)
+
+
+BULK_OPS = {"zero": (pud_ops.pud_zero, 1), "copy": (pud_ops.pud_copy, 1),
+            "not": (pud_ops.pud_not, 1), "and": (pud_ops.pud_and, 2),
+            "or": (pud_ops.pud_or, 2), "xor": (pud_ops.pud_xor, 2),
+            "maj": (pud_ops.pud_maj, 3)}
+
+
+def _bulk_inputs(shape, dtype, n, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if dtype == torch.bool:
+        return [torch.randint(0, 2, shape, generator=g, device="cuda").bool() for _ in range(n)]
+    raw = [torch.randint(0, 256, (math.prod(shape) * dtype.itemsize,), generator=g,
+                         device="cuda", dtype=torch.uint8) for _ in range(n)]
+    return [r.view(dtype).view(shape) for r in raw]
+
+
+def _check_bulk(op, xs):
+    fn, arity = BULK_OPS[op]
+    before = kernels.launches["bulk_op"]
+    out = fn(*xs[:arity])
+    torch.cuda.synchronize()
+    assert kernels.launches["bulk_op"] == before + 1
+    plain = bulk_op_ref(*xs[:arity], op=op)
+    assert out.shape == xs[0].shape and out.dtype == xs[0].dtype
+    assert torch.equal(out.view(torch.uint8), plain.contiguous().view(torch.uint8)), op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", sorted(BULK_OPS))
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32, torch.int8, torch.uint8])
+@pytest.mark.parametrize("shape", [(8, 128), (100,), (3, 5, 7), (1000, 3), (4097, 33)])
+def test_bulk_op_kernel_matches_plain_bit_exactly(cuda, op, dtype, shape):
+    _check_bulk(op, _bulk_inputs(shape, dtype, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", sorted(BULK_OPS))
+def test_bulk_op_kernel_on_bool_keeps_bools_valid(cuda, op):
+    xs = _bulk_inputs((1000,), torch.bool, 3)
+    _check_bulk(op, xs)
+    out = BULK_OPS[op][0](*xs[:BULK_OPS[op][1]])
+    assert int(out.view(torch.uint8).max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", sorted(BULK_OPS))
+def test_bulk_op_kernel_on_unaligned_views(cuda, op):
+    """Operands that start 1 byte into their storage take the byte path."""
+    base = _bulk_inputs((3, 10_001), torch.uint8, 1)[0]
+    xs = [base[i, 1:] for i in range(3)]
+    assert all(x.data_ptr() % 16 for x in xs)
+    _check_bulk(op, xs)
+
+
+@pytest.mark.cuda
+def test_bulk_op_kernel_over_2_gib(cuda):
+    """Byte counts past 2**31 need 64-bit indexing."""
+    n = 2 ** 31 + 4099
+    x = torch.full((n,), 0xA5, dtype=torch.uint8, device="cuda")
+    x[-5:] = torch.arange(5, dtype=torch.uint8, device="cuda")
+    y = torch.full((n,), 0x3C, dtype=torch.uint8, device="cuda")
+    out = pud_ops.pud_xor(x, y)
+    torch.cuda.synchronize()
+    assert int((out[:-5] != 0x99).sum()) == 0
+    assert out[-5:].tolist() == [v ^ 0x3C for v in range(5)]
+    del out
+    out = pud_ops.pud_not(x)
+    torch.cuda.synchronize()
+    assert int((out[:-5] != 0x5A).sum()) == 0
+    assert out[-5:].tolist() == [v ^ 0xFF for v in range(5)]
+
+
+@pytest.mark.cuda
+def test_bulk_op_kernel_rejects_mismatched_operands(cuda):
+    x = torch.zeros(100, dtype=torch.int32, device="cuda")
+    before = kernels.launches["bulk_op"]
+    with pytest.raises(ValueError, match="differ"):
+        pud_ops.pud_and(x, torch.zeros(101, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="differ"):
+        pud_ops.pud_or(x, torch.zeros(100, dtype=torch.int64, device="cuda"))
+    with pytest.raises(ValueError, match="differ"):
+        pud_ops.pud_xor(x, torch.zeros(100, dtype=torch.int32))
+    assert kernels.launches["bulk_op"] == before

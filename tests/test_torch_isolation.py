@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``repro_torch`` and
-loading ``chip_smoke.py`` pulls in neither JAX nor the reference package."""
+loading ``chip_smoke.py`` and the port's example and benchmark scripts pulls
+in neither JAX nor the reference package."""
 import pathlib
 import re
 import subprocess
@@ -11,6 +12,8 @@ pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
+           ROOT / "examples" / "torch_pud_bitwise.py", ROOT / "benchmarks" / "torch_microbench.py"]
 
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
@@ -18,8 +21,9 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for i, path in enumerate(sys.argv[1:]):
+    spec = importlib.util.spec_from_file_location(f"script{i}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.", "jaxlib")))
 print(len(names), bad)
@@ -28,7 +32,7 @@ print(len(names), bad)
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     proc = subprocess.run(
-        [sys.executable, "-c", _PROBE, str(ROOT / "chip_smoke.py")],
+        [sys.executable, "-c", _PROBE, *map(str, SCRIPTS)],
         capture_output=True, text=True, timeout=300,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
              "JAX_PLATFORMS": "cpu"},
@@ -44,7 +48,7 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + SCRIPTS,
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_source_has_no_jax_or_reference_import(path):

@@ -214,8 +214,11 @@ def test_unported_families_raise(arch):
 
 
 def test_puma_paper_config_raises_until_dram_model_is_ported():
-    with pytest.raises(NotImplementedError):
-        get_config("puma_paper")
+    """The DRAM model is ported: the paper's config builds and equals the
+    reference's, geometry and address map included."""
+    cfg, ref = get_config("puma_paper"), ref_get_config("puma_paper")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert cfg.address_map().total_bytes == ref.address_map().total_bytes
 
 
 @pytest.mark.parametrize("arch", ["stablelm_1_6b", "chatglm3_6b", "granite_moe_1b_a400m",

@@ -191,10 +191,19 @@ def test_pool_write_paths_match_reference(pair):
 
 
 def test_engine_refuses_maintenance(pair):
+    """The engine takes a MaintenanceConfig, and refuses a compaction pass
+    while no watermark trips: these never do, so no pass runs."""
     model, params = pair[2], pair[3]
-    with pytest.raises(NotImplementedError):
-        ServeEngine(model, params, KVPoolConfig(**_pool_kw(model.cfg)),
-                    device="cpu", maintenance=MaintenanceConfig())
+    never = MaintenanceConfig(free_low=0.0, frag_high=2.0, contig_low=-1.0, every=1)
+    eng = ServeEngine(model, params, KVPoolConfig(**_pool_kw(model.cfg)),
+                      device="cpu", maintenance=never)
+    rng = np.random.default_rng(2)
+    for rid in range(3):
+        eng.submit(Request(rid=rid, prompt=rng.integers(0, model.cfg.vocab_size, 9).tolist(),
+                           max_new=4))
+    assert len(eng.run()) == 3
+    m = eng.metrics()
+    assert (m["compaction_passes"], m["blocks_migrated"], m["maintenance_ns"]) == (0, 0, 0)
 
 
 def test_engine_device_defaults_to_cuda(pair, monkeypatch):
