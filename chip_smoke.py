@@ -6,8 +6,8 @@
 Run from the repository root (it puts ``src`` on ``sys.path`` itself).  It
 builds the hand-written kernels from ``src/repro_torch/csrc`` into
 ``build/kernels/``, holds each against its plain PyTorch version on the
-card, and drives the port's two main paths with the launch counts zeroed
-just before each and read just after:
+card, and drives the port's main paths with the launch counts zeroed just
+before each and read just after:
 
 * the bitmap-index query of ``examples/torch_pud_bitwise.py`` at 2**34 rows
   (2 GiB bitplanes) through the ``bulk_op`` kernel, held bit-exactly against
@@ -15,23 +15,31 @@ just before each and read just after:
 * the full-width stablelm_1_6b (random weights from a seeded generator)
   served through ``ServeEngine`` with a fork part-way, once as it is and
   once with watermark maintenance, whose compaction passes move KV pages
-  through the block-copy kernel and must leave the generated ids unchanged.
+  through the block-copy kernel and must leave the generated ids unchanged;
+* the full-width stablelm_1_6b trained for 20 steps by
+  ``repro_torch.launch.train --full`` (chunked attention, full remat,
+  AdamW, checkpointed), then evaluated and prefilled at 4 x 2048 tokens
+  through the flash-attention kernel (``attn_impl="pallas"``), held against
+  the chunked path on the same weights.
 
 It also runs the PUD host model (the quickstart's allocator table and the
-paper's Figure 2, modelled DRAM times), holds the card's generated ids
-against the CPU at smoke size, and times each kernel beside its bound.  Any
-failed check raises, so the script exits non-zero without its last line;
-that line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it
-exits non-zero at once.
+paper's Figure 2, modelled DRAM times), holds the card's generated ids and
+training losses against the CPU at smoke size, and times each kernel beside
+its bound.  Any failed check raises, so the script exits non-zero without
+its last line; that line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -44,7 +52,10 @@ import torch  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.kv_pool import KVPoolConfig  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, synth_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fl_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.pud_bulk import ops as bc_ops  # noqa: E402
@@ -53,11 +64,16 @@ from repro_torch.models.bridge import params_from_numpy, params_to_numpy  # noqa
 from repro_torch.models.layers import pad_vocab  # noqa: E402
 from repro_torch.models.params import count_params  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.robustness import check_kv_pool  # noqa: E402
 from repro_torch.serve.engine import MaintenanceConfig, Request, ServeEngine  # noqa: E402
+from repro_torch.train.step import build_eval_step  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+BF16_TC_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the reference's own tolerances
 BF16_ULP = 2.0 ** -7           # bf16 cases also: within one ulp of the plain output
 SOURCES = {
@@ -67,6 +83,8 @@ SOURCES = {
                    "src/repro/kernels/pud_bulk/kernel.py:125"),
     "bulk_op": ("src/repro_torch/csrc/bulk_op.cu",
                 "src/repro/kernels/pud_bulk/kernel.py:84"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:87"),
 }
 # the full-width serving shapes (stablelm_1_6b, bf16)
 N_LAYERS, HEADS, HEAD_DIM, BLOCK = 24, 32, 64, 16
@@ -77,6 +95,18 @@ BULK_OPS = {"zero": (bc_ops.pud_zero, 1), "copy": (bc_ops.pud_copy, 1),
             "not": (bc_ops.pud_not, 1), "and": (bc_ops.pud_and, 2),
             "or": (bc_ops.pud_or, 2), "xor": (bc_ops.pud_xor, 2),
             "maj": (bc_ops.pud_maj, 3)}
+# the flash kernel's main shape: the full-width forward at 4 x 2048 tokens
+FLASH_MAIN = dict(B=4, Hq=HEADS, Hkv=HEADS, Sq=2048, Sk=2048, D=HEAD_DIM, causal=True)
+# whole-model bf16 tolerances, flash path against chunked on the same weights:
+# the two differ in where attention rounds (flash rounds P to bf16 before
+# P.V), which bf16 layers carry to the loss and the logits
+EVAL_LOSS_RTOL = 1e-2
+LOGITS_TOL = 5e-2              # of the logits' largest magnitude
+# smoke training, card against CPU, f32: the first step's loss is one
+# forward of the same weights; later steps follow AdamW, which moves every
+# element by about lr whatever the size of its gradient, so float32
+# rounding of near-zero gradients parts the runs a little more each step
+SMALL_TRAIN_TOL = (1e-4, 1e-2)  # relative: step 1, steps 2-5
 # watermarks of tests/test_compaction.py's maintenance scenario
 MAINTENANCE = MaintenanceConfig(free_low=0.9, frag_high=0.05, contig_low=0.999,
                                 max_moves=64, every=2)
@@ -184,6 +214,9 @@ def phase_kernels() -> dict:
         if kw["lens"][0] == 0:
             check(bool((out[0] == 0).all()), f"{name}: a length-0 row must give zeros")
 
+    errs.update(paged_fp8_case(gen))
+    errs.update(flash_cases())
+
     pool, src, dst = block_copy_case()
     orig = pool.clone()
     plain = block_copy_ref(orig.clone(), torch.from_numpy(np.stack([src, dst], 1)))
@@ -196,10 +229,95 @@ def phase_kernels() -> dict:
           "block_copy destinations != sources")
     log(f"[kernels] block_copy bf16 pool {tuple(pool.shape)}, {len(src)} pairs: bit-exact, "
         f"{pool.shape[0] - len(dst)} unlisted blocks bit-identical")
+    # a compaction pass may chain a move into a block another move empties
+    chain_src, chain_dst = src[:8].copy(), dst[:8].copy()
+    chain_src[0] = chain_dst[1]
+    orig = pool.clone()
+    plain = block_copy_ref(orig.clone(), torch.from_numpy(np.stack([chain_src, chain_dst], 1)))
+    bc_ops.pool_block_copy(pool, chain_src, chain_dst)
+    torch.cuda.synchronize()
+    check(torch.equal(pool.view(torch.int16), plain.view(torch.int16)),
+          "block_copy with a chained move != plain version")
+    log("[kernels] block_copy with a chained move (a source that is another pair's "
+        "destination): bit-exact, two launches")
     errs["block_copy"] = 0.0
     del pool, orig, plain
     torch.cuda.empty_cache()
     errs["bulk_op_cases"] = bulk_op_cases()
+    return errs
+
+
+def paged_fp8_case(gen) -> dict:
+    """fp8 e4m3 K/V pages at the main serving shape, q in bf16 and f32."""
+    errs = {}
+    for qdt in (torch.bfloat16, torch.float32):
+        q, kp, vp, tbl, lens = paged_case(gen, MAX_SEQS, HEADS, HEADS, HEAD_DIM, main_lens(), qdt)
+        kp, vp = kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn)
+        out = pa_ops.paged_attention(q, kp, vp, tbl, lens)
+        torch.cuda.synchronize()
+        plain = paged_plain(q, kp, vp, tbl, lens)
+        err = (out.float() - plain.float()).abs().max().item()
+        name = f"fp8-pages-{str(qdt).split('.')[-1]}"
+        errs[name] = err
+        log(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} (tol 2e-2)")
+        check(out.dtype == qdt and out.shape == q.shape, f"{name}: output type/shape")
+        check(err < 2e-2, f"paged_attention {name}: err {err} over tolerance")
+    return errs
+
+
+# tests/test_kernels.py's six shapes (B, Hq, Hkv, Sq, Sk, D, causal, dtype), then the main path's
+FLASH_CASES = [
+    (2, 4, 2, 64, 64, 32, True, torch.float32),
+    (1, 8, 1, 100, 100, 64, True, torch.float32),
+    (2, 4, 4, 32, 96, 80, False, torch.float32),
+    (1, 2, 2, 1, 200, 128, False, torch.float32),
+    (1, 4, 2, 128, 128, 64, True, torch.bfloat16),
+    (1, 48, 1, 33, 33, 128, True, torch.float32),
+    (4, 32, 32, 2048, 2048, 64, True, torch.bfloat16),    # main shape
+    (4, 32, 32, 2048, 2048, 64, True, torch.float32),
+    (2, 32, 8, 1024, 1024, 128, True, torch.bfloat16),    # GQA
+    (2, 32, 8, 1024, 1024, 128, True, torch.float32),
+    (2, 8, 4, 300, 1000, 64, False, torch.bfloat16),      # non-causal, Sq != Sk
+    (2, 8, 4, 300, 1000, 64, False, torch.float32),
+]
+
+
+def flash_inputs(gen, B, Hq, Hkv, Sq, Sk, D, dtype):
+    return [torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
+
+
+def flash_cases() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    errs = {}
+    for B, Hq, Hkv, Sq, Sk, D, causal, dtype in FLASH_CASES:
+        q, k, v = flash_inputs(gen, B, Hq, Hkv, Sq, Sk, D, dtype)
+        out = fl_ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        path = fl_ops.last_path
+        plain = attention_ref(q, k, v, causal=causal)
+        err = (out.float() - plain.float()).abs().max().item()
+        name = f"flash B{B} H{Hq}/{Hkv} S{Sq}x{Sk} D{D} {'causal' if causal else 'full'} " \
+               f"{str(dtype).split('.')[-1]}"
+        errs[name] = err
+        log(f"[kernels] {name} ({path}): max_abs_err {err:.3e} (tol {TOL[dtype]:g})")
+        check(out.dtype == dtype and out.shape == q.shape, f"{name}: output type/shape")
+        check(err < TOL[dtype], f"{name}: err {err} over tolerance")
+        del q, k, v, out, plain
+    torch.cuda.empty_cache()
+    q, k, v = flash_inputs(gen, 1, 2, 2, 16, 16, 64, torch.bfloat16)
+    q.requires_grad_(True)
+    before = kernels.launches["flash_attention"]
+    try:
+        fl_ops.flash_attention(q, k, v)
+        raised = False
+    except RuntimeError:
+        raised = True
+    check(raised and kernels.launches["flash_attention"] == before,
+          "flash_attention must raise under autograd, before launching")
+    log("[kernels] flash_attention raises under autograd (forward only, as the reference)")
+    errs["flash_attention"] = errs[
+        f"flash B4 H32/32 S2048x2048 D64 causal bfloat16"]
     return errs
 
 
@@ -524,6 +642,176 @@ def phase_small_vs_cpu() -> None:
     log(f"[small] smoke config, 6 requests x 8 ids: card ids == CPU ids")
 
 
+# -- phase 5b: the training path at full width -------------------------------
+
+def phase_train(ckpt_root: str) -> dict:
+    """``python -m repro_torch.launch.train --arch stablelm_1_6b --steps 20
+    --full`` in-process: the full-width model, bf16, remat="full", chunked
+    attention, seq 128 x batch 8, lr 3e-3, warmup 5; the trainer writes its
+    final checkpoint (params and AdamW moments) under ``ckpt_root``."""
+    cfg = get_config("stablelm_1_6b")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hd, cfg.d_ff, cfg.vocab_size)
+          == (N_LAYERS, 2048, HEADS, HEAD_DIM, 5632, 100352), "stablelm_1_6b is not at full width")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = launch_train.main(["--arch", "stablelm_1_6b", "--full", "--steps", "20",
+                             "--ckpt-dir", ckpt_root])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    hist = out["history"]
+    check([s for s, _ in hist] == list(range(20)), f"trained steps {[s for s, _ in hist]}")
+    for s, m in hist:
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"step {s}: loss {m['loss']} grad norm {m['grad_norm']}")
+    losses = [m["loss"] for _, m in hist]
+    step_s = [m["step_time"] for _, m in hist[1:]]      # step 0 includes warm-up
+    ckpt_dir = Path(ckpt_root) / "stablelm_1_6b" / "step_00000020"
+    ckpt_gb = sum(f.stat().st_size for f in ckpt_dir.iterdir()) / 1e9
+    check((ckpt_dir / "manifest.json").exists() and ckpt_gb > 15, f"final checkpoint {ckpt_gb} GB")
+    res = {
+        "losses": losses, "grad_norms": [m["grad_norm"] for _, m in hist],
+        "mean_step_ms": 1e3 * statistics.mean(step_s),
+        "tokens_per_s": 128 * 8 / statistics.mean(step_s),
+        "run_s": run_s, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "checkpoint_gb": ckpt_gb, "launches": launches,
+    }
+    log(f"[train] loss curve: {' '.join(f'{x:.4f}' for x in losses)}")
+    lrs = " ".join(f"{m['lr']:.2e}" for _, m in hist)
+    log(f"[train] lr: {lrs}")
+    log(f"[train] grad norms: {' '.join(f'{x:.3f}' for x in res['grad_norms'])}")
+    log(f"[train] 20 full-width steps (seq 128 x batch 8, bf16, remat full): mean step "
+        f"{res['mean_step_ms']:.1f} ms (steps 1-19, host clock incl. sync), "
+        f"{res['tokens_per_s']:.0f} tokens/s; peak {res['peak_gb']:.1f} GB; run {run_s:.1f} s "
+        f"incl. init and a {ckpt_gb:.1f} GB final checkpoint; kernel launches {launches}")
+    res["params"] = out["params"]
+    return res
+
+
+def _forward(model, what, params, arg):
+    """One no-grad forward (``eval`` or ``prefill``), timed on the host clock
+    with ``synchronize``, the launch counts zeroed just before it; returns
+    (output, ms, flash launches)."""
+    fn = build_eval_step(model) if what == "eval" else model.prefill_logits
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y = fn(params, arg)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    check(bool(torch.isfinite(y).all()), f"{what} ({model.attn_impl}): not finite")
+    return y, ms, kernels.launches["flash_attention"]
+
+
+def _first_layers(cfg, params, n):
+    """The model of the first ``n`` layers of ``params`` (views, no copy)."""
+    layers = {k: {kk: t[:n] for kk, t in v.items()} for k, v in params["layers"].items()}
+    return dataclasses.replace(cfg, n_layers=n), dict(params, layers=layers)
+
+
+def phase_flash_forward(params) -> dict:
+    """The trained full-width weights evaluated (``build_eval_step``) and
+    prefilled (``prefill_logits``) at 4 x 2048 tokens through the flash
+    kernel (``attn_impl="pallas"``), each forward with the launch counts
+    zeroed just before it and read just after (24 launches each); held
+    against ``attn_impl="chunked"`` on the same weights.
+
+    Under the reference's init rule the full-width model is chaotic in
+    depth: two plain attention paths that differ only in float rounding give
+    24-layer prefill logits O(1) apart (the reference too: ROADMAP.md,
+    faults).  So the 24-layer eval loss, an average over 8192 positions, is
+    held to ``EVAL_LOSS_RTOL``; the prefill logits of the first layer of the
+    same weights, where rounding is not yet amplified, to ``LOGITS_TOL`` of
+    their scale; and the logits after 4 and 24 layers are reported beside
+    the spread of the two plain paths (naive against chunked)."""
+    cfg = get_config("stablelm_1_6b")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=FLASH_MAIN["Sq"],
+                      batch_per_shard=FLASH_MAIN["B"])
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synth_batch(data, 0, 0).items()}
+    prompts = {"tokens": torch.from_numpy(synth_batch(data, 1, 0)["tokens"]).cuda(),
+               "positions": batch["positions"]}
+    res = {"launches": {}, "prefill": {}}
+    loss = {}
+    for impl in ("pallas", "chunked"):
+        y, res[f"eval_{impl}_ms"], n = _forward(LM(cfg, attn_impl=impl), "eval", params, batch)
+        check(n == (cfg.n_layers if impl == "pallas" else 0),
+              f"eval ({impl}): {n} flash_attention launches, not {cfg.n_layers}")
+        res["launches"][f"eval_{impl}"] = n
+        loss[impl] = float(y)
+    res["eval_loss"] = {**loss, "rel_diff": abs(loss["pallas"] - loss["chunked"]) / abs(loss["chunked"])}
+    for depth in (1, 4, cfg.n_layers):
+        cfg_d, params_d = _first_layers(cfg, params, depth)
+        z = {}
+        for impl in ("pallas", "chunked", "naive"):
+            y, ms, n = _forward(LM(cfg_d, attn_impl=impl), "prefill", params_d, prompts)
+            check(n == (depth if impl == "pallas" else 0),
+                  f"prefill ({impl}, {depth} layers): {n} flash_attention launches, not {depth}")
+            if impl == "pallas":
+                check(fl_ops.last_path == "mma", f"the bf16 forward took the {fl_ops.last_path} path")
+            check(tuple(y.shape) == (FLASH_MAIN["B"], pad_vocab(cfg)), f"prefill logits {tuple(y.shape)}")
+            z[impl] = y.float()
+            if depth == cfg.n_layers:
+                res[f"prefill_{impl}_ms"] = ms
+                res["launches"][f"prefill_{impl}"] = n
+        res["prefill"][depth] = {
+            "flash_vs_chunked": (z["pallas"] - z["chunked"]).abs().max().item(),
+            "naive_vs_chunked": (z["naive"] - z["chunked"]).abs().max().item(),
+            "scale": z["chunked"].abs().max().item(),
+            "argmax_equal": int((z["pallas"].argmax(-1) == z["chunked"].argmax(-1)).sum()),
+        }
+    el, pf = res["eval_loss"], res["prefill"]
+    log(f"[flash-path] eval loss at 4 x 2048 ({cfg.n_layers} layers): flash {el['pallas']:.5f}, "
+        f"chunked {el['chunked']:.5f} (rel diff {el['rel_diff']:.2e}, tol {EVAL_LOSS_RTOL:g}); "
+        f"{cfg.n_layers} flash launches per forward")
+    for depth, r in pf.items():
+        log(f"[flash-path] prefill logits after {depth} layer(s): flash vs chunked max abs diff "
+            f"{r['flash_vs_chunked']:.4f}, naive vs chunked {r['naive_vs_chunked']:.4f}, of scale "
+            f"{r['scale']:.3f}; argmax equal {r['argmax_equal']}/{FLASH_MAIN['B']}"
+            + (f" (tol {LOGITS_TOL:g} of scale)" if depth == 1 else ""))
+    log(f"[flash-path] forward ms (host clock incl. sync): eval flash {res['eval_pallas_ms']:.1f}, "
+        f"chunked {res['eval_chunked_ms']:.1f}; prefill flash {res['prefill_pallas_ms']:.1f}, "
+        f"chunked {res['prefill_chunked_ms']:.1f}, naive {res['prefill_naive_ms']:.1f}")
+    check(el["rel_diff"] < EVAL_LOSS_RTOL, "eval loss: flash vs chunked over tolerance")
+    check(pf[1]["flash_vs_chunked"] < LOGITS_TOL * pf[1]["scale"],
+          "1-layer prefill logits: flash vs chunked over tolerance")
+    res["launches_total"] = res["launches"]["eval_pallas"] + res["launches"]["prefill_pallas"]
+    return res
+
+
+def phase_small_train_vs_cpu(ckpt_root: str) -> dict:
+    """5 steps of the smoke config through the ``Trainer`` on the card and on
+    the CPU from the same weights (drawn once, bridged to each device), f32;
+    the card's run also checkpoints at step 3 and a second trainer resumes
+    from it."""
+    cfg = get_config("stablelm_1_6b").smoke()
+    model = LM(cfg, attn_impl="chunked", remat=None)
+    tree = params_to_numpy(model.init(torch.Generator().manual_seed(2), device="cpu"))
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, batch_per_shard=8)
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=20)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        tcfg = TrainerConfig(total_steps=5, ckpt_every=3, ckpt_dir=f"{ckpt_root}/small-{dev}",
+                             log_every=1000)
+        out = Trainer(model, data, ocfg, tcfg, device=dev, log=lambda s: None,
+                      init_params=lambda: params_from_numpy(model, tree, device=dev)).run()
+        losses[dev] = [m["loss"] for _, m in out["history"]]
+    tcfg = TrainerConfig(total_steps=7, ckpt_every=100, ckpt_dir=f"{ckpt_root}/small-cuda",
+                         log_every=1000)
+    resumed = Trainer(model, data, ocfg, tcfg, device="cuda", log=lambda s: None,
+                      init_params=lambda: params_from_numpy(model, tree, device="cuda")).run()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    log(f"[small-train] smoke config, 5 steps: card {['%.6f' % x for x in losses['cuda']]}, "
+        f"CPU {['%.6f' % x for x in losses['cpu']]}; relative diffs {['%.1e' % x for x in rel]} "
+        f"(tol {SMALL_TRAIN_TOL[0]:g} at step 1, {SMALL_TRAIN_TOL[1]:g} after); resumed at step 5 "
+        f"to 7 on the card: steps {[s for s, _ in resumed['history']]}")
+    check(len(rel) == 5 and rel[0] < SMALL_TRAIN_TOL[0] and max(rel[1:]) < SMALL_TRAIN_TOL[1],
+          f"smoke training: card and CPU losses differ {rel}")
+    check([s for s, _ in resumed["history"]] == [5, 6], "the card trainer did not resume at step 5")
+    return {"card": losses["cuda"], "cpu": losses["cpu"], "rel": rel}
+
+
 # -- phase 6 -----------------------------------------------------------------
 
 def time_ms(fn, reps: int) -> float:
@@ -585,6 +873,8 @@ def phase_times() -> dict:
     del pool
     torch.cuda.empty_cache()
     times.update(bulk_op_times())
+    times.update(flash_times())
+    times.update(paged_fp8_times())
     for name, t in times.items():
         t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
         t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
@@ -592,6 +882,67 @@ def phase_times() -> dict:
             f"library {t['library_ms']}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
             f"kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of bound")
     return times
+
+
+def flash_flops(B, Hq, Sq, Sk, D, causal) -> float:
+    """Multiply-adds of q.k and p.v (2 flops each) over the (query, key)
+    pairs the mask leaves visible."""
+    if causal:
+        pairs = sum(min(i + 1, Sk) for i in range(Sq))
+    else:
+        pairs = Sq * Sk
+    return 4.0 * B * Hq * D * pairs
+
+
+def flash_times() -> dict:
+    """The flash kernel at its main shape (4 x 32 heads x 2048 x 64, causal),
+    bf16 (the main path's type: tensor cores) and f32 (CUDA cores).  The
+    bound counts q, k, v read once and the output written once, and the
+    visible pairs' operations at the type's peak rate.  The library call is
+    ``scaled_dot_product_attention(is_causal=True)``, a yardstick the port
+    never calls."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    m = FLASH_MAIN
+    times = {}
+    for dtype, peak, key in ((torch.bfloat16, BF16_TC_FLOPS, "flash_attention"),
+                             (torch.float32, F32_FLOPS, "flash_attention:f32")):
+        q, k, v = flash_inputs(gen, m["B"], m["Hq"], m["Hkv"], m["Sq"], m["Sk"], m["D"], dtype)
+        nbytes = 4 * q.numel() * q.element_size()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        times[key] = {
+            "ms": time_ms(lambda: fl_ops._launch(q, k, v, True, m["D"] ** -0.5), 20),
+            "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True), 5),
+            "library_ms": time_ms(lambda: sdpa(q, k, v, is_causal=True), 20),
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": flash_flops(m["B"], m["Hq"], m["Sq"], m["Sk"], m["D"], True) / peak * 1e3,
+            "shape": f"q/k/v ({m['B']}, {m['Hq']}, {m['Sq']}, {m['D']}) causal "
+                     f"{str(dtype).split('.')[-1]}, {fl_ops.last_path} path",
+        }
+        del q, k, v
+    torch.cuda.empty_cache()
+    return times
+
+
+def paged_fp8_times() -> dict:
+    """Paged attention over fp8 pages at the main serving shape, q bf16: the
+    bound counts one byte per K/V element."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lens = main_lens()
+    q, kp, vp, tbl, lens_t = paged_case(gen, MAX_SEQS, HEADS, HEADS, HEAD_DIM, lens, torch.bfloat16)
+    kp, vp = kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn)
+    qg = q.reshape(MAX_SEQS, HEADS, 1, HEAD_DIM)
+    scale = HEAD_DIM ** -0.5
+    pages_read = sum(-(-n // BLOCK) for n in lens)
+    nbytes = (2 * sum(lens) * HEADS * HEAD_DIM + 2 * q.numel() * q.element_size()
+              + pages_read * 4 + lens_t.numel() * 4)
+    return {"paged_attention:fp8": {
+        "ms": time_ms(lambda: pa_ops._launch(qg, kp, vp, tbl, lens_t, scale), 50),
+        "plain_ms": time_ms(lambda: paged_attention_ref(qg, kp, vp, tbl, lens_t, scale=scale), 10),
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "ops_ms": 4 * HEADS * HEAD_DIM * sum(lens) / F32_FLOPS * 1e3,
+        "library_ms": None,
+        "shape": f"B={MAX_SEQS} Hq=Hkv={HEADS} D={HEAD_DIM} bs={BLOCK} q bf16, fp8 e4m3 pages",
+    }}
 
 
 def bulk_op_times() -> dict:
@@ -646,10 +997,19 @@ def main() -> None:
     log(f"[serve+maint] {serve_maint['compaction_passes']} compaction passes moved "
         f"{serve_maint['blocks_migrated']} blocks; ids identical to the run without maintenance")
     phase_small_vs_cpu()
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        train = phase_train(ckpt_root)
+        flash = phase_flash_forward(train.pop("params"))
+        torch.cuda.empty_cache()
+        phase_small_train_vs_cpu(ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     times = phase_times()
     launches = {"paged_attention": serve_maint["launches"]["paged_attention"],
                 "block_copy": serve_maint["launches"]["block_copy"],
-                "bulk_op": bitmap["launches"]["bulk_op"]}
+                "bulk_op": bitmap["launches"]["bulk_op"],
+                "flash_attention": flash["launches_total"]}
     errs["bulk_op"] = bitmap["max_abs_err"]
     times["bulk_op"] = times["bulk_op:and"]
     line = {"kernels": []}

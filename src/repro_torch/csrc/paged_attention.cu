@@ -6,8 +6,10 @@
 // tokens of the sequence's KV stream, which lives as block_size-token pages
 // listed in an int32 block table (-1 entries clamp to page 0; positions
 // >= seq_lens[b] are masked).  Online softmax with an f32 running max, sum
-// and accumulator; a sequence of length 0 gives zeros.  q, pools and output
-// share one type, float32 or bfloat16.
+// and accumulator; a sequence of length 0 gives zeros.  q and output share
+// one type, float32 or bfloat16; the pools are that type too, or float8
+// e4m3 pages (kv_cache_dtype="float8_e4m3fn"), each element converted to f32
+// in registers as it is staged, as the TPU kernel casts its pages to f32.
 //
 // Bound: device-memory bytes (the K and V pages a sequence needs, read
 // once), at 3.35 TB/s; the arithmetic (4 x group x D flops per token) is far
@@ -23,6 +25,7 @@
 // pipelining, no tensor cores: that is later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,6 +60,16 @@ __device__ __forceinline__ void unpack(const uint4& r, float* d, const __nv_bflo
   }
 }
 
+__device__ __forceinline__ void unpack(const uint4& r, float* d, const __nv_fp8_e4m3*) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    __nv_fp8_e4m3 x;
+    x.__x = static_cast<__nv_fp8_storage_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu);
+    d[i] = static_cast<float>(x);
+  }
+}
+
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
@@ -72,13 +85,15 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-template <typename T>
+// T: q and output; P: the pages (T itself, or fp8 e4m3)
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool, const T* __restrict__ v_pool,
+    const T* __restrict__ q, const P* __restrict__ k_pool, const P* __restrict__ v_pool,
     const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
     T* __restrict__ out, int Hkv, int group, int D, int bs, int max_blocks,
     int num_blocks, int tile_pages, float scale) {
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int kVec = 16 / sizeof(T);  // q elements per 16-byte load
+  constexpr int kPVec = 16 / sizeof(P); // page elements per 16-byte load
   extern __shared__ float smem[];       // smem_floats(group, D, tile_rows) floats
   const int tile_rows = tile_pages * bs;
   float* q_s = smem;                    // [group][D]
@@ -93,7 +108,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int h = blockIdx.x - b * Hkv;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int vpr = D / kVec;             // 16-byte vectors per head row
+  const int vpr = D / kVec;             // 16-byte vectors per q row
+  const int pvpr = D / kPVec;           // 16-byte vectors per page row
   const int GD = group * D;
   const long long row_stride = (long long)Hkv * D;  // token to token in a page
   const long long qo = ((long long)b * Hkv + h) * GD;
@@ -119,8 +135,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   for (int start = 0; start < len; start += tile_rows) {
     const int n = min(tile_rows, len - start);  // valid tokens in this tile
     const int page0 = start / bs;
-    for (int i = threadIdx.x; i < n * vpr; i += kThreads) {
-      const int r = i / vpr, c = (i - r * vpr) * kVec;
+    for (int i = threadIdx.x; i < n * pvpr; i += kThreads) {
+      const int r = i / pvpr, c = (i - r * pvpr) * kPVec;
       int blk = tbl[page0 + r / bs];
       blk = blk < 0 ? 0 : (blk >= num_blocks ? num_blocks - 1 : blk);
       const long long off =
@@ -191,13 +207,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 
 // Sizes the tile and the shared memory for these shapes and launches; a
 // shape the kernel cannot take gives cudaErrorInvalidValue.
-template <typename T>
+template <typename T, typename P>
 int launch(const void* q, const void* k, const void* v, const void* tbl,
            const void* lens, void* out, int B, int Hkv, int group, int D, int bs,
            int max_blocks, int num_blocks, float scale, void* stream) {
   if (B <= 0 || Hkv <= 0) return 0;
   if (group <= 0 || D <= 0 || bs <= 0 || group * D > kThreads * kAccPerThread ||
-      D % (16 / (int)sizeof(T)) != 0)
+      D % (16 / (int)sizeof(T)) != 0 || D % (16 / (int)sizeof(P)) != 0)
     return (int)cudaErrorInvalidValue;
   const int tile_pages = D * bs >= kTileElems ? 1 : kTileElems / (D * bs);
   const long long smem = sizeof(float) * smem_floats(group, D, tile_pages * bs);
@@ -210,13 +226,13 @@ int launch(const void* q, const void* k, const void* v, const void* tbl,
   const int smem_bytes = (int)smem;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_attention_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  paged_attention_kernel<T><<<B * Hkv, kThreads, smem_bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  paged_attention_kernel<T, P><<<B * Hkv, kThreads, smem_bytes,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const P*>(k), static_cast<const P*>(v),
       static_cast<const int*>(tbl), static_cast<const int*>(lens),
       static_cast<T*>(out), Hkv, group, D, bs, max_blocks, num_blocks, tile_pages,
       scale);
@@ -225,23 +241,19 @@ int launch(const void* q, const void* k, const void* v, const void* tbl,
 
 }  // namespace
 
-extern "C" int paged_attention_f32(const void* q, const void* k, const void* v,
-                                   const void* tbl, const void* lens, void* out,
-                                   int B, int Hkv, int group, int D, int bs,
-                                   int max_blocks, int num_blocks, float scale,
-                                   void* stream) {
-  return launch<float>(q, k, v, tbl, lens, out, B, Hkv, group, D, bs, max_blocks,
-                       num_blocks, scale, stream);
-}
+#define PAGED_ENTRY(NAME, T, P)                                                       \
+  extern "C" int NAME(const void* q, const void* k, const void* v, const void* tbl,   \
+                      const void* lens, void* out, int B, int Hkv, int group, int D,  \
+                      int bs, int max_blocks, int num_blocks, float scale,            \
+                      void* stream) {                                                 \
+    return launch<T, P>(q, k, v, tbl, lens, out, B, Hkv, group, D, bs, max_blocks,    \
+                        num_blocks, scale, stream);                                   \
+  }
 
-extern "C" int paged_attention_bf16(const void* q, const void* k, const void* v,
-                                    const void* tbl, const void* lens, void* out,
-                                    int B, int Hkv, int group, int D, int bs,
-                                    int max_blocks, int num_blocks, float scale,
-                                    void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, tbl, lens, out, B, Hkv, group, D, bs,
-                               max_blocks, num_blocks, scale, stream);
-}
+PAGED_ENTRY(paged_attention_f32, float, float)
+PAGED_ENTRY(paged_attention_bf16, __nv_bfloat16, __nv_bfloat16)
+PAGED_ENTRY(paged_attention_f32_fp8, float, __nv_fp8_e4m3)
+PAGED_ENTRY(paged_attention_bf16_fp8, __nv_bfloat16, __nv_fp8_e4m3)
 
 extern "C" const char* cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));

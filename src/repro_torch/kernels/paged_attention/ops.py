@@ -5,6 +5,8 @@ CPU tensors take :func:`ref.paged_attention_ref`; CUDA tensors launch the
 hand-written kernel in ``csrc/paged_attention.cu`` (or raise).  The query
 heads of one KV head form a group that shares each loaded page; there is no
 padding of the group (the reference pads it to 8 rows only for the TPU).
+Pages are q's type, or float8 e4m3 (``kv_cache_dtype="float8_e4m3fn"``),
+widened to f32 in the kernel; the output is in q's type.
 """
 from __future__ import annotations
 
@@ -18,7 +20,13 @@ from repro_torch.kernels.paged_attention import ref as _ref
 
 __all__ = ["paged_attention"]
 
-_ENTRY = {torch.float32: "paged_attention_f32", torch.bfloat16: "paged_attention_bf16"}
+# (q dtype, page dtype) -> C entry point
+_ENTRY = {
+    (torch.float32, torch.float32): "paged_attention_f32",
+    (torch.bfloat16, torch.bfloat16): "paged_attention_bf16",
+    (torch.float32, torch.float8_e4m3fn): "paged_attention_f32_fp8",
+    (torch.bfloat16, torch.float8_e4m3fn): "paged_attention_bf16_fp8",
+}
 
 
 def paged_attention(
@@ -57,10 +65,11 @@ def _launch(q, k_pool, v_pool, block_tables, seq_lens, scale) -> torch.Tensor:
     if v_pool.shape != k_pool.shape or (hkv_pool, d_pool) != (Hkv, D):
         raise ValueError(f"pool shapes {tuple(k_pool.shape)} / {tuple(v_pool.shape)} "
                          f"do not match q {tuple(q.shape)}")
-    if not (q.dtype == k_pool.dtype == v_pool.dtype) or q.dtype not in _ENTRY:
+    entry = _ENTRY.get((q.dtype, k_pool.dtype))
+    if k_pool.dtype != v_pool.dtype or entry is None:
         raise TypeError(
-            f"kernel takes float32 or bfloat16 for q and both pools alike, got "
-            f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype} (fp8 pages: ROADMAP.md)"
+            f"kernel takes q in float32 or bfloat16 with both pools in q's type or "
+            f"float8_e4m3fn, got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}"
         )
     if block_tables.dim() != 2 or block_tables.shape[0] != B or seq_lens.shape != (B,):
         raise ValueError(f"block table {tuple(block_tables.shape)} / lens "
@@ -77,7 +86,7 @@ def _launch(q, k_pool, v_pool, block_tables, seq_lens, scale) -> torch.Tensor:
     if B == 0:
         return out
     lib = _build.library("paged_attention")
-    fn = getattr(lib, _ENTRY[q.dtype])
+    fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -91,6 +100,6 @@ def _launch(q, k_pool, v_pool, block_tables, seq_lens, scale) -> torch.Tensor:
     # the source decides tile and shared-memory sizes; shapes it cannot take
     # come back as "invalid argument"
     _build.check(lib, status, f"paged_attention (group={group}, D={D}, block_size={bs}, "
-                              f"{q.dtype})")
+                              f"{q.dtype}, pages {k_pool.dtype})")
     kernels.launches["paged_attention"] += 1
     return out

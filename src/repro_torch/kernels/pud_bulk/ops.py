@@ -105,11 +105,15 @@ def _host_indices(x) -> np.ndarray:
 
 
 def pool_block_copy(pool: torch.Tensor, src, dst) -> torch.Tensor:
-    """Copy block ``src[i]`` onto block ``dst[i]`` of ``pool`` for every i.
+    """Copy block ``src[i]`` onto block ``dst[i]`` of ``pool`` for every i,
+    with parallel-copy semantics: every source is read as it was before the
+    call, also where it is another pair's destination.
 
     ``pool``: ``(num_blocks, ...)``, contiguous, any dtype; trailing dims are
     flattened per block.  ``src``/``dst``: host index lists (sequences,
-    numpy arrays or tensors).  Writes ``pool`` in place and returns it.
+    numpy arrays or tensors).  Writes ``pool`` in place and returns it.  On
+    the card, pairs whose sources and destinations overlap run as several
+    launches (:func:`copy_waves`), each over disjoint blocks.
     """
     src, dst = _host_indices(src), _host_indices(dst)
     nb = pool.shape[0]
@@ -119,21 +123,42 @@ def pool_block_copy(pool: torch.Tensor, src, dst) -> torch.Tensor:
         raise ValueError(f"block index out of range [0, {nb})")
     if len(np.unique(dst)) != dst.size:
         raise ValueError("destination blocks repeat")
-    if np.intersect1d(src, dst).size:
-        raise ValueError("source and destination blocks overlap")
     if not pool.is_contiguous():
         raise ValueError("pool must be contiguous")
     if src.size == 0:
         return pool
+    waves = copy_waves(src, dst)   # raises on a cycle, on either device
     flat = pool.view(nb, -1)
     src_dst = torch.from_numpy(np.stack([src, dst], axis=1).astype(np.int32))
     if pool.device.type == "cpu":
         _ref.block_copy_ref(flat, src_dst)
     elif pool.device.type == "cuda":
-        _launch(flat, src_dst.to(pool.device, non_blocking=False))
+        for wave in waves:
+            _launch(flat, src_dst[wave].to(pool.device, non_blocking=False))
     else:
         raise ValueError(f"unsupported device {pool.device}")
     return pool
+
+
+def copy_waves(src: np.ndarray, dst: np.ndarray) -> list:
+    """Index arrays splitting the pairs into groups to run one after another,
+    each group's sources and destinations disjoint, so that copying each
+    group in parallel in place keeps the parallel-copy semantics: a pair
+    runs only once every other pair that reads its destination has run.
+    (Compaction plans can chain a move into a block another move empties.)
+    Raises on a cycle of moves, which no group order can do in place."""
+    if not np.intersect1d(src, dst).size:
+        return [np.arange(src.size)]
+    pending, waves = np.arange(src.size), []
+    while pending.size:
+        s, d = src[pending], dst[pending]
+        readers = (d[:, None] == s[None, :]).sum(axis=1) - (s == d)
+        ready = readers == 0
+        if not ready.any():
+            raise ValueError("cyclic block moves cannot be copied in place")
+        waves.append(pending[ready])
+        pending = pending[~ready]
+    return waves
 
 
 def _launch(flat: torch.Tensor, src_dst: torch.Tensor) -> None:

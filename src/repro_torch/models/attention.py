@@ -3,8 +3,12 @@
 ``impl``:
   * "naive"   — materializes the (S, S) score matrix,
   * "chunked" — online softmax over KV blocks (flash-style memory behaviour),
-  * "pallas"  — the reference's flash kernel; its Hopper port is not written
-                yet, so this raises.
+  * "pallas"  — the flash-attention kernel (``kernels/flash_attention``): the
+                hand-written Hopper kernel on CUDA tensors, its plain version
+                on the CPU.  Forward only, as in the reference, and with the
+                reference's semantics: it is given neither ``kv_len`` nor
+                ``q_offset``, so it is exact only where Sq == Sk == kv_len
+                (the no-cache forward of ``train_loss`` and ``prefill_logits``).
 
 Decode mode consumes an explicit KV cache: either a dense ``(k, v)`` pair
 ``(B, S_max, KV, hd)`` or the split ``{"main", "recent"}`` cache, each with
@@ -21,6 +25,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.params import ParamDef
 from repro_torch.models.rope import apply_rope
 
@@ -160,10 +165,12 @@ def _chunked_attention(q, k, v, *, causal, kv_len, scale, q_offset=0, block_k=51
 def _inner_attention(q, k, v, *, impl, causal, kv_len, scale, q_offset=0):
     group = q.shape[2] // k.shape[2]
     if impl == "pallas":
-        raise NotImplementedError(
-            "attn_impl='pallas' needs the flash-attention kernel, which is not "
-            "ported yet: see ROADMAP.md, 'TPU kernels to port'"
+        # as the reference: kv_len and q_offset are not passed on
+        o = flash_ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, scale=scale,
         )
+        return o.transpose(1, 2)
     if impl == "chunked":
         return _chunked_attention(
             q, k, v, causal=causal, kv_len=kv_len, scale=scale, q_offset=q_offset

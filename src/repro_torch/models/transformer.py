@@ -4,19 +4,24 @@ One :class:`LM` object per config exposes plain functions over a params dict
 (stacked leading "layers" axis, the reference's paths):
 
   * ``init(generator, device=...) -> params``
+  * ``train_loss(params, batch)``     (teacher-forced CE over the padded vocab)
   * ``prefill_logits(params, batch)`` (last-position logits)
   * ``decode_step(params, batch, cache) -> (logits, cache)``
   * ``init_cache(batch, max_len, device=...)``
 
-The layer stack is a Python loop over the stacked weights.  The moe, ssm,
+The layer stack is a Python loop over the stacked weights; with
+``remat="full"`` each layer of a forward that autograd records is
+recomputed in the backward pass (``torch.utils.checkpoint``), the
+reference's ``jax.checkpoint`` of the scan body.  The moe, ssm,
 hybrid, encdec and vlm families are later slices of the port (ROADMAP.md,
 'Modules to port'), and raise here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
@@ -49,6 +54,18 @@ def layer_params(stacked: Dict, li: int) -> Dict:
     return {k: layer_params(v, li) for k, v in stacked.items()}
 
 
+def cross_entropy(
+    logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor]
+) -> torch.Tensor:
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
 def _dense_block(lp, cfg, impl, x, pos, cache, cache_len):
     h = L.apply_norm(lp["ln1"], x)
     a, new_cache = apply_attention(
@@ -61,7 +78,9 @@ def _dense_block(lp, cfg, impl, x, pos, cache, cache_len):
 
 
 class LM:
-    def __init__(self, cfg: ModelConfig, *, attn_impl: str = "naive"):
+    def __init__(
+        self, cfg: ModelConfig, *, attn_impl: str = "naive", remat: Optional[str] = "full"
+    ):
         family = "moe" if cfg.n_experts else cfg.family
         if cfg.is_encdec:
             family = "encdec"
@@ -70,8 +89,16 @@ class LM:
                 f"{cfg.name}: the {family} family is not ported yet "
                 f"(ROADMAP.md, 'Modules to port', {_LATER_FAMILIES[family]})"
             )
+        if remat == "dots":
+            raise NotImplementedError(
+                "remat='dots' (save only the matmul outputs) is not ported yet "
+                "(ROADMAP.md); use remat='full' or None"
+            )
+        if remat not in (None, "none", "full"):
+            raise ValueError(remat)
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.remat = None if remat == "none" else remat
         self.dtype = torch_dtype(cfg.dtype)
 
     # -- parameter definitions ------------------------------------------------
@@ -106,15 +133,29 @@ class LM:
 
     def _run_decoder_stack(self, params, x, pos, caches, cache_len):
         """Layer loop; returns (x, caches) with the caches updated in place."""
+        remat = self.remat == "full" and caches is None and torch.is_grad_enabled()
         for li in range(self.cfg.n_layers):
+            lp = layer_params(params["layers"], li)
+            if remat:
+                x = checkpoint(self._layer, lp, x, pos, use_reentrant=False)
+                continue
             cache = None if caches is None else layer_params(caches, li)
-            x, _ = _dense_block(
-                layer_params(params["layers"], li), self.cfg, self.attn_impl,
-                x, pos, cache, cache_len,
-            )
+            x, _ = _dense_block(lp, self.cfg, self.attn_impl, x, pos, cache, cache_len)
         return x, caches
 
+    def _layer(self, lp, x, pos):
+        return _dense_block(lp, self.cfg, self.attn_impl, x, pos, None, None)[0]
+
     # -- public entry points ------------------------------------------------------
+    def train_loss(self, params, batch) -> torch.Tensor:
+        """Teacher-forced cross entropy over the padded vocab, averaged over
+        ``batch["loss_mask"]`` where given."""
+        x, pos = self._embed_inputs(params, batch)
+        x, _ = self._run_decoder_stack(params, x, pos, None, None)
+        x = L.apply_norm(params["final_ln"], x)
+        logits = L.logits_from(params["embed"], x)
+        return cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
+
     def prefill_logits(self, params, batch) -> torch.Tensor:
         x, pos = self._embed_inputs(params, batch)
         x, _ = self._run_decoder_stack(params, x, pos, None, None)

@@ -12,12 +12,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fl_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pg_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.pud_bulk import ops as pud_ops  # noqa: E402
 from repro_torch.kernels.pud_bulk.ref import block_copy_ref, bulk_op_ref  # noqa: E402
 
-# the reference's tolerances: 2e-5 f32 (paged attention), 2e-2 bf16 (attention)
+# the reference's tolerances: 2e-5 f32 (paged and flash attention), 2e-2 bf16
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 PAGED_CASES = [
@@ -106,13 +108,103 @@ def test_paged_attention_kernel_rejects_unaligned_views(cuda, which):
 
 
 @pytest.mark.cuda
-def test_paged_attention_kernel_rejects_fp8_pages(cuda):
-    q = torch.zeros(1, 2, 64, device="cuda")
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_CASES[:3], ids=lambda c: "-".join(map(str, c.values())))
+def test_paged_attention_kernel_rejects_fp8_pages(cuda, case, q_dtype):
+    """fp8 e4m3 pages (``kv_cache_dtype="float8_e4m3fn"``) are taken, as
+    the reference kernel casts any page type to f32: the kernel matches the
+    plain version on the same fp8 pages at 2e-2, with the output in q's type.
+    (Until fp8 pages were ported this test checked that they were refused.)"""
+    q, kp, vp, tbl, lens = [torch.from_numpy(a).cuda() for a in _paged_inputs(2, **case)]
+    q = q.to(q_dtype)
+    kp, vp = kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn)
+    out = pg_ops.paged_attention(q, kp, vp, tbl, lens)
+    torch.cuda.synchronize()
+    B, Hq, D = q.shape
+    plain = paged_attention_ref(
+        q.reshape(B, kp.shape[2], -1, D), kp, vp, tbl, lens, scale=D ** -0.5,
+    ).reshape(q.shape)
+    assert out.dtype == q_dtype
+    assert (out.float() - plain.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.cuda
+def test_paged_attention_kernel_rejects_fp8_q(cuda):
     kp = torch.zeros(4, 16, 2, 64, device="cuda").to(torch.float8_e4m3fn)
     tbl = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
     lens = torch.ones(1, dtype=torch.int32, device="cuda")
     with pytest.raises(TypeError):
-        pg_ops.paged_attention(q, kp, kp, tbl, lens)
+        pg_ops.paged_attention(kp[0, :1].reshape(1, 2, 64), kp, kp, tbl, lens)
+
+
+# the reference's flash tests (tests/test_kernels.py) and the main path's shapes
+FLASH_CASES = [
+    (2, 4, 2, 64, 64, 32, True, torch.float32),
+    (1, 8, 1, 100, 100, 64, True, torch.float32),
+    (2, 4, 4, 32, 96, 80, False, torch.float32),
+    (1, 2, 2, 1, 200, 128, False, torch.float32),
+    (1, 4, 2, 128, 128, 64, True, torch.bfloat16),
+    (1, 48, 1, 33, 33, 128, True, torch.float32),
+    (2, 4, 2, 64, 64, 32, True, torch.bfloat16),
+    (2, 4, 4, 32, 96, 80, False, torch.bfloat16),
+    (1, 2, 2, 1, 200, 128, False, torch.bfloat16),
+    (1, 48, 1, 33, 33, 128, True, torch.bfloat16),
+    (1, 4, 2, 70, 130, 40, True, torch.bfloat16),    # D not a multiple of 16: CUDA cores
+    (1, 4, 4, 130, 70, 64, True, torch.bfloat16),    # Sq > Sk, causal
+    (2, 32, 8, 256, 256, 128, True, torch.bfloat16),
+    (1, 4, 4, 77, 0, 64, False, torch.float32),      # no keys: zeros
+]
+
+
+def _flash_inputs(seed, B, Hq, Hkv, Sq, Sk, D, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(dtype)
+            for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
+
+
+def _flash_check(q, k, v, causal):
+    before = kernels.launches["flash_attention"]
+    out = fl_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_attention"] == before + 1
+    plain = attention_ref(q, k, v, causal=causal)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    err = (out.float() - plain.float()).abs().max().item() if out.numel() else 0.0
+    assert err < TOL[q.dtype], err
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,dtype", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D, causal, dtype):
+    _flash_check(*_flash_inputs(3, B, Hq, Hkv, Sq, Sk, D, dtype), causal)
+    if dtype == torch.bfloat16:
+        assert fl_ops.last_path == ("mma" if D % 16 == 0 else "simt")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_on_transposed_views(cuda, dtype):
+    """The model hands (B, S, H, D) tensors transposed to (B, H, S, D): the
+    kernel reads them through their strides and writes an output laid out
+    like q, so transposing it back is contiguous."""
+    rng = np.random.default_rng(4)
+    q, k, v = [torch.from_numpy(rng.normal(size=(2, 75, h, 64)).astype(np.float32)).cuda()
+               .to(dtype).transpose(1, 2) for h in (8, 2, 2)]
+    out = _flash_check(q, k, v, True)
+    assert out.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_under_autograd(cuda):
+    q, k, v = _flash_inputs(5, 1, 2, 2, 8, 8, 32, torch.float32)
+    q.requires_grad_(True)
+    before = kernels.launches["flash_attention"]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fl_ops.flash_attention(q, k, v)
+    assert kernels.launches["flash_attention"] == before
+    with torch.no_grad():
+        _flash_check(q, k, v, True)
 
 
 @pytest.mark.cuda
@@ -128,6 +220,22 @@ def test_block_copy_kernel_matches_plain(cuda, dtype):
     torch.cuda.synchronize()
     assert kernels.launches["block_copy"] == before + 1
     assert torch.equal(out, plain)
+
+
+@pytest.mark.cuda
+def test_block_copy_kernel_with_chained_moves(cuda):
+    """A source that is another pair's destination (as compaction plans chain
+    moves) is read as it was before the call: the pairs run as one launch
+    per wave of disjoint blocks and match the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    pool = torch.rand(32, 256, generator=g, device="cuda")
+    src, dst = [14, 12, 10, 9, 5, 6], [10, 0, 4, 3, 6, 7]
+    plain = block_copy_ref(pool.clone(), torch.tensor([src, dst]).T)
+    before = kernels.launches["block_copy"]
+    pud_ops.pool_block_copy(pool, src, dst)
+    torch.cuda.synchronize()
+    assert kernels.launches["block_copy"] == before + 2
+    assert torch.equal(pool, plain)
 
 
 BULK_OPS = {"zero": (pud_ops.pud_zero, 1), "copy": (pud_ops.pud_copy, 1),

@@ -13,7 +13,8 @@ pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
-           ROOT / "examples" / "torch_pud_bitwise.py", ROOT / "benchmarks" / "torch_microbench.py"]
+           ROOT / "examples" / "torch_pud_bitwise.py", ROOT / "benchmarks" / "torch_microbench.py",
+           ROOT / "benchmarks" / "torch_serve_bench.py"]
 
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
@@ -39,7 +40,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 20
+    assert int(n_modules) >= 40
     assert bad.strip() == "[]", bad
 
 

@@ -117,9 +117,17 @@ def test_chunked_attention_ragged_blocks():
 
 
 def test_pallas_impl_raises_until_ported():
-    q, k, v = (torch.zeros(1, 2, 2, 8),) * 3
-    with pytest.raises(NotImplementedError):
-        attn._inner_attention(q, k, v, impl="pallas", causal=True, kv_len=2, scale=1.0)
+    """The pallas path is ported: on the CPU it takes the flash kernel's
+    plain version and matches the reference's pallas path (its Pallas kernel
+    in interpret mode) at 2e-5, causal and not.  (Until the flash kernel was
+    ported this test checked that the path raised.)"""
+    q, k, v = _qkv(6, 2, 40, 40, 4, 2, 32)
+    for causal in (True, False):
+        kw = dict(impl="pallas", causal=causal, kv_len=40, scale=32 ** -0.5)
+        ref = ref_attn._inner_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+        ours = attn._inner_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), **kw)
+        assert ours.shape == q.shape and _err(ours, ref) < TOL
 
 
 @pytest.fixture(scope="module")
