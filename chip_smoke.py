@@ -20,7 +20,14 @@ before each and read just after:
   ``repro_torch.launch.train --full`` (chunked attention, full remat,
   AdamW, checkpointed), then evaluated and prefilled at 4 x 2048 tokens
   through the flash-attention kernel (``attn_impl="pallas"``), held against
-  the chunked path on the same weights.
+  the chunked path on the same weights;
+* the full-width rwkv6_7b and zamba2_7b (random weights from a seeded
+  generator, the leaves the reference's init leaves zero set to seeded
+  nonzero values) served on their state path: ``decode_step`` over 8
+  prompts of 1024 tokens through the decay-attention kernel, 32 greedy
+  one-token steps, and ``prefill_logits`` at 4 x 2048; the first layer
+  held against the plain chunked math on both inputs, and the first layers'
+  logits within the spread of the sequential oracle.
 
 It also runs the PUD host model (the quickstart's allocator table and the
 paper's Figure 2, modelled DRAM times), holds the card's generated ids and
@@ -31,6 +38,7 @@ CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -54,6 +62,12 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.kv_pool import KVPoolConfig  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, synth_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decay_attention import ops as dc_ops  # noqa: E402
+from repro_torch.kernels.decay_attention.ref import (  # noqa: E402
+    CHUNK,
+    chunked_decay_ref,
+    decay_attention_ref,
+)
 from repro_torch.kernels.flash_attention import ops as fl_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
@@ -61,6 +75,10 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa:
 from repro_torch.kernels.pud_bulk import ops as bc_ops  # noqa: E402
 from repro_torch.kernels.pud_bulk.ref import block_copy_ref, bulk_op_ref  # noqa: E402
 from repro_torch.models.bridge import params_from_numpy, params_to_numpy  # noqa: E402
+from repro_torch.models import inert  # noqa: E402
+from repro_torch.models import mamba2 as M2  # noqa: E402
+from repro_torch.models import rwkv6 as R6  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.layers import pad_vocab  # noqa: E402
 from repro_torch.models.params import count_params  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
@@ -85,6 +103,8 @@ SOURCES = {
                 "src/repro/kernels/pud_bulk/kernel.py:84"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:87"),
+    "decay_attention": ("src/repro_torch/csrc/decay_attention.cu",
+                        "src/repro/kernels/decay_attention/kernel.py:79"),
 }
 # the full-width serving shapes (stablelm_1_6b, bf16)
 N_LAYERS, HEADS, HEAD_DIM, BLOCK = 24, 32, 64, 16
@@ -107,6 +127,24 @@ LOGITS_TOL = 5e-2              # of the logits' largest magnitude
 # element by about lr whatever the size of its gradient, so float32
 # rounding of near-zero gradients parts the runs a little more each step
 SMALL_TRAIN_TOL = (1e-4, 1e-2)  # relative: step 1, steps 2-5
+# decay attention: the reference's 2e-3 (f32); bf16 outputs within 2e-2 of
+# max(1, max |plain|), the bf16 flash rows' rule
+DECAY_TOL = 2e-3
+DECAY_BF16_TOL = 2e-2
+# the state-serving path of the ssm and hybrid families: 8 prompts of 1024
+# tokens, 32 greedy steps; prefill_logits at 4 x 2048
+STATE_BATCH, STATE_PROMPT, STATE_NEW = 8, 1024, 32
+# the state path's whole-model check runs the first layers of the same
+# weights, where the two plain paths still agree (the full-width models are
+# chaotic in depth under the reference's init: ROADMAP.md, fault 4).  For
+# zamba2 that is its first 5 Mamba layers: after the 6th the shared block
+# already sets the plain paths 1.85 apart at a logits scale of 4.75
+# (scripts/state_depth_spread.py shows the spread by depth).  The
+# logits are bf16, so their differences come in steps of one bf16 ulp at
+# the logits' scale: the kernel may exceed the oracle's spread by one step.
+STATE_CHECK_DEPTH = {"rwkv6_7b": 4, "zamba2_7b": 5}
+# smoke models, card against CPU (f32): logits within 1e-4 of their scale
+SMOKE_LOGITS_TOL = 1e-4
 # watermarks of tests/test_compaction.py's maintenance scenario
 MAINTENANCE = MaintenanceConfig(free_low=0.9, frag_high=0.05, contig_low=0.999,
                                 max_moves=64, every=2)
@@ -216,6 +254,7 @@ def phase_kernels() -> dict:
 
     errs.update(paged_fp8_case(gen))
     errs.update(flash_cases())
+    errs.update(decay_cases())
 
     pool, src, dst = block_copy_case()
     orig = pool.clone()
@@ -318,6 +357,106 @@ def flash_cases() -> dict:
     log("[kernels] flash_attention raises under autograd (forward only, as the reference)")
     errs["flash_attention"] = errs[
         f"flash B4 H32/32 S2048x2048 D64 causal bfloat16"]
+    return errs
+
+
+# -- the decay-attention kernel against its plain version ----------------------
+
+# tests/test_kernel_decay.py's shapes (B, S, H, dk, dv, bonus) and its
+# three-chunk state carry (constant decay -0.05)
+DECAY_CASES = [
+    (2, 64, 2, 16, 16, False),
+    (1, 100, 3, 32, 32, True),
+    (2, 32, 1, 8, 24, True),
+    (1, 33, 2, 64, 64, False),
+    (1, 96, 1, 16, 16, "carry"),
+]
+
+
+def decay_inputs(B, S, H, dk, dv, bonus, seed=0):
+    """The reference kernel test's inputs, made with numpy, on the card."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, H, dk))
+    k = rng.normal(size=(B, S, H, dk)) * 0.3
+    v = rng.normal(size=(B, S, H, dv))
+    lw = (np.full((B, S, H, dk), -0.05) if bonus == "carry"
+          else -np.abs(rng.normal(size=(B, S, H, dk))) * 0.3)
+    u = rng.normal(size=(H, dk)) * 0.2 if bonus is True else None
+    return [None if a is None else torch.from_numpy(a.astype(np.float32)).cuda()
+            for a in (q, k, v, lw, u)]
+
+
+def decay_check(name, q, k, v, lw, u=None, h0=None, oracle=False) -> float:
+    """One launch against the plain chunked math on the same card inputs (and
+    the sequential oracle where asked): the output within 2e-3 (f32) or 2e-2
+    of the plain output's scale (bf16), the final state within 2e-3 of its
+    scale.  Returns the output's max abs error."""
+    y, hT = dc_ops.decay_attention(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
+    torch.cuda.synchronize()
+    py, ph = chunked_decay_ref(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
+    err = (y.float() - py.float()).abs().max().item()
+    tol = DECAY_TOL if q.dtype == torch.float32 else DECAY_BF16_TOL * max(
+        1.0, py.float().abs().max().item())
+    serr = (hT - ph).abs().max().item()
+    stol = DECAY_TOL * max(1.0, ph.abs().max().item())
+    line = f"[kernels] decay {name}: max_abs_err {err:.3e} (tol {tol:.3g}), state {serr:.3e} (tol {stol:.3g})"
+    check(y.dtype == q.dtype and y.shape == v.shape and hT.dtype == torch.float32,
+          f"decay {name}: output type/shape")
+    check(err < tol and serr < stol, f"decay {name}: over tolerance")
+    if oracle:
+        oy, oh = decay_attention_ref(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
+        oerr, oserr = (y - oy).abs().max().item(), (hT - oh).abs().max().item()
+        line += f"; vs the sequential oracle {oerr:.3e}, state {oserr:.3e}"
+        check(oerr < DECAY_TOL and oserr < DECAY_TOL, f"decay {name}: oracle over tolerance")
+    log(line)
+    return err
+
+
+def decay_cases() -> dict:
+    """The reference's five kernel shapes (against the plain chunked math and
+    the sequential oracle), a nonzero initial state with the final state
+    compared, Mamba2's stride-0 q/k/log_w at zamba2's width, bf16 at the
+    rwkv6 serve shape, and the refusal under autograd."""
+    errs = {}
+    for case in DECAY_CASES:
+        errs[f"decay {case}"] = decay_check("-".join(map(str, case)), *decay_inputs(*case),
+                                            oracle=True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for bonus in (False, True):
+        q, k, v, lw, u = decay_inputs(2, 70, 3, 32, 24, bonus, seed=1)
+        h0 = torch.randn(2, 3, 32, 24, generator=gen, device="cuda")
+        errs[f"decay h0 bonus={bonus}"] = decay_check(f"h0 bonus={bonus}", q, k, v, lw, u, h0,
+                                                      oracle=True)
+    # Mamba2 at zamba2's width: C, B (B, S, 64) broadcast over 112 heads, the
+    # per-head decay broadcast over the state dim, a ragged S
+    B, S, H, ns, hd = 2, 300, 112, 64, 64
+    xBC = torch.randn(B, S, 2 * ns, generator=gen, device="cuda")
+    q = xBC[:, :, None, :ns].expand(B, S, H, ns)
+    k = (xBC[..., ns:] * 0.3)[:, :, None].expand(B, S, H, ns)
+    lw = (-torch.rand(B, S, H, generator=gen, device="cuda") * 2)[..., None].expand(B, S, H, ns)
+    v = torch.randn(B, S, H, hd, generator=gen, device="cuda")
+    check(q.stride(2) == 0 and k.stride(2) == 0 and lw.stride(3) == 0, "stride-0 views")
+    errs["decay stride-0"] = decay_check("stride-0 q/k/log_w (2, 300, 112, 64/64) f32", q, k, v, lw)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, lw, u = decay_inputs(STATE_BATCH, STATE_PROMPT, 64, 64, 64, True, seed=3)
+        h0 = torch.randn(STATE_BATCH, 64, 64, 64, generator=gen, device="cuda")
+        lw = lw * 4     # reach the clip at -1.8
+        name = f"rwkv6 serve shape (8, 1024, 64, 64/64) {str(dtype).split('.')[-1]}"
+        errs[f"decay main {dtype}"] = decay_check(name, q.to(dtype), k.to(dtype), v.to(dtype),
+                                                  lw, u, h0)
+    q.requires_grad_(True)
+    before = kernels.launches["decay_attention"]
+    try:
+        dc_ops.decay_attention(q, k, v, lw, bonus=u)
+        raised = False
+    except RuntimeError:
+        raised = True
+    check(raised and kernels.launches["decay_attention"] == before,
+          "decay_attention must raise under autograd, before launching")
+    log("[kernels] decay_attention raises under autograd (forward only, as the reference)")
+    errs["decay_attention"] = errs[f"decay main {torch.bfloat16}"]
+    del q, k, v, lw, h0, xBC
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -812,6 +951,277 @@ def phase_small_train_vs_cpu(ckpt_root: str) -> dict:
     return {"card": losses["cuda"], "cpu": losses["cpu"], "rel": rel}
 
 
+# -- phase 5c: the ssm and hybrid families at full width ---------------------------
+
+def perturb_inert(model, params, seed: int) -> None:
+    """Set, in place, the leaves the reference's init leaves zero (else token
+    shift, the data-dependent decay and the bonus never run) by the port's
+    one numpy rule (``repro_torch.models.inert``), drawn from ``seed``."""
+    layers = params["layers"]
+    names = inert.inert_leaves(model.family, layers)
+    sub = {g: {} for g, _ in names}
+    for g, n in names:
+        sub[g][n] = layers[g][n]
+    sub = inert.perturb_inert(model.family, params_to_numpy(sub), seed)
+    for g, n in names:
+        layers[g][n].copy_(torch.from_numpy(sub[g][n]))
+
+
+@contextlib.contextmanager
+def scan_impl(fn):
+    """Route the blocks' chunked form through ``fn`` (a plain version), for a
+    comparison run; the kernel is the default on the card."""
+    saved = R6.chunked_decay_attention, M2.chunked_decay_attention
+    R6.chunked_decay_attention = M2.chunked_decay_attention = fn
+    try:
+        yield
+    finally:
+        R6.chunked_decay_attention, M2.chunked_decay_attention = saved
+
+
+def state_prompt(model, params, tokens, recent_size):
+    """``decode_step`` over the whole prompt from a fresh cache; for split
+    caches, then ``flush_cache``.  Returns (logits, cache, ms)."""
+    B, S = tokens.shape
+    cache = model.init_cache(B, S + STATE_NEW, recent_size=recent_size, device="cuda")
+    batch = {"tokens": tokens, "positions": torch.arange(S, device="cuda")[None].expand(B, S)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = model.decode_step(params, batch, cache)
+        cache = model.flush_cache(cache)
+    torch.cuda.synchronize()
+    return logits, cache, 1e3 * (time.perf_counter() - t0)
+
+
+def state_setup(arch: str, seed: int):
+    """The full-width model with seeded weights (inert leaves set), its
+    8 x 1024 prompts and its 4 x 2048 ``prefill_logits`` batch."""
+    cfg = get_config(arch)
+    full = {"rwkv6_7b": (32, 4096, 14336, 65536, 64, 0),
+            "zamba2_7b": (81, 3584, 14336, 32000, 64, 64)}[arch]
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.ssm_head_dim, cfg.ssm_state)
+          == full, f"{arch} is not at full width")
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    perturb_inert(model, params, seed)
+    torch.cuda.synchronize()
+    log(f"[{arch}] {count_params(params) / 1e9:.3f} B params ({cfg.dtype}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (STATE_BATCH, STATE_PROMPT))).cuda()
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=2048, batch_per_shard=4)
+    pbatch = {k: torch.from_numpy(v).cuda() for k, v in synth_batch(data, 2, 0).items()
+              if k in ("tokens", "positions")}
+    return model, params, prompts, pbatch
+
+
+def phase_state_model(arch: str, seed: int) -> dict:
+    """One full-width model of the ssm or hybrid family on its state path,
+    the launch counts zeroed just before each driven part and read just after:
+    the prompt through ``decode_step`` (the chunked form with a state: one
+    kernel launch per layer), 32 greedy one-token steps, ``prefill_logits`` at
+    4 x 2048 (one launch per layer, no state).  Then, on the same weights:
+    the first layer's block on each of the two inputs through the kernel
+    against the plain chunked math (``layer_check``), and the logits of the
+    first layers through the kernel, the plain chunked math and the
+    sequential oracle (``shallow_check``)."""
+    model, params, prompts, pbatch = state_setup(arch, seed)
+    cfg, tag, vocab = model.cfg, f"[{arch}]", pad_vocab(model.cfg)
+    recent = STATE_PROMPT + STATE_NEW
+
+    # the prompt through the kernel, then greedy steps (the one-step form)
+    kernels.reset_launches()
+    logits, cache, prompt_ms = state_prompt(model, params, prompts, recent)
+    n_prompt = kernels.launches["decay_attention"]
+    check(n_prompt == cfg.n_layers, f"{tag} prompt: {n_prompt} decay launches, not {cfg.n_layers}")
+    check(tuple(logits.shape) == (STATE_BATCH, vocab) and bool(torch.isfinite(logits).all()),
+          f"{tag} prompt logits")
+    if "len_rec" in cache:
+        check(cache["len"] == STATE_PROMPT and cache["len_rec"] == 0, f"{tag} flush lengths")
+    kernels.reset_launches()
+    ids, step_ms = [], []
+    tok = logits.argmax(-1)
+    with torch.no_grad():
+        for t in range(STATE_NEW):
+            pos = torch.full((STATE_BATCH, 1), STATE_PROMPT + t, device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache = model.decode_step(params, {"tokens": tok[:, None], "positions": pos},
+                                              cache)
+            tok = logits.argmax(-1)
+            ids.append(tok.tolist())
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+    check(kernels.launches["decay_attention"] == 0, f"{tag} one-token steps launched the kernel")
+    check(bool(torch.isfinite(logits).all()) and all(0 <= i < vocab for r in ids for i in r),
+          f"{tag} decode")
+    del cache, logits
+    # prefill_logits at 4 x 2048
+    y, prefill_ms, _ = _forward(model, "prefill", params, pbatch)
+    n_prefill = kernels.launches["decay_attention"]
+    check(n_prefill == cfg.n_layers, f"{tag} prefill_logits: {n_prefill} decay launches")
+    check(tuple(y.shape) == (4, vocab), f"{tag} prefill logits {tuple(y.shape)}")
+    del y
+    torch.cuda.empty_cache()
+
+    layer = {"prompt": layer_check(model, params, prompts, with_state=True),
+             "prefill": layer_check(model, params, pbatch["tokens"], with_state=False)}
+    depth = STATE_CHECK_DEPTH[arch]
+    shallow = shallow_check(model, params, depth, prompts, pbatch)
+    res = {"prompt_ms": prompt_ms, "decode_step_ms": statistics.mean(step_ms[1:]),
+           "decode_tokens_per_s": STATE_BATCH * (STATE_NEW - 1) / (sum(step_ms[1:]) / 1e3),
+           "prefill_4x2048_ms": prefill_ms, "launches": n_prompt + n_prefill,
+           "layer": layer, "shallow": shallow}
+    log(f"{tag} prompt {STATE_BATCH} x {STATE_PROMPT} through decode_step: {prompt_ms:.1f} ms, "
+        f"{n_prompt} decay launches; {STATE_NEW} greedy steps: mean {res['decode_step_ms']:.2f} ms "
+        f"per step (steps 2-{STATE_NEW}, host clock incl. sync), {res['decode_tokens_per_s']:.1f} "
+        f"tokens/s over {STATE_BATCH} sequences; "
+        f"prefill_logits 4 x 2048: {prefill_ms:.1f} ms, {n_prefill} decay launches")
+    for path, r in layer.items():
+        log(f"{tag} first layer on the {path} input {r['shape']}, kernel vs plain chunked: output "
+            f"{r['out_err']:.3e} of scale {r['out_scale']:.3f} (tol {DECAY_BF16_TOL:g} of scale)"
+            + (f", final state {r['state_err']:.3e} of scale {r['state_scale']:.3f} "
+               f"(tol {DECAY_TOL:g} of scale)" if "state_err" in r else ""))
+        check(r["out_err"] < DECAY_BF16_TOL * max(1.0, r["out_scale"]),
+              f"{tag} first layer ({path}): kernel vs plain output over tolerance")
+        check(r.get("state_err", 0.0) < DECAY_TOL * max(1.0, r.get("state_scale", 0.0)),
+              f"{tag} first layer ({path}): kernel vs plain state over tolerance")
+    for path, r in shallow.items():
+        log(f"{tag} {path} logits after the first {depth} layers: kernel vs plain chunked "
+            f"{r['kernel_vs_chunked']:.4f}, sequential oracle vs plain chunked "
+            f"{r['oracle_vs_chunked']:.4f}, kernel vs oracle {r['kernel_vs_oracle']:.4f}, scale "
+            f"{r['scale']:.3f} (tol: the oracle's spread + {bf16_ulp(r['scale']):g}, one bf16 ulp "
+            f"of the scale); argmax equal {r['argmax_equal']}")
+        check(r["oracle_vs_chunked"] < LOGITS_TOL * r["scale"],
+              f"{tag} {path}: the plain paths disagree after {depth} layers")
+        check(r["kernel_vs_chunked"] <= r["oracle_vs_chunked"] + bf16_ulp(r["scale"]),
+              f"{tag} {path} logits: kernel vs plain outside the oracle's spread")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 values at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def layer_check(model, params, tokens, with_state: bool) -> dict:
+    """The first layer's time-mix (rwkv6) or Mamba block (zamba2) on the
+    normed embeddings of ``tokens``, kernel against plain chunked: with a
+    zero state, as ``decode_step`` runs the prompt (output and final state),
+    or without one, as ``prefill_logits`` runs (output)."""
+    cfg = model.cfg
+    first = lambda tree: {k: v[0] for k, v in tree.items()}  # noqa: E731
+    B = tokens.shape[0]
+    with torch.no_grad():
+        x = model_layers.embed_tokens(params["embed"], tokens, model.dtype)
+        out, state = {}, {}
+        for name in ("kernel", "plain"):
+            ctx = scan_impl(chunked_decay_ref) if name == "plain" else contextlib.nullcontext()
+            kernels.reset_launches()
+            with ctx:
+                if model.family == "ssm":
+                    h = model_layers.apply_norm(first(params["layers"]["ln1"]), x)
+                    st = R6.init_rwkv_state(cfg, B, model.dtype, device="cuda") if with_state else None
+                    out[name], new = R6.apply_time_mix(first(params["layers"]["tm"]), cfg, h, st)
+                    state[name] = new[1] if with_state else None
+                else:
+                    h = model_layers.apply_norm(first(params["layers"]["ln"]), x)
+                    st = M2.init_mamba_state(cfg, B, model.dtype, device="cuda") if with_state else None
+                    out[name], new = M2.apply_mamba(first(params["layers"]["mamba"]), cfg, h, st)
+                    state[name] = new.ssd if with_state else None
+            check(kernels.launches["decay_attention"] == int(name == "kernel"),
+                  f"layer check ({name}): {kernels.launches['decay_attention']} launches")
+    res = {"shape": tuple(tokens.shape),
+           "out_err": (out["kernel"].float() - out["plain"].float()).abs().max().item(),
+           "out_scale": out["plain"].float().abs().max().item()}
+    if with_state:
+        res.update(state_err=(state["kernel"] - state["plain"]).abs().max().item(),
+                   state_scale=state["plain"].abs().max().item())
+    return res
+
+
+def shallow_check(model, params, depth: int, prompts, pbatch) -> dict:
+    """The first ``depth`` layers of the same weights, where the plain paths
+    still agree (``STATE_CHECK_DEPTH``): the
+    prompt logits through ``decode_step`` (with ``flush_cache``) and the
+    ``prefill_logits`` at 4 x 2048, each through the kernel, the plain
+    chunked math and the sequential oracle."""
+    cfg_d, params_d = _first_layers(model.cfg, params, depth)
+    m = LM(cfg_d)
+    res = {}
+    for path in ("prompt", "prefill"):
+        z = {}
+        for name, fn in (("kernel", None), ("chunked", chunked_decay_ref),
+                         ("oracle", decay_attention_ref)):
+            kernels.reset_launches()
+            with scan_impl(fn) if fn else contextlib.nullcontext(), torch.no_grad():
+                if path == "prompt":
+                    y = state_prompt(m, params_d, prompts, STATE_PROMPT + STATE_NEW)[0]
+                else:
+                    y = m.prefill_logits(params_d, pbatch)
+            n = kernels.launches["decay_attention"]
+            check(n == (depth if fn is None else 0), f"{path} ({name}, {depth} layers): {n} launches")
+            check(bool(torch.isfinite(y).all()), f"{path} ({name}, {depth} layers): not finite")
+            z[name] = y.float()
+        res[path] = {
+            "kernel_vs_chunked": (z["kernel"] - z["chunked"]).abs().max().item(),
+            "oracle_vs_chunked": (z["oracle"] - z["chunked"]).abs().max().item(),
+            "kernel_vs_oracle": (z["kernel"] - z["oracle"]).abs().max().item(),
+            "scale": z["chunked"].abs().max().item(),
+            "argmax_equal": f"{int((z['kernel'].argmax(-1) == z['chunked'].argmax(-1)).sum())}"
+                            f"/{z['kernel'].shape[0]}",
+        }
+    return res
+
+
+def phase_state_small_vs_cpu() -> dict:
+    """Both families at ``.smoke()``: weights drawn once on the CPU (inert
+    leaves set as above) and bridged to the card; 3 prompts of 40 tokens
+    through ``decode_step`` (and ``flush_cache``), then 8 greedy steps, on the
+    card (through the kernel) and on the CPU (plain).  Ids must be equal,
+    logits within ``SMOKE_LOGITS_TOL`` of their scale."""
+    res = {}
+    for arch in ("rwkv6_7b", "zamba2_7b"):
+        cfg = get_config(arch).smoke()
+        model = LM(cfg)
+        tree = params_to_numpy(model.init(torch.Generator().manual_seed(5), device="cpu"))
+        inert.perturb_inert(model.family, tree["layers"], 5)
+        toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (3, 40))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = params_from_numpy(model, tree, device=dev)
+            cache = model.init_cache(3, 48, recent_size=48, device=dev)
+            kernels.reset_launches()
+            with torch.no_grad():
+                logits, cache = model.decode_step(params, {
+                    "tokens": torch.from_numpy(toks).to(dev),
+                    "positions": torch.arange(40, device=dev)[None].expand(3, 40)}, cache)
+                cache = model.flush_cache(cache)
+                zs, ids = [logits.float().cpu()], []
+                for t in range(8):
+                    tok = logits.argmax(-1)
+                    ids.append(tok.tolist())
+                    logits, cache = model.decode_step(params, {
+                        "tokens": tok[:, None],
+                        "positions": torch.full((3, 1), 40 + t, device=dev)}, cache)
+                    zs.append(logits.float().cpu())
+            n = kernels.launches["decay_attention"]
+            check(n == (cfg.n_layers if dev == "cuda" else 0), f"smoke {arch} {dev}: {n} launches")
+            out[dev] = (ids, torch.stack(zs))
+        err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+        scale = out["cpu"][1].abs().max().item()
+        log(f"[state-small] {arch} smoke, 3 prompts x 40 + 8 greedy ids: card ids "
+            f"{'==' if out['cuda'][0] == out['cpu'][0] else '!='} CPU ids; logits max abs diff "
+            f"{err:.3e} of scale {scale:.3f} (tol {SMOKE_LOGITS_TOL:g} of scale)")
+        check(out["cuda"][0] == out["cpu"][0], f"smoke {arch}: card and CPU ids differ")
+        check(err < SMOKE_LOGITS_TOL * max(1.0, scale), f"smoke {arch}: logits over tolerance")
+        res[arch] = err
+    return res
+
+
 # -- phase 6 -----------------------------------------------------------------
 
 def time_ms(fn, reps: int) -> float:
@@ -875,6 +1285,7 @@ def phase_times() -> dict:
     times.update(bulk_op_times())
     times.update(flash_times())
     times.update(paged_fp8_times())
+    times.update(decay_times())
     for name, t in times.items():
         t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
         t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
@@ -945,6 +1356,71 @@ def paged_fp8_times() -> dict:
     }}
 
 
+def decay_flops(B, S, H, dk, dv, bonus: bool, shared_qk: bool = False) -> float:
+    """The products the function needs, 2 flops a multiply-add, counted as
+    ``flash_flops`` counts attention: in each 32-token chunk, q.k and A.v
+    over the (query, key) pairs the mask leaves visible (strict with the
+    bonus, which adds its diagonal term, dk + dv per token; inclusive
+    without), then qs.state and the state update, dk dv per token each.
+    With q and k shared by every head (stride 0, Mamba2's C and B), q.k is
+    made once per batch row and pair, and each head only scales it by its
+    decay (one flop per pair)."""
+    lens = [min(CHUNK, S - s) for s in range(0, S, CHUNK)]
+    pairs = sum(n * (n - 1) // 2 if bonus else n * (n + 1) // 2 for n in lens)
+    per_head = pairs * dv + 2 * S * dk * dv + (S * (dk + dv) if bonus else 0)
+    if shared_qk:
+        return 2.0 * B * (pairs * dk + H * per_head) + B * H * pairs
+    return 2.0 * B * H * (pairs * dk + per_head)
+
+
+def decay_times() -> dict:
+    """The decay kernel at the rwkv6 serve shape (B 8, S 1024, H 64, 64/64,
+    bf16 q/k/v, f32 log_w, the bonus, h0 and hT) and at the zamba2
+    ``prefill_logits`` shape (B 4, S 2048, H 112, state 64, head 64; C and B
+    broadcast over heads, the decay over the state, no h0, hT written).  The
+    bound counts each distinct input byte read once (a stride-0 input once)
+    and each output written once, and the visible pairs' products
+    (``decay_flops``) at the f32 CUDA-core rate.  No library call computes
+    this function."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    B, S, H, d = STATE_BATCH, STATE_PROMPT, 64, 64
+    q, k, v = (torch.randn(B, S, H, d, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    lw = -torch.rand(B, S, H, d, generator=gen, device="cuda") * 2
+    u = torch.randn(H, d, generator=gen, device="cuda") * 0.3
+    h0 = torch.randn(B, H, d, d, generator=gen, device="cuda")
+    n = B * S * H * d
+    times = {"decay_attention": {
+        "ms": time_ms(lambda: dc_ops._launch(q, k, v, lw, u, h0, True), 20),
+        "plain_ms": time_ms(lambda: chunked_decay_ref(q, k, v, lw, bonus=u, initial_state=h0,
+                                                      return_state=True), 5),
+        "bytes_ms": (4 * n * 2 + n * 4 + 2 * B * H * d * d * 4 + H * d * 4)
+                    / HBM_BYTES_PER_S * 1e3,
+        "ops_ms": decay_flops(B, S, H, d, d, bonus=True) / F32_FLOPS * 1e3,
+        "library_ms": None,
+        "shape": f"rwkv6 serve: q/k/v ({B}, {S}, {H}, {d}) bf16, log_w f32, bonus, h0 and hT",
+    }}
+    del q, k, v, lw, h0
+    B, S, H, ns, hd = 4, 2048, 112, 64, 64
+    xBC = torch.randn(B, S, 2 * ns, generator=gen, device="cuda").bfloat16()
+    q = xBC[:, :, None, :ns].expand(B, S, H, ns)
+    k = xBC[:, :, None, ns:].expand(B, S, H, ns)
+    lw = (-torch.rand(B, S, H, generator=gen, device="cuda") * 2)[..., None].expand(B, S, H, ns)
+    v = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
+    times["decay_attention:zamba2"] = {
+        "ms": time_ms(lambda: dc_ops._launch(q, k, v, lw, None, None, True), 20),
+        "plain_ms": time_ms(lambda: chunked_decay_ref(q, k, v, lw, return_state=True), 5),
+        "bytes_ms": (2 * B * S * ns * 2 + B * S * H * 4 + 2 * B * S * H * hd * 2
+                     + B * H * ns * hd * 4) / HBM_BYTES_PER_S * 1e3,
+        "ops_ms": decay_flops(B, S, H, ns, hd, bonus=False, shared_qk=True) / F32_FLOPS * 1e3,
+        "library_ms": None,
+        "shape": f"zamba2 prefill: q/k ({B}, {S}, {H}, {ns}) bf16 stride 0 over heads, "
+                 f"log_w stride 0 over the state, v ({B}, {S}, {H}, {hd}) bf16, hT",
+    }
+    del xBC, q, k, v, lw
+    torch.cuda.empty_cache()
+    return times
+
+
 def bulk_op_times() -> dict:
     """``bulk_op`` at the bitmap query's shape (2 GiB uint8 operands) for
     and, or, not, maj and zero.  The bound counts each operand read once and
@@ -1005,11 +1481,15 @@ def main() -> None:
         phase_small_train_vs_cpu(ckpt_root)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    state = {arch: phase_state_model(arch, seed) for arch, seed in (("rwkv6_7b", 3),
+                                                                     ("zamba2_7b", 4))}
+    phase_state_small_vs_cpu()
     times = phase_times()
     launches = {"paged_attention": serve_maint["launches"]["paged_attention"],
                 "block_copy": serve_maint["launches"]["block_copy"],
                 "bulk_op": bitmap["launches"]["bulk_op"],
-                "flash_attention": flash["launches_total"]}
+                "flash_attention": flash["launches_total"],
+                "decay_attention": sum(r["launches"] for r in state.values())}
     errs["bulk_op"] = bitmap["max_abs_err"]
     times["bulk_op"] = times["bulk_op:and"]
     line = {"kernels": []}

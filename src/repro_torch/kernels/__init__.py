@@ -8,7 +8,8 @@ kernels; ``reset_launches`` zeroes the counts.
 """
 from __future__ import annotations
 
-launches = {"paged_attention": 0, "block_copy": 0, "bulk_op": 0, "flash_attention": 0}
+launches = {"paged_attention": 0, "block_copy": 0, "bulk_op": 0, "flash_attention": 0,
+            "decay_attention": 0}
 
 
 def reset_launches() -> None:

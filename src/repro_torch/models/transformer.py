@@ -1,4 +1,4 @@
-"""Model assembly: the dense decoder family.
+"""Model assembly: the dense, ssm (RWKV6) and hybrid (Zamba2) families.
 
 One :class:`LM` object per config exposes plain functions over a params dict
 (stacked leading "layers" axis, the reference's paths):
@@ -7,14 +7,16 @@ One :class:`LM` object per config exposes plain functions over a params dict
   * ``train_loss(params, batch)``     (teacher-forced CE over the padded vocab)
   * ``prefill_logits(params, batch)`` (last-position logits)
   * ``decode_step(params, batch, cache) -> (logits, cache)``
-  * ``init_cache(batch, max_len, device=...)``
+  * ``init_cache(batch, max_len, device=...)`` / ``flush_cache(cache)``
 
 The layer stack is a Python loop over the stacked weights; with
 ``remat="full"`` each layer of a forward that autograd records is
 recomputed in the backward pass (``torch.utils.checkpoint``), the
-reference's ``jax.checkpoint`` of the scan body.  The moe, ssm,
-hybrid, encdec and vlm families are later slices of the port (ROADMAP.md,
-'Modules to port'), and raise here.
+reference's ``jax.checkpoint`` of the scan body (in the hybrid family, of
+the Mamba body only, as there).  Caches are written in place: K/V rows, and
+the recurrent states of the ssm and hybrid families.  The moe, encdec and
+vlm families are later slices of the port (ROADMAP.md, 'Modules to port'),
+and raise here.
 """
 from __future__ import annotations
 
@@ -26,13 +28,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
+from repro_torch.models import rwkv6 as R6
 from repro_torch.models.attention import apply_attention, attn_defs
 from repro_torch.models.params import ParamDef, init_params, map_defs
 
 _LATER_FAMILIES = {
     "moe": "item 3 (MoE model math)",
-    "ssm": "item 8 (other model families)",
-    "hybrid": "item 8 (other model families)",
     "encdec": "item 8 (other model families)",
     "vlm": "item 8 (other model families)",
 }
@@ -49,8 +51,9 @@ def layer_params(stacked: Dict, li: int) -> Dict:
     """Layer ``li`` of a stacked params tree (views, no copies)."""
     if isinstance(stacked, torch.Tensor):
         return stacked[li]
-    if isinstance(stacked, tuple):
-        return tuple(layer_params(v, li) for v in stacked)
+    if isinstance(stacked, tuple):   # a (k, v) pair or a state NamedTuple
+        vals = [layer_params(v, li) for v in stacked]
+        return type(stacked)(*vals) if hasattr(stacked, "_fields") else tuple(vals)
     return {k: layer_params(v, li) for k, v in stacked.items()}
 
 
@@ -66,6 +69,11 @@ def cross_entropy(
     return nll.mean()
 
 
+# ---------------------------------------------------------------------------
+# per-family layer bodies.  A state or cache given is a view of the layer's
+# slice of the stacked cache, and is written in place.
+# ---------------------------------------------------------------------------
+
 def _dense_block(lp, cfg, impl, x, pos, cache, cache_len):
     h = L.apply_norm(lp["ln1"], x)
     a, new_cache = apply_attention(
@@ -77,6 +85,30 @@ def _dense_block(lp, cfg, impl, x, pos, cache, cache_len):
     return x + L.apply_mlp(lp["mlp"], h), new_cache
 
 
+def _rwkv_block(lp, cfg, x, state: Optional[R6.RwkvState]):
+    h = L.apply_norm(lp["ln1"], x)
+    a, tm_new = R6.apply_time_mix(lp["tm"], cfg, h, state)
+    x = x + a
+    h = L.apply_norm(lp["ln2"], x)
+    m, cm_shift = R6.apply_channel_mix(
+        lp["cm"], cfg, h, state.shift_cm if state is not None else None
+    )
+    if state is not None:
+        state.shift_tm.copy_(tm_new[0])
+        state.wkv.copy_(tm_new[1])
+        state.shift_cm.copy_(cm_shift)
+    return x + m
+
+
+def _mamba_block(lp, cfg, x, state: Optional[M2.MambaState]):
+    h = L.apply_norm(lp["ln"], x)
+    a, new_state = M2.apply_mamba(lp["mamba"], cfg, h, state)
+    if state is not None:
+        state.conv.copy_(new_state.conv)
+        state.ssd.copy_(new_state.ssd)
+    return x + a
+
+
 class LM:
     def __init__(
         self, cfg: ModelConfig, *, attn_impl: str = "naive", remat: Optional[str] = "full"
@@ -84,7 +116,7 @@ class LM:
         family = "moe" if cfg.n_experts else cfg.family
         if cfg.is_encdec:
             family = "encdec"
-        if family != "dense":
+        if family in _LATER_FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: the {family} family is not ported yet "
                 f"(ROADMAP.md, 'Modules to port', {_LATER_FAMILIES[family]})"
@@ -97,24 +129,45 @@ class LM:
         if remat not in (None, "none", "full"):
             raise ValueError(remat)
         self.cfg = cfg
+        self.family = family
         self.attn_impl = attn_impl
         self.remat = None if remat == "none" else remat
         self.dtype = torch_dtype(cfg.dtype)
 
     # -- parameter definitions ------------------------------------------------
-    def param_defs(self) -> Dict:
+    def _layer_defs(self) -> Dict:
         cfg = self.cfg
-        layer = {
+        if self.family == "ssm":
+            return {
+                "ln1": L.norm_defs(cfg),
+                "tm": R6.time_mix_defs(cfg),
+                "ln2": L.norm_defs(cfg),
+                "cm": R6.channel_mix_defs(cfg),
+            }
+        if self.family == "hybrid":
+            return {"ln": L.norm_defs(cfg), "mamba": M2.mamba_defs(cfg)}
+        return {
             "ln1": L.norm_defs(cfg),
             "attn": attn_defs(cfg),
             "ln2": L.norm_defs(cfg),
             "mlp": L.mlp_defs(cfg),
         }
-        return {
+
+    def param_defs(self) -> Dict:
+        cfg = self.cfg
+        defs = {
             "embed": L.embed_defs(cfg),
             "final_ln": L.norm_defs(cfg),
-            "layers": stack_defs(layer, cfg.n_layers),
+            "layers": stack_defs(self._layer_defs(), cfg.n_layers),
         }
+        if self.family == "hybrid":
+            defs["shared_attn"] = {
+                "ln": L.norm_defs(cfg),
+                "attn": attn_defs(cfg),
+                "ln2": L.norm_defs(cfg),
+                "mlp": L.mlp_defs(cfg),
+            }
+        return defs
 
     def init(self, generator: torch.Generator | int = 0, *, device="cuda") -> Dict:
         """Random weights with the reference's init rule, drawn on ``device``
@@ -133,17 +186,37 @@ class LM:
 
     def _run_decoder_stack(self, params, x, pos, caches, cache_len):
         """Layer loop; returns (x, caches) with the caches updated in place."""
+        cfg = self.cfg
         remat = self.remat == "full" and caches is None and torch.is_grad_enabled()
-        for li in range(self.cfg.n_layers):
+        for li in range(cfg.n_layers):
             lp = layer_params(params["layers"], li)
             if remat:
                 x = checkpoint(self._layer, lp, x, pos, use_reentrant=False)
-                continue
-            cache = None if caches is None else layer_params(caches, li)
-            x, _ = _dense_block(lp, self.cfg, self.attn_impl, x, pos, cache, cache_len)
+            elif self.family == "ssm":
+                x = _rwkv_block(lp, cfg, x, None if caches is None else layer_params(caches, li))
+            elif self.family == "hybrid":
+                st = None if caches is None else layer_params(caches["mamba"], li)
+                x = _mamba_block(lp, cfg, x, st)
+            else:
+                cache = None if caches is None else layer_params(caches, li)
+                x, _ = _dense_block(lp, cfg, self.attn_impl, x, pos, cache, cache_len)
+            if self.family == "hybrid" and (li + 1) % cfg.attn_every == 0:
+                # the shared block after each group of attn_every Mamba layers
+                # (zamba2: 13 groups of 6, then 3 remainder layers), each
+                # application with its own split cache
+                g = (li + 1) // cfg.attn_every - 1
+                cache = None if caches is None else layer_params(caches["attn"], g)
+                sp = params["shared_attn"]   # a dense block whose first norm is "ln"
+                x, _ = _dense_block(dict(sp, ln1=sp["ln"]), cfg, self.attn_impl, x, pos,
+                                    cache, cache_len)
         return x, caches
 
     def _layer(self, lp, x, pos):
+        """One layer without a cache (the body ``remat`` recomputes)."""
+        if self.family == "ssm":
+            return _rwkv_block(lp, self.cfg, x, None)
+        if self.family == "hybrid":
+            return _mamba_block(lp, self.cfg, x, None)
         return _dense_block(lp, self.cfg, self.attn_impl, x, pos, None, None)[0]
 
     # -- public entry points ------------------------------------------------------
@@ -163,9 +236,9 @@ class LM:
         return L.logits_from(params["embed"], x)[:, 0]
 
     def decode_step(self, params, batch, cache) -> Tuple[torch.Tensor, Any]:
-        """One step for every sequence over the cache (split or dense).  The
-        cache's K/V tensors are written in place; the returned dict shares
-        them and carries the advanced lengths."""
+        """One step for every sequence over the cache (split attention caches,
+        recurrent states).  The cache's tensors are written in place; the
+        returned dict shares them and carries the advanced lengths."""
         x, pos = self._embed_inputs(params, batch)
         split = "len_rec" in cache
         cache_len = (cache["len"], cache["len_rec"]) if split else cache["len"]
@@ -180,26 +253,70 @@ class LM:
             new_cache["len"] = cache["len"] + S
         return logits, new_cache
 
+    def flush_cache(self, cache) -> Dict:
+        """Recent -> main flush: the ``len_rec`` tokens of each split attention
+        cache's recent ring are written into its main store after the ``len``
+        tokens there, in place, and the ring is zeroed.  The reference writes
+        the whole ring (R rows) and lets ``dynamic_update_slice`` clamp where
+        that overflows the store, which overwrites cached tokens (ROADMAP.md,
+        fault 5); this writes only the tokens the ring holds, and raises if
+        they do not fit."""
+        if "len_rec" not in cache:
+            return cache
+        len_main, len_rec = cache["len"], cache["len_rec"]
+        layers = cache["layers"]
+        nodes = [layers] if "main" in layers else [
+            v for v in layers.values() if isinstance(v, dict) and "main" in v]
+        for node in nodes:
+            for main, recent in zip(node["main"], node["recent"]):
+                if len_main + len_rec > main.shape[2]:
+                    raise ValueError(
+                        f"flush of {len_rec} tokens after {len_main} overflows the "
+                        f"main store of {main.shape[2]}")
+                main[:, :, len_main:len_main + len_rec] = recent[:, :, :len_rec].to(main.dtype)
+                recent.zero_()
+        new_cache = dict(cache)
+        new_cache["len"] = len_main + len_rec
+        new_cache["len_rec"] = 0
+        return new_cache
+
     # -- caches ---------------------------------------------------------------------
     def init_cache(
         self, batch_size: int, max_len: int, recent_size: int = 256, *,
         device="cuda",
     ) -> Dict:
-        """Split cache: ``main`` (read-only store) and ``recent`` (the ring
-        new tokens land in), each ``(L, B, len, KV, hd)``; lengths are ints."""
+        """Dense family: the split cache, ``main`` (read-only store) and
+        ``recent`` (the ring new tokens land in), each ``(L, B, len, KV,
+        hd)``.  ssm: the stacked RWKV states.  hybrid: the stacked Mamba
+        states and one split cache per application of the shared block.
+        Lengths are ints."""
         cfg = self.cfg
         device = resolve_device(device)
         kv_dt = torch_dtype(cfg.kv_cache_dtype)
 
-        def zeros(length):
-            shape = (cfg.n_layers, batch_size, length, cfg.n_kv_heads, cfg.hd)
-            return torch.zeros(shape, dtype=kv_dt, device=device)
+        def split_kv(n_stack):
+            def zeros(length):
+                shape = (n_stack, batch_size, length, cfg.n_kv_heads, cfg.hd)
+                return torch.zeros(shape, dtype=kv_dt, device=device)
 
-        return {
-            "layers": {
-                "main": (zeros(max_len), zeros(max_len)),
-                "recent": (zeros(recent_size), zeros(recent_size)),
-            },
-            "len": 0,
-            "len_rec": 0,
-        }
+            return {"main": (zeros(max_len), zeros(max_len)),
+                    "recent": (zeros(recent_size), zeros(recent_size))}
+
+        def stacked(state):
+            """One state per layer: the given (meta) state's leaves, stacked."""
+            return type(state)(*(
+                torch.zeros((cfg.n_layers,) + t.shape, dtype=t.dtype, device=device)
+                for t in state))
+
+        if self.family == "ssm":
+            st = R6.init_rwkv_state(cfg, batch_size, self.dtype, device="meta")
+            return {"layers": stacked(st), "len": 0}
+        if self.family == "hybrid":
+            st = M2.init_mamba_state(cfg, batch_size, self.dtype, device="meta")
+            return {
+                "layers": {"mamba": stacked(st),
+                           "attn": split_kv(cfg.n_layers // cfg.attn_every)},
+                "len": 0,
+                "len_rec": 0,
+            }
+        return {"layers": split_kv(cfg.n_layers), "len": 0, "len_rec": 0}

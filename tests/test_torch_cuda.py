@@ -12,12 +12,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels.decay_attention import ops as dc_ops  # noqa: E402
+from repro_torch.kernels.decay_attention.ref import (  # noqa: E402
+    chunked_decay_ref,
+    decay_attention_ref,
+)
 from repro_torch.kernels.flash_attention import ops as fl_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pg_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.pud_bulk import ops as pud_ops  # noqa: E402
 from repro_torch.kernels.pud_bulk.ref import block_copy_ref, bulk_op_ref  # noqa: E402
+from repro_torch.models import linear_scan  # noqa: E402
 
 # the reference's tolerances: 2e-5 f32 (paged and flash attention), 2e-2 bf16
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -320,3 +326,152 @@ def test_bulk_op_kernel_rejects_mismatched_operands(cuda):
     with pytest.raises(ValueError, match="differ"):
         pud_ops.pud_xor(x, torch.zeros(100, dtype=torch.int32))
     assert kernels.launches["bulk_op"] == before
+
+
+# -- decay attention ---------------------------------------------------------------
+
+DECAY_TOL = 2e-3    # the reference's (tests/test_kernel_decay.py), f32
+# tests/test_kernel_decay.py's shapes (B, S, H, dk, dv, bonus), its
+# three-chunk state carry, and the model shapes (rwkv6: 64/64 with the bonus;
+# zamba2 smoke: 16/16)
+DECAY_CASES = [
+    (2, 64, 2, 16, 16, False),
+    (1, 100, 3, 32, 32, True),
+    (2, 32, 1, 8, 24, True),
+    (1, 33, 2, 64, 64, False),
+    (1, 96, 1, 16, 16, "carry"),
+    (2, 300, 4, 64, 64, True),
+    (2, 77, 6, 16, 16, False),
+]
+
+
+def _decay_inputs(B, S, H, dk, dv, bonus, seed=0):
+    """The reference kernel test's inputs (a constant decay of -0.05 for the
+    state carry), made with numpy, on the card."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, H, dk))
+    k = rng.normal(size=(B, S, H, dk)) * 0.3
+    v = rng.normal(size=(B, S, H, dv))
+    lw = (np.full((B, S, H, dk), -0.05) if bonus == "carry"
+          else -np.abs(rng.normal(size=(B, S, H, dk))) * 0.3)
+    u = rng.normal(size=(H, dk)) * 0.2 if bonus is True else None
+    return [None if a is None else torch.from_numpy(a.astype(np.float32)).cuda()
+            for a in (q, k, v, lw, u)]
+
+
+def _decay_check(q, k, v, lw, u=None, h0=None, tol=DECAY_TOL):
+    before = kernels.launches["decay_attention"]
+    y, hT = dc_ops.decay_attention(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
+    torch.cuda.synchronize()
+    assert kernels.launches["decay_attention"] == before + 1
+    py, ph = chunked_decay_ref(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
+    assert y.dtype == q.dtype and y.shape == v.shape and hT.dtype == torch.float32
+    scale = max(1.0, py.float().abs().max().item()) if q.dtype == torch.bfloat16 else 1.0
+    assert (y.float() - py.float()).abs().max().item() < tol * scale
+    assert (hT - ph).abs().max().item() < DECAY_TOL * max(1.0, ph.abs().max().item())
+    return y, hT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECAY_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_decay_attention_kernel_matches_plain(cuda, case):
+    q, k, v, lw, u = _decay_inputs(*case)
+    y, hT = _decay_check(q, k, v, lw, u)
+    if q.shape[1] <= 100:   # and the sequential oracle at the reference's tolerance
+        oy, oh = decay_attention_ref(q, k, v, lw, bonus=u, return_state=True)
+        assert (y - oy).abs().max().item() < DECAY_TOL
+        assert (hT - oh).abs().max().item() < DECAY_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bonus", [False, True])
+def test_decay_attention_kernel_carries_an_initial_state(cuda, bonus):
+    q, k, v, lw, u = _decay_inputs(2, 70, 3, 32, 24, bonus, seed=1)
+    h0 = torch.randn(2, 3, 32, 24, generator=torch.Generator(device="cuda").manual_seed(2),
+                     device="cuda")
+    _decay_check(q, k, v, lw, u, h0)
+    # two calls chaining the state equal one call
+    y1, s1 = dc_ops.decay_attention(q[:, :40], k[:, :40], v[:, :40], lw[:, :40], bonus=u,
+                                    initial_state=h0, return_state=True)
+    y2, s2 = dc_ops.decay_attention(q[:, 40:], k[:, 40:], v[:, 40:], lw[:, 40:], bonus=u,
+                                    initial_state=s1, return_state=True)
+    y, s = dc_ops.decay_attention(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
+    assert (torch.cat([y1, y2], 1) - y).abs().max().item() < DECAY_TOL
+    assert (s2 - s).abs().max().item() < DECAY_TOL * max(1.0, s.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_decay_attention_kernel_on_stride0_views(cuda):
+    """Mamba2's call: C and B broadcast over heads, the per-head decay over
+    the state dim, v a fresh tensor; a ragged S."""
+    B, S, H, ns, hd = 2, 75, 8, 16, 32
+    g = torch.Generator(device="cuda").manual_seed(3)
+    xBC = torch.randn(B, S, 3 * ns, generator=g, device="cuda")
+    Cp, Bp = xBC[..., :ns], xBC[..., ns:2 * ns] * 0.3
+    q, k = Cp[:, :, None].expand(B, S, H, ns), Bp[:, :, None].expand(B, S, H, ns)
+    dt = torch.rand(B, S, H, generator=g, device="cuda")
+    lw = (-dt)[..., None].expand(B, S, H, ns)
+    v = torch.randn(B, S, H, hd, generator=g, device="cuda")
+    assert q.stride(2) == 0 and lw.stride(3) == 0
+    _decay_check(q, k, v, lw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bonus", [False, True])
+def test_decay_attention_kernel_bf16(cuda, bonus):
+    """bf16 q, k, v (the model path's type), f32 log_w: within 2e-2 of the
+    plain version's scale, the rule of the bf16 flash rows."""
+    q, k, v, lw, u = _decay_inputs(2, 130, 4, 64, 64, bonus, seed=4)
+    h0 = torch.randn(2, 4, 64, 64, generator=torch.Generator(device="cuda").manual_seed(5),
+                     device="cuda")
+    _decay_check(q.bfloat16(), k.bfloat16(), v.bfloat16(), lw, u, h0, tol=2e-2)
+
+
+@pytest.mark.cuda
+def test_decay_attention_raises_under_autograd(cuda):
+    q, k, v, lw, u = _decay_inputs(1, 40, 2, 16, 16, True)
+    q.requires_grad_(True)
+    before = kernels.launches["decay_attention"]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        dc_ops.decay_attention(q, k, v, lw, bonus=u)
+    assert kernels.launches["decay_attention"] == before
+
+
+@pytest.mark.cuda
+def test_decay_attention_kernel_rejects_what_it_cannot_take(cuda):
+    q, k, v, lw, u = _decay_inputs(1, 40, 2, 16, 16, True)
+    wide, wide_w = _decay_inputs(1, 40, 2, 65, 16, False)[0], _decay_inputs(1, 40, 2, 65, 16,
+                                                                            False)[3]
+    before = kernels.launches["decay_attention"]
+    with pytest.raises(ValueError, match="dk and dv"):
+        dc_ops.decay_attention(wide, wide, v, wide_w)
+    with pytest.raises(ValueError, match="dk and dv"):
+        dc_ops.decay_attention(q, k, _decay_inputs(1, 40, 2, 16, 65, False)[2], lw)
+    with pytest.raises(TypeError):
+        dc_ops.decay_attention(q.half(), k.half(), v.half(), lw)
+    with pytest.raises(TypeError):
+        dc_ops.decay_attention(q, k.bfloat16(), v, lw)
+    with pytest.raises(TypeError):
+        dc_ops.decay_attention(q, k, v, lw.bfloat16())
+    with pytest.raises(TypeError):
+        dc_ops.decay_attention(q, k, v, lw, bonus=u.bfloat16())
+    with pytest.raises(ValueError, match="several devices"):
+        dc_ops.decay_attention(q, k, v, lw.cpu())
+    assert kernels.launches["decay_attention"] == before
+
+
+@pytest.mark.cuda
+def test_chunked_decay_attention_dispatch_on_the_card(cuda):
+    """Outside autograd the model path's chunked form launches the kernel;
+    under autograd it takes the plain math, which carries gradients."""
+    q, k, v, lw, u = _decay_inputs(2, 50, 2, 16, 16, True)
+    before = kernels.launches["decay_attention"]
+    with torch.no_grad():
+        y = linear_scan.chunked_decay_attention(q, k, v, lw, bonus=u)
+    assert kernels.launches["decay_attention"] == before + 1
+    q.requires_grad_(True)
+    y_plain = linear_scan.chunked_decay_attention(q, k, v, lw, bonus=u)
+    y_plain.sum().backward()
+    assert kernels.launches["decay_attention"] == before + 1
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+    assert (y - y_plain.detach()).abs().max().item() < DECAY_TOL

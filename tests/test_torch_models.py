@@ -116,11 +116,10 @@ def test_chunked_attention_ragged_blocks():
     assert _err(ours, ref) < TOL
 
 
-def test_pallas_impl_raises_until_ported():
-    """The pallas path is ported: on the CPU it takes the flash kernel's
-    plain version and matches the reference's pallas path (its Pallas kernel
-    in interpret mode) at 2e-5, causal and not.  (Until the flash kernel was
-    ported this test checked that the path raised.)"""
+def test_pallas_impl_matches_reference_pallas_path():
+    """On the CPU the pallas path takes the flash kernel's plain version and
+    matches the reference's pallas path (its Pallas kernel in interpret mode)
+    at 2e-5, causal and not."""
     q, k, v = _qkv(6, 2, 40, 40, 4, 2, 32)
     for causal in (True, False):
         kw = dict(impl="pallas", causal=causal, kv_len=40, scale=32 ** -0.5)
@@ -214,8 +213,7 @@ def test_prefill_logits_matches_reference(stablelm_pair):
     assert _scaled_err(ol, rl) < TOL
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "rwkv6_7b", "zamba2_7b",
-                                  "seamless_m4t_medium", "qwen2_vl_72b"])
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "seamless_m4t_medium", "qwen2_vl_72b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError):
         LM(get_config(arch).smoke())
@@ -230,6 +228,6 @@ def test_puma_paper_config_raises_until_dram_model_is_ported():
 
 
 @pytest.mark.parametrize("arch", ["stablelm_1_6b", "chatglm3_6b", "granite_moe_1b_a400m",
-                                  "zamba2_7b", "qwen2_vl_72b"])
+                                  "zamba2_7b", "rwkv6_7b", "qwen2_vl_72b"])
 def test_configs_equal_reference(arch):
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(ref_get_config(arch))
