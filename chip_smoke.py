@@ -318,7 +318,23 @@ FLASH_CASES = [
     (2, 32, 8, 1024, 1024, 128, True, torch.float32),
     (2, 8, 4, 300, 1000, 64, False, torch.bfloat16),      # non-causal, Sq != Sk
     (2, 8, 4, 300, 1000, 64, False, torch.float32),
+    # the wgmma path's edges (bf16, D = 64): one tile, ragged Sq and Sk,
+    # Sq > Sk causal, Sk = 1, Sq = 1, GQA 32/8
+    (1, 1, 1, 64, 64, 64, True, torch.bfloat16),
+    (2, 4, 2, 200, 333, 64, True, torch.bfloat16),
+    (2, 4, 2, 200, 333, 64, False, torch.bfloat16),
+    (1, 4, 4, 300, 130, 64, True, torch.bfloat16),
+    (2, 4, 4, 100, 1, 64, True, torch.bfloat16),
+    (2, 4, 4, 1, 300, 64, False, torch.bfloat16),
+    (2, 32, 8, 1024, 1024, 64, True, torch.bfloat16),
 ]
+
+
+def flash_path(D, dtype) -> str:
+    """The kernel's routing rule for 16-byte aligned inputs (all of these)."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "wgmma" if D == 64 else "mma" if D % 16 == 0 else "simt"
 
 
 def flash_inputs(gen, B, Hq, Hkv, Sq, Sk, D, dtype):
@@ -329,18 +345,23 @@ def flash_inputs(gen, B, Hq, Hkv, Sq, Sk, D, dtype):
 def flash_cases() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(7)
     errs = {}
-    for B, Hq, Hkv, Sq, Sk, D, causal, dtype in FLASH_CASES:
+    # then the main path's layout: (B, S, H, D) tensors transposed to (B, H, S, D)
+    transposed = [(2, 8, 2, 75, 75, 64, True, torch.bfloat16, True)]
+    for B, Hq, Hkv, Sq, Sk, D, causal, dtype, *views in [*FLASH_CASES, *transposed]:
         q, k, v = flash_inputs(gen, B, Hq, Hkv, Sq, Sk, D, dtype)
+        if views:
+            q, k, v = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
         out = fl_ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         path = fl_ops.last_path
         plain = attention_ref(q, k, v, causal=causal)
         err = (out.float() - plain.float()).abs().max().item()
         name = f"flash B{B} H{Hq}/{Hkv} S{Sq}x{Sk} D{D} {'causal' if causal else 'full'} " \
-               f"{str(dtype).split('.')[-1]}"
+               f"{str(dtype).split('.')[-1]}{' transposed' if views else ''}"
         errs[name] = err
         log(f"[kernels] {name} ({path}): max_abs_err {err:.3e} (tol {TOL[dtype]:g})")
         check(out.dtype == dtype and out.shape == q.shape, f"{name}: output type/shape")
+        check(path == flash_path(D, dtype), f"{name}: took the {path} path")
         check(err < TOL[dtype], f"{name}: err {err} over tolerance")
         del q, k, v, out, plain
     torch.cuda.empty_cache()
@@ -888,7 +909,8 @@ def phase_flash_forward(params) -> dict:
             check(n == (depth if impl == "pallas" else 0),
                   f"prefill ({impl}, {depth} layers): {n} flash_attention launches, not {depth}")
             if impl == "pallas":
-                check(fl_ops.last_path == "mma", f"the bf16 forward took the {fl_ops.last_path} path")
+                check(fl_ops.last_path == "wgmma",
+                      f"the bf16 forward took the {fl_ops.last_path} path")
             check(tuple(y.shape) == (FLASH_MAIN["B"], pad_vocab(cfg)), f"prefill logits {tuple(y.shape)}")
             z[impl] = y.float()
             if depth == cfg.n_layers:

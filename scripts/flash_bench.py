@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Time the bf16 flash-attention kernel at the main shape on the card.
+
+    python3 scripts/flash_bench.py [--root DIR ...] [--rounds N] [--forward N]
+
+For each checkout root (default: this repository) it builds that tree's
+``csrc/flash_attention.cu``, checks the kernel against the plain version at
+q/k/v (4, 32, 2048, 64) bf16, causal and full, and times it with
+``chip_smoke.time_ms`` (CUDA events, L2 flushed, median of 20) beside
+``scaled_dot_product_attention`` on the same inputs.  Each root runs in a
+process of its own, the roots in turn for ``--rounds`` rounds, so that two
+versions (an unpacked parent and this tree, say) compare inside one run on
+one card.  With ``--forward N`` it also times N eval (``build_eval_step``)
+and N ``prefill_logits`` forwards of the full-width stablelm_1_6b at 4 x
+2048 through the flash kernel, as ``chip_smoke.phase_flash_forward`` does
+once, with random weights from a seed.  Prints one JSON line per root and
+round.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_CHILD = r"""
+import json, sys
+root, forward = sys.argv[1], int(sys.argv[2])
+sys.path.insert(0, root)
+import chip_smoke as c
+import torch
+gen = torch.Generator(device="cuda").manual_seed(8)
+m = c.FLASH_MAIN
+q, k, v = c.flash_inputs(gen, m["B"], m["Hq"], m["Hkv"], m["Sq"], m["Sk"], m["D"], torch.bfloat16)
+scale = m["D"] ** -0.5
+sdpa = torch.nn.functional.scaled_dot_product_attention
+res = {"root": root}
+for causal in (True, False):
+    key = "causal" if causal else "full"
+    out = c.fl_ops._launch(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    res[f"{key}_path"] = c.fl_ops.last_path
+    res[f"{key}_err"] = (out.float() - c.attention_ref(q, k, v, causal=causal).float()).abs().max().item()
+    res[f"{key}_ms"] = c.time_ms(lambda: c.fl_ops._launch(q, k, v, causal, scale), 20)
+    res[f"{key}_sdpa_ms"] = c.time_ms(lambda: sdpa(q, k, v, is_causal=causal), 20)
+    res[f"{key}_bound_ms"] = c.flash_flops(m["B"], m["Hq"], m["Sq"], m["Sk"], m["D"], causal) \
+        / c.BF16_TC_FLOPS * 1e3
+if forward:
+    del q, k, v
+    cfg = c.get_config("stablelm_1_6b")
+    params = c.LM(cfg).init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    data = c.DataConfig(vocab_size=cfg.vocab_size, seq_len=m["Sq"], batch_per_shard=m["B"])
+    batch = {n: torch.from_numpy(a).cuda() for n, a in c.synth_batch(data, 0, 0).items()}
+    prompts = {"tokens": torch.from_numpy(c.synth_batch(data, 1, 0)["tokens"]).cuda(),
+               "positions": batch["positions"]}
+    model = c.LM(cfg, attn_impl="pallas")
+    res["eval_ms"], res["prefill_ms"] = [], []
+    for _ in range(forward):
+        res["eval_ms"].append(c._forward(model, "eval", params, batch)[1])
+        res["prefill_ms"].append(c._forward(model, "prefill", params, prompts)[1])
+print(json.dumps(res), flush=True)
+"""
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", action="append", default=None,
+                    help="checkout root to time (repeatable; default: this repository)")
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--forward", type=int, default=0,
+                    help="also time this many eval and prefill forwards at 4 x 2048")
+    args = ap.parse_args()
+    roots = [str(Path(r).resolve()) for r in (args.root or [ROOT])]
+    if shutil.which("nvidia-smi") is None:
+        sys.exit("flash_bench: no NVIDIA card here (nvidia-smi not found)")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    failed = False
+    for _ in range(args.rounds):
+        for root in roots:
+            r = subprocess.run([sys.executable, "-c", _CHILD, root, str(args.forward)], cwd=root)
+            failed |= r.returncode != 0
+    sys.exit(1 if failed else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -17,37 +17,68 @@
 // (B, H, S, D) transposed views of the model's attention need no copy; the
 // output is written through its own strides.
 //
-// Bound: at the main shape (B 4, H 32, S 2048, D 64, causal, bf16) the
-// tensor-core operations, 2 * 2 * B * H * S^2 * D / 2 = 6.9e10, take 0.069 ms
-// at 989 TFLOP/s; the bytes (q, k, v read once, out written once: 134 MB) take
-// 0.040 ms at 3.35 TB/s.  So it is bound by operations.
+// Bounds at the main shape (B 4, H 32, S 2048, D 64, causal, bf16):
+//   * operations: the visible pairs' q.k and p.v, 2 * 2 * B * H * D * S(S+1)/2
+//     = 6.9e10, take 0.0695 ms at 989 TFLOP/s;
+//   * bytes: q, k, v read once and out written once, 134 MB, take 0.040 ms
+//     at 3.35 TB/s;
+//   * exponentials: one ex2 per computed pair at 16 per SM per clock (the
+//     multi-function unit), as many pairs per clock as the tensor cores
+//     manage at D = 64, so about 0.07 ms: the softmax has to overlap the
+//     products to come near the operations bound;
+//   * L2 -> shared memory: q tile i reads the K and V rows of (i+1) tiles, so
+//     with 64-row q tiles about 1.1 GB cross from L2, with 128-row tiles
+//     about 0.57 GB.
+// So it is bound by operations, with the exponentials level with them.
 //
-// Design: one thread block per (q tile of 64 rows, query head, batch), q
-// tiles of one head in reverse order so the longest causal rows start first.
-// The block loops over K/V tiles of 64 keys staged in shared memory, with the
-// online softmax in registers (bf16) or shared memory (f32).  Under the causal
-// mask the K tiles wholly above the diagonal of the q tile are skipped: their
-// weights are exactly 0, so the result is unchanged.
-//   * bf16 with D a multiple of 16 up to 128, K/V rows on 16-byte boundaries
-//     and q/out rows on 4-byte ones: four warps of 16 query rows each run
-//     mma.sync m16n8k16 (bf16 in, f32 accumulate).  q fragments stay in
-//     registers for the whole sweep.  K and V tiles stream into two stages of
-//     shared memory with cp.async (rows padded by 16 bytes against bank
-//     conflicts), the next tile loading while the current one is used; the
-//     V operand is read transposed by ldmatrix.trans.  The score accumulator
-//     is reused as the A operand of the P.V product after rounding P to bf16
-//     (FlashAttention-2's layout).  The softmax runs in base 2 with the
-//     hardware's approximate exp2, and only tiles that cross the diagonal or
-//     the end of the keys apply the mask.
-//   * f32, and bf16 shapes the tensor-core path does not take: 256 threads
-//     on CUDA cores in f32, a 4 x 4 score micro-tile and a 4 x ceil(D/16)
-//     output micro-tile per thread.  f32 inputs have to stay f32: the
-//     reference holds f32 to 2e-5, which TF32 cannot meet.
-// No TMA, no warp specialisation and no wgmma: that is later work.
+// Three paths, chosen before the launch by type, D and alignment alone (a
+// path that fails raises; none falls back to another):
+//   * "wgmma": bf16 with D = 64, and q, k, v and out each with a 16-byte
+//     aligned base and, for batch, head and seq of size > 1, a positive stride
+//     of a multiple of 16 bytes (the main path's transposed views qualify).
+//     One persistent block per SM (a producer warpgroup and two consumer
+//     warpgroups of 64 query rows) walks work items of 128 query rows of one
+//     (b, h); the items come in pairs, q tiles nq-1-i and i, so that every
+//     pair carries the same causal work.  The producer's one thread loads Q
+//     into one of two buffers and K/V tiles of 128 keys into a ring of three
+//     stages with TMA (tensor maps encoded on the host for each call, the
+//     128-byte swizzle, zeros past S), paced by full and empty mbarriers,
+//     so the next item's Q and first K/V tiles load while this item ends.
+//     setmaxnreg moves registers from the producer (24) to the consumers
+//     (240).  Each consumer runs S = Q K^T as wgmma m64n128k16 (both from
+//     shared memory) and O += P V as m64n64k16 with P from registers (the S
+//     accumulator's layout is mma.sync's C layout repeated, so it packs to
+//     bf16 as the A fragment) and V read MN-major.  S of tile j is started
+//     with P V of tile j-1, and the softmax of tile j runs while P V of tile
+//     j-1 is on the tensor cores.  The softmax is base 2 (ex2.approx), with
+//     the scale folded into the exponent's FMA when it is positive, the mask
+//     applied only on tiles that cross the diagonal or the end of the keys,
+//     and each row's sum kept per thread until the item ends.  K/V tiles
+//     wholly above the diagonal are skipped: their weights are exactly 0.
+//     This is stage 2 of the redesign (stage 1, the same consumers fed by
+//     cp.async without a producer, measured slower; stage 3, the two
+//     consumer warpgroups taking turns under named barriers, gained
+//     nothing here and was not kept: PERF.md).
+//   * "mma": other bf16 with D a multiple of 16 up to 128, K/V rows on
+//     16-byte boundaries and q/out rows on 4-byte ones: one block per (q
+//     tile of 64 rows, query head, batch), the q tiles of a head in reverse
+//     order so the longest causal rows start first; four warps of 16 query
+//     rows on mma.sync m16n8k16, K/V tiles of 64 keys through two cp.async
+//     stages (rows padded against bank conflicts), V read transposed by
+//     ldmatrix.trans, the same base-2 softmax.
+//   * "simt": f32, and bf16 shapes neither tensor-core path takes: the same
+//     grid, 256 threads on CUDA cores in f32, a 4 x 4 score micro-tile and a
+//     4 x ceil(D/16) output micro-tile per thread, the softmax in shared
+//     memory.  f32 inputs have to stay
+//     f32: the reference holds f32 to 2e-5, which TF32 cannot meet.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -452,6 +483,415 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
   }
 }
 
+// -- bf16, D = 64, on warpgroup tensor cores (wgmma) ---------------------------
+
+constexpr int kWgConsumers = 256;   // two consumer warpgroups of 64 query rows
+constexpr int kWgThreads = 128 + kWgConsumers;  // and a producer warpgroup
+constexpr int kWgBQ = 128;          // query rows per work item
+constexpr int kWgBK = 128;          // keys per K/V tile
+constexpr int kWgStages = 3;        // K/V stages in the ring
+constexpr int kWgTile = kWgBK * 128;  // bytes of a K or V tile of 64 bf16 (128-byte rows)
+constexpr int kWgQTile = kWgBQ * 128;
+// two Q buffers, the K/V ring, the full and empty barriers of both, alignment slack
+constexpr int kWgSmem = 2 * kWgQTile + 2 * kWgStages * kWgTile + 8 * (2 * kWgStages + 4) + 1024;
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pins accumulator registers in place around the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D (64 x 128, f32) = A (64 x 16, shared) . B (128 x 16, shared, K-major)^T, + D when acc
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// -- mbarriers, TMA and register reallocation --
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// one arrival that also expects `bytes` more from asynchronous copies
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Waits for the phase of the given parity to complete.  A wait that has
+// not ended after 2^24 polls is a broken pipeline: trap rather than hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (int n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1 << 24)) __trap();
+  }
+}
+// a box of a (D, S, H, B) tensor map at (0, s, h, b) into shared memory,
+// completing on `bar`; rows past S are filled with zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int s,
+                                         int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(s), "r"(h), "r"(b), "r"(bar)
+      : "memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Work item `half` (0 or 1) of pair w: q tiles nq-1-i and i of one (b, h),
+// so that every pair holds the same number of causal K/V tiles.  False when
+// the pair has a single tile (nq odd) and `half` is its second.
+__device__ __forceinline__ bool wg_item(const Params& p, int nq, int w, int half, int& q0, int& h,
+                                        int& b) {
+  const int pph = (nq + 1) / 2, bh = w / pph, i = w - bh * pph;
+  const int qt = half ? i : nq - 1 - i;
+  if (half && qt == nq - 1 - i) return false;
+  q0 = qt * kWgBQ;
+  h = bh % p.Hq;
+  b = bh / p.Hq;
+  return true;
+}
+
+__device__ __forceinline__ int wg_tiles(const Params& p, int q0) {
+  const int kend = p.causal ? min(p.Sk, q0 + kWgBQ) : p.Sk;
+  return (kend + kWgBK - 1) / kWgBK;
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1) flash_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out, Params p) {
+  extern __shared__ uint8_t wg_smem_raw[];
+  const uint32_t raw = smem_addr(wg_smem_raw);
+  uint8_t* smem = wg_smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  // [Q buffer 0, 1][stage 0: K, V]...[stage S-1: K, V][barriers]
+  const uint32_t q_addr = smem_addr(smem), ring = q_addr + 2 * kWgQTile;
+  const uint32_t full0 = ring + 2 * kWgStages * kWgTile, empty0 = full0 + 8 * kWgStages;
+  const uint32_t q_full0 = empty0 + 8 * kWgStages, q_empty0 = q_full0 + 16;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int nq = (p.Sq + kWgBQ - 1) / kWgBQ;
+  const int npairs = p.B * p.Hq * ((nq + 1) / 2);
+
+  if (tid == 0) {
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, kWgConsumers / 32);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full0 + 8 * i, 1);
+      mbar_init(q_empty0 + 8 * i, kWgConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer warpgroup: one thread keeps the TMA loads in flight, the
+    // next item's Q and first K/V tiles while the consumers finish this one.
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      int n = 0, gt = 0;  // items and K/V tiles loaded so far
+      for (int w = blockIdx.x; w < npairs; w += gridDim.x)
+        for (int half = 0; half < 2; ++half) {
+          int q0, h, b;
+          if (!wg_item(p, nq, w, half, q0, h, b)) continue;
+          const int hk = h / (p.Hq / p.Hkv), qb = n & 1;
+          mbar_wait(q_empty0 + 8 * qb, ((n >> 1) & 1) ^ 1);  // the first round passes
+          mbar_expect_tx(q_full0 + 8 * qb, kWgQTile);
+          tma_load(q_addr + qb * kWgQTile, &q_map, q_full0 + 8 * qb, q0, h, b);
+          const int ntiles = wg_tiles(p, q0);
+          for (int it = 0; it < ntiles; ++it, ++gt) {
+            const int st = gt % kWgStages;
+            mbar_wait(empty0 + 8 * st, ((gt / kWgStages) & 1) ^ 1);
+            const uint32_t k_addr = ring + 2 * st * kWgTile;
+            mbar_expect_tx(full0 + 8 * st, 2 * kWgTile);
+            tma_load(k_addr, &k_map, full0 + 8 * st, it * kWgBK, hk, b);
+            tma_load(k_addr + kWgTile, &v_map, full0 + 8 * st, it * kWgBK, hk, b);
+          }
+          ++n;
+        }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  const int cw = wg - 1, warp = (tid % 128) / 32, lane = tid % 32;  // consumer warpgroup cw
+  const int g = lane >> 2, t = lane & 3;
+  const float scale2 = p.scale * 1.4426950408889634f;  // scale * log2(e)
+
+  // score registers, 8-key steps and 16-key steps of a K/V tile
+  constexpr int NS = kWgBK / 2, NJ = kWgBK / 8, NK = kWgBK / 16;
+  float o[32], s[NS];
+  uint32_t pa[NK][4];  // P in bf16, the A operand of O += P V
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = 0.f;
+  float m0, m1, l0, l1;       // running max and (this thread's) sum of rows g and g + 8, base 2
+  int wrow, row0, row1;       // this warp's first row, this thread's two rows
+  int klim0, klim1;           // keys visible to rows row0 and row1: those before these
+  uint32_t qw_addr;           // this warpgroup's 64 rows of Q
+
+  // S = Q K^T of the tile in stage st: four k-steps of 16 over D, each 32
+  // bytes on inside the swizzled rows (started, not waited for)
+  auto start_s = [&](int st) {
+    const uint32_t k_addr = ring + 2 * st * kWgTile;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n128(s, wg_desc(qw_addr + 32 * kk, 16, 1024), wg_desc(k_addr + 32 * kk, 16, 1024),
+                    kk);
+    wg_commit();
+  };
+  // O += P V of the tile in stage st: eight k-steps of 16 keys; V is read
+  // MN-major (transposed), 8 keys of 128 bytes per 1024-byte swizzle period
+  auto start_pv = [&](int st) {
+    const uint32_t v_addr = ring + (2 * st + 1) * kWgTile;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) wgmma_rs_n64(o, pa[kk], wg_desc(v_addr + kk * 2048, 16, 1024));
+    wg_commit();
+  };
+  // this warp is done with the stage or Q buffer of barrier `bar`
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // Online softmax of the scores of keys k0.. in s, in place: s becomes the
+  // weights; sets the factors that rescale O (rows g and g + 8).  s[4j + e]
+  // is row g, key k0 + 8j + 2t + e; s[4j + 2 + e] row g + 8.  Tiles that
+  // need no mask take a copy of the code without it (`masked` is a
+  // compile-time constant), and the max and the sum run as four
+  // independent chains per row.  With a positive scale (`pos`) the max is
+  // taken over the raw scores and the scale folded into the exponent's
+  // fused multiply-add.
+  auto softmax = [&](auto masked, auto pos, int k0, float& alpha0, float& alpha1) {
+    float mx0[4], mx1[4], sm0[4], sm1[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) mx0[c] = mx1[c] = kNegInf, sm0[c] = sm1[c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x0 = s[4 * j + e], x1 = s[4 * j + 2 + e];
+        if constexpr (!decltype(pos)::value) x0 *= scale2, x1 *= scale2;
+        if constexpr (decltype(masked)::value) {
+          const int kpos = k0 + j * 8 + t * 2 + e;
+          if (kpos >= klim0) x0 = kNegInf;
+          if (kpos >= klim1) x1 = kNegInf;
+        }
+        s[4 * j + e] = x0;
+        s[4 * j + 2 + e] = x1;
+        mx0[j & 3] = fmaxf(mx0[j & 3], x0);
+        mx1[j & 3] = fmaxf(mx1[j & 3], x1);
+      }
+    float r0 = fmaxf(fmaxf(mx0[0], mx0[1]), fmaxf(mx0[2], mx0[3]));
+    float r1 = fmaxf(fmaxf(mx1[0], mx1[1]), fmaxf(mx1[2], mx1[3]));
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, o_));
+      r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, o_));
+    }
+    if constexpr (decltype(pos)::value) {
+      r0 = r0 == kNegInf ? kNegInf : r0 * scale2;
+      r1 = r1 == kNegInf ? kNegInf : r1 * scale2;
+    }
+    const float mn0 = fmaxf(m0, r0), mn1 = fmaxf(m1, r1);
+    // a row with nothing visible yet (mn = kNegInf) takes its weights
+    // against 0, so its masked keys weigh exp2(kNegInf) = 0
+    const float ms0 = mn0 == kNegInf ? 0.f : mn0, ms1 = mn1 == kNegInf ? 0.f : mn1;
+    alpha0 = exp2_approx(m0 - mn0);
+    alpha1 = exp2_approx(m1 - mn1);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if constexpr (decltype(pos)::value) {
+          s[4 * j + e] = exp2_approx(fmaf(s[4 * j + e], scale2, -ms0));
+          s[4 * j + 2 + e] = exp2_approx(fmaf(s[4 * j + 2 + e], scale2, -ms1));
+        } else {
+          s[4 * j + e] = exp2_approx(s[4 * j + e] - ms0);
+          s[4 * j + 2 + e] = exp2_approx(s[4 * j + 2 + e] - ms1);
+        }
+        sm0[j & 3] += s[4 * j + e];
+        sm1[j & 3] += s[4 * j + 2 + e];
+      }
+    // this thread's share of the row sums: the four threads of a row add
+    // theirs once, after the last tile
+    l0 = alpha0 * l0 + ((sm0[0] + sm0[1]) + (sm0[2] + sm0[3]));
+    l1 = alpha1 * l1 + ((sm1[0] + sm1[1]) + (sm1[2] + sm1[3]));
+    m0 = mn0;
+    m1 = mn1;
+  };
+  // only tiles that cross the causal diagonal or the end of the keys are masked
+  auto softmax_tile = [&](int k0, float& alpha0, float& alpha1) {
+    const bool masked = k0 + kWgBK > p.Sk || (p.causal && k0 + kWgBK - 1 > wrow);
+    if (scale2 > 0.f) {
+      if (masked) softmax(std::true_type{}, std::true_type{}, k0, alpha0, alpha1);
+      else softmax(std::false_type{}, std::true_type{}, k0, alpha0, alpha1);
+    } else {
+      if (masked) softmax(std::true_type{}, std::false_type{}, k0, alpha0, alpha1);
+      else softmax(std::false_type{}, std::false_type{}, k0, alpha0, alpha1);
+    }
+  };
+  // the score tiles 2kk and 2kk+1 (mma.sync's C layout) are the A fragment
+  // of keys 16kk..16kk+15
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+
+  int n = 0, gt = 0;  // items and K/V tiles consumed so far
+  for (int w = blockIdx.x; w < npairs; w += gridDim.x)
+    for (int half = 0; half < 2; ++half) {
+      int q0, h, b;
+      if (!wg_item(p, nq, w, half, q0, h, b)) continue;
+      const int qb = n & 1, ntiles = wg_tiles(p, q0);
+      wrow = q0 + cw * 64 + warp * 16;
+      row0 = wrow + g;
+      row1 = row0 + 8;
+      klim0 = p.causal ? min(p.Sk, row0 + 1) : p.Sk;
+      klim1 = p.causal ? min(p.Sk, row1 + 1) : p.Sk;
+      qw_addr = q_addr + qb * kWgQTile + cw * 64 * 128;
+      m0 = m1 = kNegInf;
+      l0 = l1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      mbar_wait(q_full0 + 8 * qb, (n >> 1) & 1);
+
+      // The scores of tile it are computed, and their softmax runs, while
+      // the P V product of tile it-1 is on the tensor cores: S and P V are
+      // two commit groups, and waiting for all but one completes S alone.
+      if (ntiles > 0) {
+        float alpha0, alpha1;
+        int st = gt % kWgStages;
+        mbar_wait(full0 + 8 * st, (gt / kWgStages) & 1);
+        wg_fence();
+        start_s(st);
+        wg_wait<0>();
+        fence_regs(s);
+        softmax_tile(0, alpha0, alpha1);
+        pack_p();
+        for (int it = 1; it < ntiles; ++it) {
+          const int prev = st;
+          st = (gt + it) % kWgStages;
+          mbar_wait(full0 + 8 * st, ((gt + it) / kWgStages) & 1);
+          fence_regs(o);
+          wg_fence();
+          start_s(st);
+          start_pv(prev);
+          wg_wait<1>();
+          fence_regs(s);
+          softmax_tile(it * kWgBK, alpha0, alpha1);
+          wg_wait<0>();
+          fence_regs(o);
+          fence_regs(s);
+          release(empty0 + 8 * prev);  // stage prev may be refilled
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            o[4 * j] *= alpha0;
+            o[4 * j + 1] *= alpha0;
+            o[4 * j + 2] *= alpha1;
+            o[4 * j + 3] *= alpha1;
+          }
+          pack_p();
+        }
+        fence_regs(o);
+        wg_fence();
+        start_pv(st);
+        wg_wait<0>();
+        fence_regs(o);
+        release(empty0 + 8 * st);
+      }
+      release(q_empty0 + 8 * qb);  // Q buffer qb may be refilled
+      ++n;
+      gt += ntiles;
+
+      __nv_bfloat16* ob = out + b * p.o_b + h * p.o_h;
+#pragma unroll
+      for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+      }
+      const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = j * 8 + t * 2;
+        if (row0 < p.Sq)
+          *reinterpret_cast<uint32_t*>(ob + row0 * p.o_s + c) =
+              pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        if (row1 < p.Sq)
+          *reinterpret_cast<uint32_t*>(ob + row1 * p.o_s + c) =
+              pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+      }
+    }
+}
+
 // -- launch --------------------------------------------------------------------
 
 template <typename T, int MAXC>
@@ -494,6 +934,66 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime so
+// that the library needs no link against libcuda
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+// The (D, S, H, B) map of a bf16 tensor with D = 64 contiguous and element
+// strides (sb, sh, ss), read in boxes of 64 x rows under the 128-byte swizzle,
+// zeros past S.  A dimension of size 1 takes a packed stride: its own is
+// never used and may be anything.
+int encode_map(CUtensorMap* map, const void* ptr, int rows, int S, int H, int B, long long sb,
+               long long sh, long long ss) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (!encode) return (int)cudaErrorNotSupported;
+  S = max(S, 1);  // no keys: the map is never read
+  const cuuint64_t s_b = S == 1 ? 128 : ss * 2;
+  const cuuint64_t h_b = H == 1 ? s_b * S : sh * 2;
+  const cuuint64_t b_b = B == 1 ? h_b * H : sb * 2;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {s_b, h_b, b_b};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1}, unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                 __nv_bfloat16* out, const Params& p, cudaStream_t st) {
+  CUtensorMap q_map, k_map, v_map;
+  int e = encode_map(&q_map, q, kWgBQ, p.Sq, p.Hq, p.B, p.q_b, p.q_h, p.q_s);
+  if (!e) e = encode_map(&k_map, k, kWgBK, p.Sk, p.Hkv, p.B, p.k_b, p.k_h, p.k_s);
+  if (!e) e = encode_map(&v_map, v, kWgBK, p.Sk, p.Hkv, p.B, p.v_b, p.v_h, p.v_s);
+  if (e) return e;
+  e = (int)cudaFuncSetAttribute(flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kWgSmem);
+  if (e) return e;
+  // persistent: at most one block per SM, each walking its pairs of q tiles
+  int device = 0, sms = 0;
+  e = (int)cudaGetDevice(&device);
+  if (!e) e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e) return e;
+  const long long nq = (p.Sq + kWgBQ - 1) / kWgBQ;
+  const long long npairs = (long long)p.B * p.Hq * ((nq + 1) / 2);
+  if (npairs > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(npairs < sms ? npairs : sms);
+  flash_wgmma_kernel<<<grid, kWgThreads, kWgSmem, st>>>(q_map, k_map, v_map, out, p);
+  return (int)cudaGetLastError();
+}
+
 // The tensor-core path loads q and stores the output as 32-bit bf16 pairs and
 // copies K and V rows in 16-byte chunks.
 bool aligned_to(const void* ptr, int bytes, long long sb, long long sh, long long ss) {
@@ -502,9 +1002,17 @@ bool aligned_to(const void* ptr, int bytes, long long sb, long long sh, long lon
          ss % elems == 0;
 }
 
+// The wgmma path reads q, k and v through TMA: a 16-byte aligned base, and
+// for each of batch, head and seq of size > 1 a positive stride of a multiple
+// of 16 bytes.  The output it writes as 32-bit pairs, held to the same rule.
+bool tma_ok(const void* ptr, int B, int H, int S, long long sb, long long sh, long long ss) {
+  auto ok = [](int n, long long s) { return n == 1 || (s > 0 && s % 8 == 0); };
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && ok(B, sb) && ok(H, sh) && ok(S, ss);
+}
+
 // dims: B, Hq, Hkv, Sq, Sk, D; strides: q, k, v, out each (batch, head, seq).
-// Returns 1 when the tensor-core path ran, 0 for the CUDA-core path, or
-// minus a cudaError_t.
+// Returns 2 when the wgmma path ran, 1 for the mma.sync path, 0 for the
+// CUDA-core path, or minus a cudaError_t.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, const long long* dims,
            const long long* strides, float scale, int causal, void* stream) {
@@ -532,7 +1040,14 @@ int launch(const void* q, const void* k, const void* v, void* out, const long lo
                          aligned_to(k, 16, p.k_b, p.k_h, p.k_s) &&
                          aligned_to(v, 16, p.v_b, p.v_h, p.v_s) &&
                          aligned_to(out, 4, p.o_b, p.o_h, p.o_s);
-    if (aligned && p.D % 16 == 0 && p.D <= 128) {
+    const bool tma = tma_ok(q, p.B, p.Hq, p.Sq, p.q_b, p.q_h, p.q_s) &&
+                     tma_ok(k, p.B, p.Hkv, p.Sk, p.k_b, p.k_h, p.k_s) &&
+                     tma_ok(v, p.B, p.Hkv, p.Sk, p.v_b, p.v_h, p.v_s) &&
+                     tma_ok(out, p.B, p.Hq, p.Sq, p.o_b, p.o_h, p.o_s);
+    if (tma && p.D == 64) {
+      path = 2;
+      status = launch_wgmma(qt, kt, vt, ot, p, st);
+    } else if (aligned && p.D % 16 == 0 && p.D <= 128) {
       path = 1;
       switch (p.D / 16) {
         case 1: status = launch_mma<16>(qt, kt, vt, ot, p, st, grid); break;

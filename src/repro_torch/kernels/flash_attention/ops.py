@@ -9,6 +9,18 @@ cost no copy, and writes an output laid out like q.  Ragged Sq and Sk are
 masked in the kernel: the reference's zero-padding to its tiles is a TPU
 detail and is not carried over.
 
+The kernel picks one of three paths before it launches, by type, D and
+alignment alone, and a path that fails raises (none falls back):
+
+* ``"wgmma"``: bfloat16 with D = 64 and, for each of q, k, v and out, a
+  16-byte aligned base and positive strides of a multiple of 8 elements for
+  batch, head and seq (a dimension of size 1 is exempt).  A persistent
+  kernel with a TMA producer warpgroup and two consumer warpgroups on
+  Hopper's ``wgmma``; the model's transposed views take it.
+* ``"mma"``: other bfloat16 with D a multiple of 16 up to 128 (k and v rows
+  on 16-byte, q and out rows on 4-byte boundaries): ``mma.sync``.
+* ``"simt"``: float32 and every other shape, on CUDA cores.
+
 Forward only, like the reference (which has no ``custom_vjp``): a call that
 autograd would have to differentiate raises instead of returning an output
 with no gradient.
@@ -27,8 +39,9 @@ __all__ = ["flash_attention"]
 
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 
-#: the kernel path of the last launch: "mma" (bf16 on tensor cores) or "simt"
+#: the kernel path of the last launch: "wgmma", "mma" or "simt" (see above)
 last_path = None
+_PATHS = ("simt", "mma", "wgmma")
 
 
 def flash_attention(
@@ -85,6 +98,6 @@ def _launch(q, k, v, causal, scale) -> torch.Tensor:
     # >= 0: the path that ran; < 0: minus a CUDA error
     _build.check(lib, max(-status, 0), f"flash_attention (q {tuple(q.shape)}, "
                                        f"k {tuple(k.shape)}, {q.dtype})")
-    last_path = "mma" if status == 1 else "simt"
+    last_path = _PATHS[status]
     kernels.launches["flash_attention"] += 1
     return out

@@ -159,7 +159,24 @@ FLASH_CASES = [
     (1, 4, 4, 130, 70, 64, True, torch.bfloat16),    # Sq > Sk, causal
     (2, 32, 8, 256, 256, 128, True, torch.bfloat16),
     (1, 4, 4, 77, 0, 64, False, torch.float32),      # no keys: zeros
+    # the wgmma path's edges (bf16, D = 64)
+    (1, 1, 1, 64, 64, 64, True, torch.bfloat16),     # one tile
+    (2, 4, 2, 200, 333, 64, True, torch.bfloat16),   # ragged Sq and Sk
+    (2, 4, 2, 200, 333, 64, False, torch.bfloat16),
+    (1, 4, 4, 300, 130, 64, True, torch.bfloat16),   # Sq > Sk, causal, ragged
+    (2, 4, 4, 100, 1, 64, True, torch.bfloat16),     # Sk = 1
+    (2, 4, 4, 100, 1, 64, False, torch.bfloat16),
+    (2, 4, 4, 1, 300, 64, False, torch.bfloat16),    # Sq = 1
+    (2, 4, 4, 1, 300, 64, True, torch.bfloat16),
+    (2, 32, 8, 384, 384, 64, True, torch.bfloat16),  # GQA 32/8
 ]
+
+
+def _expected_path(D, dtype):
+    """The routing rule for contiguous (16-byte aligned) inputs."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "wgmma" if D == 64 else "mma" if D % 16 == 0 else "simt"
 
 
 def _flash_inputs(seed, B, Hq, Hkv, Sq, Sk, D, dtype):
@@ -184,8 +201,7 @@ def _flash_check(q, k, v, causal):
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,dtype", FLASH_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D, causal, dtype):
     _flash_check(*_flash_inputs(3, B, Hq, Hkv, Sq, Sk, D, dtype), causal)
-    if dtype == torch.bfloat16:
-        assert fl_ops.last_path == ("mma" if D % 16 == 0 else "simt")
+    assert fl_ops.last_path == _expected_path(D, dtype)
 
 
 @pytest.mark.cuda
@@ -199,6 +215,34 @@ def test_flash_attention_kernel_on_transposed_views(cuda, dtype):
                .to(dtype).transpose(1, 2) for h in (8, 2, 2)]
     out = _flash_check(q, k, v, True)
     assert out.transpose(1, 2).is_contiguous()
+    assert fl_ops.last_path == _expected_path(64, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["base", "row_stride"])
+def test_flash_attention_routes_unaligned_bf16_to_mma(cuda, which):
+    """The wgmma path takes 16-byte aligned bases and strides only: q at a
+    4-byte offset, or a row stride of 68 elements, keeps mma.sync."""
+    q, k, v = _flash_inputs(6, 1, 4, 2, 96, 160, 64, torch.bfloat16)
+    if which == "base":
+        q = torch.cat([q.new_zeros(2), q.flatten()])[2:].view(q.shape)
+    else:   # rows of 68 elements: only 8-byte aligned
+        q = torch.cat([q, q.new_zeros(1, 4, 96, 4)], -1)[..., :64]
+    _flash_check(q, k, v, True)
+    assert fl_ops.last_path == "mma"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-0.3, 0.0, 2.5])
+def test_flash_attention_kernel_with_other_scales(cuda, scale):
+    """The wgmma path folds a positive scale into its exponent and keeps a
+    separate softmax for the others; both match the plain version."""
+    q, k, v = _flash_inputs(7, 2, 4, 2, 200, 333, 64, torch.bfloat16)
+    out = fl_ops.flash_attention(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert fl_ops.last_path == "wgmma"
+    plain = attention_ref(q, k, v, causal=True, scale=scale)
+    assert (out.float() - plain.float()).abs().max().item() < TOL[torch.bfloat16]
 
 
 @pytest.mark.cuda
