@@ -25,9 +25,11 @@ before each and read just after:
   generator, the leaves the reference's init leaves zero set to seeded
   nonzero values) served on their state path: ``decode_step`` over 8
   prompts of 1024 tokens through the decay-attention kernel, 32 greedy
-  one-token steps, and ``prefill_logits`` at 4 x 2048; the first layer
-  held against the plain chunked math on both inputs, and the first layers'
-  logits within the spread of the sequential oracle.
+  one-token steps, and ``prefill_logits`` at 4 x 2048, every launch on its
+  family's tensor-core path (``scalar_tc`` for zamba2, ``vector_tc`` for
+  rwkv6); the first layer held against the plain chunked math on both
+  inputs, and the first layers' logits within the spread of the sequential
+  oracle.
 
 It also runs the PUD host model (the quickstart's allocator table and the
 paper's Figure 2, modelled DRAM times), holds the card's generated ids and
@@ -134,6 +136,8 @@ DECAY_BF16_TOL = 2e-2
 # the state-serving path of the ssm and hybrid families: 8 prompts of 1024
 # tokens, 32 greedy steps; prefill_logits at 4 x 2048
 STATE_BATCH, STATE_PROMPT, STATE_NEW = 8, 1024, 32
+# the decay kernel's path on each family's main path (bf16)
+STATE_PATH = {"rwkv6_7b": "vector_tc", "zamba2_7b": "scalar_tc"}
 # the state path's whole-model check runs the first layers of the same
 # weights, where the two plain paths still agree (the full-width models are
 # chaotic in depth under the reference's init: ROADMAP.md, fault 4).  For
@@ -414,13 +418,16 @@ def decay_check(name, q, k, v, lw, u=None, h0=None, oracle=False) -> float:
     scale.  Returns the output's max abs error."""
     y, hT = dc_ops.decay_attention(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
     torch.cuda.synchronize()
+    path = dc_ops.last_path
     py, ph = chunked_decay_ref(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
     err = (y.float() - py.float()).abs().max().item()
     tol = DECAY_TOL if q.dtype == torch.float32 else DECAY_BF16_TOL * max(
         1.0, py.float().abs().max().item())
     serr = (hT - ph).abs().max().item()
     stol = DECAY_TOL * max(1.0, ph.abs().max().item())
-    line = f"[kernels] decay {name}: max_abs_err {err:.3e} (tol {tol:.3g}), state {serr:.3e} (tol {stol:.3g})"
+    line = (f"[kernels] decay {name} ({path} path): max_abs_err {err:.3e} (tol {tol:.3g}), "
+            f"state {serr:.3e} (tol {stol:.3g})")
+    check(path == dc_ops.kernel_path(q, k, v, lw), f"decay {name}: took the {path} path")
     check(y.dtype == q.dtype and y.shape == v.shape and hT.dtype == torch.float32,
           f"decay {name}: output type/shape")
     check(err < tol and serr < stol, f"decay {name}: over tolerance")
@@ -436,8 +443,10 @@ def decay_check(name, q, k, v, lw, u=None, h0=None, oracle=False) -> float:
 def decay_cases() -> dict:
     """The reference's five kernel shapes (against the plain chunked math and
     the sequential oracle), a nonzero initial state with the final state
-    compared, Mamba2's stride-0 q/k/log_w at zamba2's width, bf16 at the
-    rwkv6 serve shape, and the refusal under autograd."""
+    compared, Mamba2's stride-0 q/k/log_w at zamba2's width in f32 and in
+    bf16 (C and B sliced from one 7296-wide row, as ``mamba2.py`` slices
+    ``xBC``; an initial state), bf16 at the rwkv6 serve shape, and the
+    refusal under autograd.  Each case prints the path it took."""
     errs = {}
     for case in DECAY_CASES:
         errs[f"decay {case}"] = decay_check("-".join(map(str, case)), *decay_inputs(*case),
@@ -458,6 +467,14 @@ def decay_cases() -> dict:
     v = torch.randn(B, S, H, hd, generator=gen, device="cuda")
     check(q.stride(2) == 0 and k.stride(2) == 0 and lw.stride(3) == 0, "stride-0 views")
     errs["decay stride-0"] = decay_check("stride-0 q/k/log_w (2, 300, 112, 64/64) f32", q, k, v, lw)
+    d_in = 7168
+    xBC = torch.randn(B, S, d_in + 2 * ns, generator=gen, device="cuda").bfloat16()
+    q = xBC[:, :, None, d_in + ns:].expand(B, S, H, ns)
+    k = xBC[:, :, None, d_in:d_in + ns].expand(B, S, H, ns)
+    v = v.bfloat16()
+    h0 = torch.randn(B, H, ns, hd, generator=gen, device="cuda")
+    errs["decay stride-0 bf16"] = decay_check("stride-0 q/k/log_w (2, 300, 112, 64/64) bf16, h0",
+                                              q, k, v, lw, h0=h0)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, lw, u = decay_inputs(STATE_BATCH, STATE_PROMPT, 64, 64, 64, True, seed=3)
         h0 = torch.randn(STATE_BATCH, 64, 64, 64, generator=gen, device="cuda")
@@ -1057,7 +1074,10 @@ def phase_state_model(arch: str, seed: int) -> dict:
     kernels.reset_launches()
     logits, cache, prompt_ms = state_prompt(model, params, prompts, recent)
     n_prompt = kernels.launches["decay_attention"]
+    path = STATE_PATH[arch]
     check(n_prompt == cfg.n_layers, f"{tag} prompt: {n_prompt} decay launches, not {cfg.n_layers}")
+    check(kernels.launches[f"decay_attention:{path}"] == n_prompt,
+          f"{tag} prompt: not every decay launch took the {path} path")
     check(tuple(logits.shape) == (STATE_BATCH, vocab) and bool(torch.isfinite(logits).all()),
           f"{tag} prompt logits")
     if "len_rec" in cache:
@@ -1083,6 +1103,8 @@ def phase_state_model(arch: str, seed: int) -> dict:
     y, prefill_ms, _ = _forward(model, "prefill", params, pbatch)
     n_prefill = kernels.launches["decay_attention"]
     check(n_prefill == cfg.n_layers, f"{tag} prefill_logits: {n_prefill} decay launches")
+    check(kernels.launches[f"decay_attention:{path}"] == n_prefill,
+          f"{tag} prefill_logits: not every decay launch took the {path} path")
     check(tuple(y.shape) == (4, vocab), f"{tag} prefill logits {tuple(y.shape)}")
     del y
     torch.cuda.empty_cache()
@@ -1096,10 +1118,11 @@ def phase_state_model(arch: str, seed: int) -> dict:
            "prefill_4x2048_ms": prefill_ms, "launches": n_prompt + n_prefill,
            "layer": layer, "shallow": shallow}
     log(f"{tag} prompt {STATE_BATCH} x {STATE_PROMPT} through decode_step: {prompt_ms:.1f} ms, "
-        f"{n_prompt} decay launches; {STATE_NEW} greedy steps: mean {res['decode_step_ms']:.2f} ms "
+        f"{n_prompt} decay launches ({path}); {STATE_NEW} greedy steps: mean "
+        f"{res['decode_step_ms']:.2f} ms "
         f"per step (steps 2-{STATE_NEW}, host clock incl. sync), {res['decode_tokens_per_s']:.1f} "
         f"tokens/s over {STATE_BATCH} sequences; "
-        f"prefill_logits 4 x 2048: {prefill_ms:.1f} ms, {n_prefill} decay launches")
+        f"prefill_logits 4 x 2048: {prefill_ms:.1f} ms, {n_prefill} decay launches ({path})")
     for path, r in layer.items():
         log(f"{tag} first layer on the {path} input {r['shape']}, kernel vs plain chunked: output "
             f"{r['out_err']:.3e} of scale {r['out_scale']:.3f} (tol {DECAY_BF16_TOL:g} of scale)"
@@ -1396,14 +1419,17 @@ def decay_flops(B, S, H, dk, dv, bonus: bool, shared_qk: bool = False) -> float:
 
 
 def decay_times() -> dict:
-    """The decay kernel at the rwkv6 serve shape (B 8, S 1024, H 64, 64/64,
-    bf16 q/k/v, f32 log_w, the bonus, h0 and hT) and at the zamba2
-    ``prefill_logits`` shape (B 4, S 2048, H 112, state 64, head 64; C and B
-    broadcast over heads, the decay over the state, no h0, hT written).  The
-    bound counts each distinct input byte read once (a stride-0 input once)
-    and each output written once, and the visible pairs' products
-    (``decay_flops``) at the f32 CUDA-core rate.  No library call computes
-    this function."""
+    """The decay kernel by path at the shapes the main path gives it: the
+    rwkv6 serve shape (B 8, S 1024, H 64, 64/64, log_w f32, the bonus, h0
+    and hT) in bf16 (``vector_tc``) and in f32 (``simt``), and the zamba2
+    ``prefill_logits`` shape (B 4, S 2048, H 112, state 64, head 64; C and
+    B sliced from one 7296-wide row as ``mamba2.py`` slices ``xBC`` and
+    broadcast over heads, the decay over the state, no h0, hT written) in
+    bf16 (``scalar_tc``).  The bound counts each distinct input byte read
+    once (a stride-0 input once) and each output written once, and the
+    visible pairs' products (``decay_flops``) at the peak rate of the units
+    the path runs them on: bf16 tensor cores for the ``_tc`` paths, f32 on
+    CUDA cores otherwise.  No library call computes this function."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     B, S, H, d = STATE_BATCH, STATE_PROMPT, 64, 64
     q, k, v = (torch.randn(B, S, H, d, generator=gen, device="cuda").bfloat16() for _ in range(3))
@@ -1411,33 +1437,45 @@ def decay_times() -> dict:
     u = torch.randn(H, d, generator=gen, device="cuda") * 0.3
     h0 = torch.randn(B, H, d, d, generator=gen, device="cuda")
     n = B * S * H * d
-    times = {"decay_attention": {
-        "ms": time_ms(lambda: dc_ops._launch(q, k, v, lw, u, h0, True), 20),
-        "plain_ms": time_ms(lambda: chunked_decay_ref(q, k, v, lw, bonus=u, initial_state=h0,
-                                                      return_state=True), 5),
-        "bytes_ms": (4 * n * 2 + n * 4 + 2 * B * H * d * d * 4 + H * d * 4)
-                    / HBM_BYTES_PER_S * 1e3,
-        "ops_ms": decay_flops(B, S, H, d, d, bonus=True) / F32_FLOPS * 1e3,
-        "library_ms": None,
-        "shape": f"rwkv6 serve: q/k/v ({B}, {S}, {H}, {d}) bf16, log_w f32, bonus, h0 and hT",
-    }}
+    times = {}
+    for key, dtype in (("decay_attention", torch.bfloat16), ("decay_attention:simt", torch.float32)):
+        qt, kt, vt = q.to(dtype), k.to(dtype), v.to(dtype)
+        path = dc_ops.kernel_path(qt, kt, vt, lw)
+        times[key] = {
+            "ms": time_ms(lambda: dc_ops._launch(qt, kt, vt, lw, u, h0, True), 20),
+            "plain_ms": time_ms(lambda: chunked_decay_ref(qt, kt, vt, lw, bonus=u,
+                                                          initial_state=h0, return_state=True), 5),
+            "bytes_ms": (4 * n * dtype.itemsize + n * 4 + 2 * B * H * d * d * 4 + H * d * 4)
+                        / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": decay_flops(B, S, H, d, d, bonus=True)
+                      / (BF16_TC_FLOPS if path.endswith("_tc") else F32_FLOPS) * 1e3,
+            "library_ms": None,
+            "shape": f"rwkv6 serve: q/k/v ({B}, {S}, {H}, {d}) {str(dtype).split('.')[-1]}, "
+                     f"log_w f32, bonus, h0 and hT; {path} path",
+        }
+        check(dc_ops.last_path == path, f"{key}: took the {dc_ops.last_path} path")
+        del qt, kt, vt
     del q, k, v, lw, h0
-    B, S, H, ns, hd = 4, 2048, 112, 64, 64
-    xBC = torch.randn(B, S, 2 * ns, generator=gen, device="cuda").bfloat16()
-    q = xBC[:, :, None, :ns].expand(B, S, H, ns)
-    k = xBC[:, :, None, ns:].expand(B, S, H, ns)
+    B, S, H, ns, hd, d_in = 4, 2048, 112, 64, 64, 7168
+    xBC = torch.randn(B, S, d_in + 2 * ns, generator=gen, device="cuda").bfloat16()
+    q = xBC[:, :, None, d_in + ns:].expand(B, S, H, ns)
+    k = xBC[:, :, None, d_in:d_in + ns].expand(B, S, H, ns)
     lw = (-torch.rand(B, S, H, generator=gen, device="cuda") * 2)[..., None].expand(B, S, H, ns)
     v = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
+    path = dc_ops.kernel_path(q, k, v, lw)
     times["decay_attention:zamba2"] = {
         "ms": time_ms(lambda: dc_ops._launch(q, k, v, lw, None, None, True), 20),
         "plain_ms": time_ms(lambda: chunked_decay_ref(q, k, v, lw, return_state=True), 5),
         "bytes_ms": (2 * B * S * ns * 2 + B * S * H * 4 + 2 * B * S * H * hd * 2
                      + B * H * ns * hd * 4) / HBM_BYTES_PER_S * 1e3,
-        "ops_ms": decay_flops(B, S, H, ns, hd, bonus=False, shared_qk=True) / F32_FLOPS * 1e3,
+        "ops_ms": decay_flops(B, S, H, ns, hd, bonus=False, shared_qk=True)
+                  / (BF16_TC_FLOPS if path.endswith("_tc") else F32_FLOPS) * 1e3,
         "library_ms": None,
-        "shape": f"zamba2 prefill: q/k ({B}, {S}, {H}, {ns}) bf16 stride 0 over heads, "
-                 f"log_w stride 0 over the state, v ({B}, {S}, {H}, {hd}) bf16, hT",
+        "shape": f"zamba2 prefill: C/B ({B}, {S}, {ns}) bf16 of a {d_in + 2 * ns}-wide row, "
+                 f"stride 0 over {H} heads, log_w stride 0 over the state, v ({B}, {S}, {H}, "
+                 f"{hd}) bf16, hT; {path} path",
     }
+    check(dc_ops.last_path == path, f"zamba2 shape: took the {dc_ops.last_path} path")
     del xBC, q, k, v, lw
     torch.cuda.empty_cache()
     return times

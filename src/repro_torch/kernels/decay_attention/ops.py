@@ -14,6 +14,25 @@ thrown away it is the reference's ``kernels/decay_attention/ops.py:
 decay_attention`` (which rounds u to q's type first; the model path keeps u
 in float32, and so does this).
 
+The kernel takes one of three paths, chosen before it launches by type and
+strides alone (:func:`kernel_path`); a path that fails raises, none falls
+back to another or to the plain version:
+
+* ``"scalar_tc"``: bfloat16 with q and k shared by every head (stride 0
+  over heads) and one decay per head (log_w stride 0 over the state dim),
+  Mamba2's call: tensor cores, no factored decay weights.
+* ``"vector_tc"``: every other bfloat16 call (RWKV6's): tensor cores.
+* ``"simt"``: float32, on CUDA cores.
+
+``last_path`` holds the path of the last launch, and
+``kernels.launches["decay_attention:<path>"]`` counts launches by path.
+
+The bfloat16 paths copy rows of q, k, v (and of log_w on ``vector_tc``) in
+16-byte pieces, so they take only views whose d is contiguous and a
+multiple of 8, whose base is 16-byte aligned and whose other strides are
+multiples of 16 bytes (a dimension of size 1 is exempt); others raise
+rather than being copied.  The model path's views meet this.
+
 Forward only, like the reference (its kernel has no ``custom_vjp``): a call
 that autograd would have to differentiate raises.
 """
@@ -28,10 +47,15 @@ from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels.decay_attention import ref as _ref
 
-__all__ = ["decay_attention", "MAX_D"]
+__all__ = ["decay_attention", "kernel_path", "MAX_D", "PATHS"]
 
 MAX_D = 64
 _ENTRY = {torch.float32: "decay_attention_f32", torch.bfloat16: "decay_attention_bf16"}
+#: the kernel paths, by the code the C entry points take
+PATHS = ("simt", "scalar_tc", "vector_tc")
+
+#: the kernel path of the last launch
+last_path = None
 
 
 def decay_attention(
@@ -72,7 +96,38 @@ def decay_attention(
     raise ValueError(f"unsupported device {q.device}")
 
 
+def _rows_ok(t: torch.Tensor, align: int) -> bool:
+    """d contiguous, the base and every other stride on ``align`` bytes (a
+    dimension of size 1 is exempt; stride 0 is a multiple of anything)."""
+    item = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % align == 0
+            and all(t.shape[i] == 1 or (t.stride(i) * item) % align == 0 for i in range(3)))
+
+
+def kernel_path(q, k, v, log_w) -> str:
+    """The kernel path a call on the card takes: ``"simt"`` for float32,
+    ``"scalar_tc"`` for bfloat16 with q and k stride 0 over heads and log_w
+    stride 0 over the state dim, else ``"vector_tc"``.  Decided from type and
+    strides alone.  Raises ValueError for a bfloat16 view that the
+    tensor-core paths' 16-byte row copies cannot read."""
+    if q.dtype != torch.bfloat16:
+        return "simt"
+    path = ("scalar_tc" if q.stride(2) == 0 and k.stride(2) == 0 and log_w.stride(3) == 0
+            else "vector_tc")
+    dk, dv = q.shape[3], v.shape[3]
+    bad = [name for name, t in (("q", q), ("k", k), ("v", v)) if not _rows_ok(t, 16)]
+    if path == "vector_tc" and not _rows_ok(log_w, 16):
+        bad.append("log_w")
+    if dk % 8 or dv % 8 or bad:
+        raise ValueError(
+            f"the bfloat16 kernel paths copy rows in 16-byte pieces: they take dk and dv "
+            f"multiples of 8 (got {dk}, {dv}) and views with d contiguous, a 16-byte aligned "
+            f"base and strides of whole 16 bytes (not so: {', '.join(bad) or 'none'})")
+    return path
+
+
 def _launch(q, k, v, log_w, bonus, h0, return_state):
+    global last_path
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _ENTRY:
         raise TypeError(f"kernel takes float32 or bfloat16 for q, k and v alike, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -85,6 +140,7 @@ def _launch(q, k, v, log_w, bonus, h0, return_state):
         raise ValueError(f"kernel takes dk and dv in 1..{MAX_D}, got dk {dk}, dv {dv}")
     if B > 65535:
         raise ValueError(f"kernel takes at most 65535 sequences, got {B}")
+    path = kernel_path(q, k, v, log_w)
     out = torch.empty((B, S, H, dv), dtype=q.dtype, device=q.device)
     hT = (torch.empty((B, H, dk, dv), dtype=torch.float32, device=q.device)
           if return_state else None)
@@ -96,7 +152,7 @@ def _launch(q, k, v, log_w, bonus, h0, return_state):
     lib = _build.library("decay_attention")
     fn = getattr(lib, _ENTRY[q.dtype])
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def ptr(t):
@@ -105,8 +161,10 @@ def _launch(q, k, v, log_w, bonus, h0, return_state):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(ptr(q), ptr(k), ptr(v), ptr(log_w), ptr(u), ptr(h0), ptr(out), ptr(hT),
-                    dims, strides, int(bonus is not None), stream)
+                    dims, strides, int(bonus is not None), PATHS.index(path), stream)
     _build.check(lib, status, f"decay_attention (q {tuple(q.shape)}, v {tuple(v.shape)}, "
-                              f"{q.dtype})")
+                              f"{q.dtype}, {path} path)")
+    last_path = path
     kernels.launches["decay_attention"] += 1
+    kernels.launches[f"decay_attention:{path}"] += 1
     return (out, hT) if return_state else out

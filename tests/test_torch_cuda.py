@@ -4,6 +4,7 @@ CUDA device.  This file imports no JAX, so it runs on a machine without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -12,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels.decay_attention import ops as dc_ops  # noqa: E402
 from repro_torch.kernels.decay_attention.ref import (  # noqa: E402
     chunked_decay_ref,
@@ -24,6 +26,7 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa:
 from repro_torch.kernels.pud_bulk import ops as pud_ops  # noqa: E402
 from repro_torch.kernels.pud_bulk.ref import block_copy_ref, bulk_op_ref  # noqa: E402
 from repro_torch.models import linear_scan  # noqa: E402
+from repro_torch.models.transformer import LM  # noqa: E402
 
 # the reference's tolerances: 2e-5 f32 (paged and flash attention), 2e-2 bf16
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -403,11 +406,22 @@ def _decay_inputs(B, S, H, dk, dv, bonus, seed=0):
             for a in (q, k, v, lw, u)]
 
 
+def _decay_path(q, k, lw):
+    """The path the wrapper's rule gives (ops.py): simt for float32; for
+    bfloat16, scalar_tc when q and k are stride 0 over heads and log_w over
+    the state dim, else vector_tc."""
+    if q.dtype == torch.float32:
+        return "simt"
+    return ("scalar_tc" if q.stride(2) == 0 and k.stride(2) == 0 and lw.stride(3) == 0
+            else "vector_tc")
+
+
 def _decay_check(q, k, v, lw, u=None, h0=None, tol=DECAY_TOL):
     before = kernels.launches["decay_attention"]
     y, hT = dc_ops.decay_attention(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
     torch.cuda.synchronize()
     assert kernels.launches["decay_attention"] == before + 1
+    assert dc_ops.last_path == _decay_path(q, k, lw)
     py, ph = chunked_decay_ref(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
     assert y.dtype == q.dtype and y.shape == v.shape and hT.dtype == torch.float32
     scale = max(1.0, py.float().abs().max().item()) if q.dtype == torch.bfloat16 else 1.0
@@ -444,31 +458,85 @@ def test_decay_attention_kernel_carries_an_initial_state(cuda, bonus):
     assert (s2 - s).abs().max().item() < DECAY_TOL * max(1.0, s.abs().max().item())
 
 
+# (dtype, B, S, H, ns, hd, with h0, bonus): a small f32 case; bf16 at
+# zamba2's width (112 heads, state and head 64) with a ragged S and an
+# initial state; and bf16 with a bonus, which the scalar-decay path also
+# takes, at a head count its 2-head blocks do not divide and dk 32
+STRIDE0_CASES = [
+    (torch.float32, 2, 75, 8, 16, 32, False, False),
+    (torch.bfloat16, 2, 300, 112, 64, 64, True, False),
+    (torch.bfloat16, 1, 100, 5, 32, 64, True, True),
+]
+
+
 @pytest.mark.cuda
-def test_decay_attention_kernel_on_stride0_views(cuda):
-    """Mamba2's call: C and B broadcast over heads, the per-head decay over
-    the state dim, v a fresh tensor; a ragged S."""
-    B, S, H, ns, hd = 2, 75, 8, 16, 32
+@pytest.mark.parametrize("case", STRIDE0_CASES, ids=lambda c: "-".join(map(str, c[1:])) + (
+    "-" + str(c[0]).split(".")[-1]))
+def test_decay_attention_kernel_on_stride0_views(cuda, case):
+    """Mamba2's call: C and B broadcast over heads (slices of one wider row,
+    as ``xBC``), the per-head decay over the state dim, v a fresh tensor; a
+    ragged S; the state chained over two calls equals one call."""
+    dtype, B, S, H, ns, hd, with_h0, bonus = case
     g = torch.Generator(device="cuda").manual_seed(3)
     xBC = torch.randn(B, S, 3 * ns, generator=g, device="cuda")
-    Cp, Bp = xBC[..., :ns], xBC[..., ns:2 * ns] * 0.3
+    xBC[..., ns:2 * ns] *= 0.3
+    xBC = xBC.to(dtype)
+    Cp, Bp = xBC[..., :ns], xBC[..., ns:2 * ns]
     q, k = Cp[:, :, None].expand(B, S, H, ns), Bp[:, :, None].expand(B, S, H, ns)
-    dt = torch.rand(B, S, H, generator=g, device="cuda")
+    dt = torch.rand(B, S, H, generator=g, device="cuda") * (2 if with_h0 else 1)
     lw = (-dt)[..., None].expand(B, S, H, ns)
-    v = torch.randn(B, S, H, hd, generator=g, device="cuda")
+    v = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dtype)
+    h0 = torch.randn(B, H, ns, hd, generator=g, device="cuda") if with_h0 else None
+    u = torch.randn(H, ns, generator=g, device="cuda") * 0.2 if bonus else None
     assert q.stride(2) == 0 and lw.stride(3) == 0
-    _decay_check(q, k, v, lw)
+    tol = DECAY_TOL if dtype == torch.float32 else 2e-2
+    y, s = _decay_check(q, k, v, lw, u, h0=h0, tol=tol)
+    cut = 2 * 32 + 5
+    y1, s1 = dc_ops.decay_attention(q[:, :cut], k[:, :cut], v[:, :cut], lw[:, :cut], bonus=u,
+                                    initial_state=h0, return_state=True)
+    y2, s2 = dc_ops.decay_attention(q[:, cut:], k[:, cut:], v[:, cut:], lw[:, cut:], bonus=u,
+                                    initial_state=s1, return_state=True)
+    scale = max(1.0, y.float().abs().max().item()) if dtype == torch.bfloat16 else 1.0
+    assert (torch.cat([y1, y2], 1).float() - y.float()).abs().max().item() < tol * scale
+    assert (s2 - s).abs().max().item() < DECAY_TOL * max(1.0, s.abs().max().item())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bonus", [False, True])
-def test_decay_attention_kernel_bf16(cuda, bonus):
-    """bf16 q, k, v (the model path's type), f32 log_w: within 2e-2 of the
-    plain version's scale, the rule of the bf16 flash rows."""
+@pytest.mark.parametrize("bonus,lw_scale", [(False, 1), (True, 1), (True, 4)],
+                         ids=["bonus=False", "bonus=True", "bonus-at-the-clip"])
+def test_decay_attention_kernel_bf16(cuda, bonus, lw_scale):
+    """bf16 q, k, v (the model path's type), f32 log_w, an initial state:
+    within 2e-2 of the plain version's scale, the rule of the bf16 flash
+    rows; with the bonus also at the clip (log_w * 4 reaches -1.8, so the
+    factored decays reach e^(+-57.6))."""
     q, k, v, lw, u = _decay_inputs(2, 130, 4, 64, 64, bonus, seed=4)
     h0 = torch.randn(2, 4, 64, 64, generator=torch.Generator(device="cuda").manual_seed(5),
                      device="cuda")
-    _decay_check(q.bfloat16(), k.bfloat16(), v.bfloat16(), lw, u, h0, tol=2e-2)
+    _decay_check(q.bfloat16(), k.bfloat16(), v.bfloat16(), lw * lw_scale, u, h0, tol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,path", [("zamba2_7b", "scalar_tc"), ("rwkv6_7b", "vector_tc")])
+def test_decay_attention_model_views_take_their_path(cuda, arch, path):
+    """The smoke model's own calls (``mamba2.py``'s C/B slices of ``xBC``
+    and broadcast decay; ``rwkv6.py``'s reshaped projections and f32 decay)
+    in bfloat16 take the tensor-core path of their family, in float32
+    ``simt``; every launch of a ``prefill_logits`` forward counts there."""
+    for dtype, want in (("bfloat16", path), ("float32", "simt")):
+        cfg = dataclasses.replace(get_config(arch).smoke(), dtype=dtype)
+        model = LM(cfg, remat=None)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 70), device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(1))
+        batch = {"tokens": tokens, "positions": torch.arange(70, device="cuda")[None].expand(2, 70)}
+        kernels.reset_launches()
+        with torch.no_grad():
+            logits = model.prefill_logits(params, batch)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(logits.float()).all())
+        n = kernels.launches["decay_attention"]
+        assert n == cfg.n_layers and kernels.launches[f"decay_attention:{want}"] == n
+        assert dc_ops.last_path == want
 
 
 @pytest.mark.cuda
