@@ -96,6 +96,7 @@ F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 BF16_TC_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the reference's own tolerances
 BF16_ULP = 2.0 ** -7           # bf16 cases also: within one ulp of the plain output
+PAGED_LSE_TOL = 2e-5           # paged attention's LSE, of max(1, |lse|)
 SOURCES = {
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention/kernel.py:74"),
@@ -220,9 +221,23 @@ def paged_case(gen, B, Hq, Hkv, D, lens, dtype, nb=NUM_BLOCKS, bs=BLOCK, maxb=MA
 
 
 def paged_plain(q, kp, vp, tbl, lens):
+    """The plain version: (out (B, Hq, D), lse (B, Hkv, group))."""
     B, Hq, D = q.shape
     qg = q.reshape(B, kp.shape[2], Hq // kp.shape[2], D)
-    return paged_attention_ref(qg, kp, vp, tbl, lens, scale=D ** -0.5).reshape(q.shape)
+    out, lse = paged_attention_ref(qg, kp, vp, tbl, lens, scale=D ** -0.5, return_lse=True)
+    return out.reshape(q.shape), lse
+
+
+def paged_lse_err(lse, plain_lse, name) -> float:
+    """The kernel's LSE against the plain one: -inf at the same (length-0)
+    rows, elsewhere within 2e-5 of max(1, |lse|)."""
+    inf = torch.isneginf(plain_lse)
+    check(torch.equal(torch.isneginf(lse), inf), f"paged_attention {name}: -inf LSE rows differ")
+    if not bool((~inf).any()):
+        return 0.0
+    err = ((lse - plain_lse).abs() / plain_lse.abs().clamp_min(1.0))[~inf].max().item()
+    check(err < PAGED_LSE_TOL, f"paged_attention {name}: LSE err {err} over tolerance")
+    return err
 
 
 def main_lens():
@@ -240,13 +255,15 @@ def phase_kernels() -> dict:
     ]
     for name, kw in cases:
         args = paged_case(gen, **kw)
-        out = pa_ops.paged_attention(*args)
+        out, lse = pa_ops.paged_attention(*args, return_lse=True)
         torch.cuda.synchronize()
-        plain = paged_plain(*args)
+        plain, plain_lse = paged_plain(*args)
         diff = (out.float() - plain.float()).abs()
         err = diff.max().item()
         errs[name] = err
-        log(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} (tol {TOL[kw['dtype']]:g})")
+        lse_err = paged_lse_err(lse, plain_lse, name)
+        log(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} (tol {TOL[kw['dtype']]:g}), "
+            f"LSE {lse_err:.3e} of max(1, |lse|) (tol {PAGED_LSE_TOL:g})")
         check(out.dtype == kw["dtype"] and out.shape == args[0].shape, f"{name}: output type/shape")
         check(err < TOL[kw["dtype"]], f"paged_attention {name}: err {err} over tolerance")
         if kw["dtype"] == torch.bfloat16:
@@ -296,13 +313,15 @@ def paged_fp8_case(gen) -> dict:
     for qdt in (torch.bfloat16, torch.float32):
         q, kp, vp, tbl, lens = paged_case(gen, MAX_SEQS, HEADS, HEADS, HEAD_DIM, main_lens(), qdt)
         kp, vp = kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn)
-        out = pa_ops.paged_attention(q, kp, vp, tbl, lens)
+        out, lse = pa_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
         torch.cuda.synchronize()
-        plain = paged_plain(q, kp, vp, tbl, lens)
+        plain, plain_lse = paged_plain(q, kp, vp, tbl, lens)
         err = (out.float() - plain.float()).abs().max().item()
         name = f"fp8-pages-{str(qdt).split('.')[-1]}"
         errs[name] = err
-        log(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} (tol 2e-2)")
+        lse_err = paged_lse_err(lse, plain_lse, name)
+        log(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} (tol 2e-2), "
+            f"LSE {lse_err:.3e} of max(1, |lse|) (tol {PAGED_LSE_TOL:g})")
         check(out.dtype == qdt and out.shape == q.shape, f"{name}: output type/shape")
         check(err < 2e-2, f"paged_attention {name}: err {err} over tolerance")
     return errs
@@ -1287,6 +1306,17 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def device_launches(fn) -> int:
+    """Kernels the device ran for one call of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def phase_times() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     lens = main_lens()
@@ -1308,7 +1338,6 @@ def phase_times() -> dict:
         "library_ms": None,
         "shape": f"B={MAX_SEQS} Hq=Hkv={HEADS} D={HEAD_DIM} bs={BLOCK} lens={lens} bf16",
     }}
-    del q, kp, vp
     pool, src, dst = block_copy_case()
     sd = torch.from_numpy(np.stack([src, dst], 1).astype(np.int32)).cuda()
     sd_long = sd.long()
@@ -1331,6 +1360,9 @@ def phase_times() -> dict:
     times.update(flash_times())
     times.update(paged_fp8_times())
     times.update(decay_times())
+    # after every timing: the profiler slows the host's launches once it has run
+    per_call = device_launches(lambda: pa_ops._launch(qg, kp, vp, tbl, lens_t, scale))
+    times["paged_attention"]["shape"] += f", {per_call} CUDA launches a call"
     for name, t in times.items():
         t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
         t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"

@@ -6,11 +6,19 @@ hand-written kernel in ``csrc/paged_attention.cu`` (or raise).  The query
 heads of one KV head form a group that shares each loaded page; there is no
 padding of the group (the reference pads it to 8 rows only for the TPU).
 Pages are q's type, or float8 e4m3 (``kv_cache_dtype="float8_e4m3fn"``),
-widened to f32 in the kernel; the output is in q's type.
+widened to f32 in the kernel; the output is in q's type.  With
+``return_lse`` the call also returns the f32 log-sum-exp of each query
+head's scaled, masked scores, (B, Hkv, group), -inf for a length-0 row.
+
+On the card one call makes two CUDA launches (the split kernel, then the
+combine) and counts one in ``kernels.launches["paged_attention"]``.  It reads
+neither ``seq_lens`` nor the table on the host, so it can be captured in a
+CUDA graph.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -18,7 +26,7 @@ from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import ref as _ref
 
-__all__ = ["paged_attention"]
+__all__ = ["paged_attention", "split_tokens"]
 
 # (q dtype, page dtype) -> C entry point
 _ENTRY = {
@@ -37,7 +45,10 @@ def paged_attention(
     seq_lens: torch.Tensor,      # (B,) int
     *,
     scale: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """Returns out (B, Hq, D), and with ``return_lse`` also the LSE
+    (B, Hkv, group)."""
     B, Hq, D = q.shape
     Hkv = k_pool.shape[2]
     if Hq % Hkv:
@@ -49,17 +60,48 @@ def paged_attention(
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
     if q.device.type == "cpu":
-        out = _ref.paged_attention_ref(
-            qg, k_pool, v_pool, block_tables, seq_lens, scale=scale
+        out, lse = _ref.paged_attention_ref(
+            qg, k_pool, v_pool, block_tables, seq_lens, scale=scale, return_lse=True
         )
     elif q.device.type == "cuda":
-        out = _launch(qg, k_pool, v_pool, block_tables, seq_lens, scale)
+        out, lse = _launch(qg, k_pool, v_pool, block_tables, seq_lens, scale)
     else:
         raise ValueError(f"unsupported device {q.device}")
-    return out.reshape(B, Hq, D)
+    out = out.reshape(B, Hq, D)
+    return (out, lse) if return_lse else out
 
 
-def _launch(q, k_pool, v_pool, block_tables, seq_lens, scale) -> torch.Tensor:
+@functools.cache
+def split_tokens(block_size: int) -> int:
+    """Tokens one block of the kernel takes at this page size (whole pages);
+    the kernel builds on first use, so this needs ``nvcc``."""
+    fn = _build.library("paged_attention").paged_attention_split_tokens
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(block_size)
+
+
+# The C entry points' signatures and the workspace sizes are set up once:
+# a decode step makes one call a layer, and the call's host time is most of
+# its cost there.
+@functools.cache
+def _entry(name: str):
+    fn = getattr(_build.library("paged_attention"), name)
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=1024)
+def _workspace_floats(B, Hkv, group, D, bs, max_blocks) -> int:
+    """f32 floats of the split kernel's partials, (m, l, acc[D]) per
+    (b, h, g) and split."""
+    fn = _build.library("paged_attention").paged_attention_workspace_floats
+    fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_longlong
+    return fn(B, Hkv, group, D, bs, max_blocks)
+
+
+def _launch(q, k_pool, v_pool, block_tables, seq_lens, scale):
+    """The kernel on (B, Hkv, group, D) queries: (out, lse)."""
     B, Hkv, group, D = q.shape
     nb, bs, hkv_pool, d_pool = k_pool.shape
     if v_pool.shape != k_pool.shape or (hkv_pool, d_pool) != (Hkv, D):
@@ -84,22 +126,23 @@ def _launch(q, k_pool, v_pool, block_tables, seq_lens, scale) -> torch.Tensor:
     lens = seq_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     if B == 0:
-        return out
+        return out, torch.empty(B, Hkv, group, dtype=torch.float32, device=q.device)
+    # one allocation: the LSE, then the workspace (the LSE keeps it alive)
+    n_lse = B * Hkv * group
+    buf = torch.empty(n_lse + _workspace_floats(B, Hkv, group, D, bs, tbl.shape[1]),
+                      dtype=torch.float32, device=q.device)
+    lse = buf[:n_lse].view(B, Hkv, group)
     lib = _build.library("paged_attention")
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = fn(
+        status = _entry(entry)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tbl.data_ptr(),
-            lens.data_ptr(), out.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), buf.data_ptr(),
             B, Hkv, group, D, bs, tbl.shape[1], nb, float(scale), stream,
         )
-    # the source decides tile and shared-memory sizes; shapes it cannot take
+    # the source decides the split and the instance; shapes it cannot take
     # come back as "invalid argument"
     _build.check(lib, status, f"paged_attention (group={group}, D={D}, block_size={bs}, "
                               f"{q.dtype}, pages {k_pool.dtype})")
     kernels.launches["paged_attention"] += 1
-    return out
+    return out, lse

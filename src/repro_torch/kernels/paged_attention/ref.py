@@ -1,5 +1,6 @@
 """Plain PyTorch version of paged decode attention: gathers each sequence's
-KV stream out of the pool and runs dense masked attention in f32."""
+KV stream out of the pool and runs dense masked attention in f32.  With
+``return_lse`` it also returns the log-sum-exp of the masked scores."""
 from __future__ import annotations
 
 import torch
@@ -13,7 +14,11 @@ def paged_attention_ref(
     seq_lens: torch.Tensor,      # (B,) int
     *,
     scale: float,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """Returns out (B, Hkv, group, D) in q's type, and with ``return_lse``
+    also the f32 log-sum-exp (B, Hkv, group) of the scaled, masked scores
+    (-inf for a length-0 row)."""
     B, Hkv, group, D = q.shape
     _, block_size, _, _ = k_pool.shape
     max_blocks = block_tables.shape[1]
@@ -29,4 +34,5 @@ def paged_attention_ref(
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), 0.0, p)                 # empty rows -> 0
-    return torch.einsum("bhgs,bhsd->bhgd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, v.float()).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out

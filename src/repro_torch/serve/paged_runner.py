@@ -74,25 +74,26 @@ def paged_decode_step(
 
 def _paged_attention_with_current(q, k_pool, v_pool, block_tables, seq_lens, k_cur, v_cur):
     """Attention over pooled KV plus the in-flight token: attention over the
-    pool with lengths ``seq_len - 1`` (the kernel), then the current token
-    merged exactly through the past logsumexp."""
+    pool with lengths ``seq_len - 1`` (the kernel, which also returns the
+    past log-sum-exp), then the current token merged exactly through that
+    log-sum-exp."""
     B, H, hd = q.shape
     KV = k_pool.shape[2]
     scale = hd ** -0.5
     group = H // KV
 
-    # past contribution (lengths exclude the current token), in q's dtype
+    # past contribution (lengths exclude the current token), in q's dtype,
+    # and its log-sum-exp (B, KV, group) in f32
     past_len = seq_lens - 1
-    out_past = paged_ops.paged_attention(
-        q, k_pool, v_pool, block_tables, past_len, scale=scale,
-    )                                                     # (B, H, hd)
+    out_past, lse_past = paged_ops.paged_attention(
+        q, k_pool, v_pool, block_tables, past_len, scale=scale, return_lse=True,
+    )
 
     # merge current token: softmax over [past, current] decomposes into a
     # weighted average of the past attention output and v_cur.
     qg = q.reshape(B, KV, group, hd).float()
     s_cur = torch.einsum("bkgd,bkd->bkg", qg, k_cur.float()) * scale
 
-    lse_past = _paged_lse(q, k_pool, block_tables, past_len, scale)  # (B,KV,group)
     has_past = (past_len > 0)[:, None, None]
     m = torch.maximum(torch.where(has_past, lse_past, float("-inf")), s_cur)
     w_past = torch.where(has_past, torch.exp(lse_past - m), 0.0)
@@ -103,18 +104,3 @@ def _paged_attention_with_current(q, k_pool, v_pool, block_tables, seq_lens, k_c
         + v_cur.float()[:, :, None, :] * w_cur[..., None]
     ) / denom[..., None]
     return out.reshape(B, H, hd).to(q.dtype)
-
-
-def _paged_lse(q, k_pool, block_tables, seq_lens, scale):
-    """log-sum-exp of past attention logits, via a plain gather (-inf for an
-    empty past)."""
-    B, H, hd = q.shape
-    nb, bs, KV, _ = k_pool.shape
-    group = H // KV
-    idx = block_tables.long().clamp_min(0)
-    k = k_pool[idx].reshape(B, -1, KV, hd)                  # (B, S, KV, hd)
-    qg = q.reshape(B, KV, group, hd).float()
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
-    pos = torch.arange(s.shape[-1], device=q.device)[None, None, None, :]
-    s = torch.where(pos < seq_lens.long()[:, None, None, None], s, float("-inf"))
-    return torch.logsumexp(s, dim=-1)                       # (B, KV, group)

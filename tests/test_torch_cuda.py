@@ -61,6 +61,36 @@ def _paged_inputs(seed, B, Hq, Hkv, D, nb, bs, maxb, zero_len_row=False):
     return q, kp, vp, tbl, lens.astype(np.int32)
 
 
+def _paged_plain(q, kp, vp, tbl, lens):
+    """The plain version: (out (B, Hq, D), lse (B, Hkv, group))."""
+    B, Hq, D = q.shape
+    out, lse = paged_attention_ref(
+        q.reshape(B, kp.shape[2], -1, D), kp, vp, tbl, lens, scale=D ** -0.5, return_lse=True,
+    )
+    return out.reshape(q.shape), lse
+
+
+def _check_paged(out, lse, q, kp, vp, tbl, lens, tol):
+    """Output within ``tol`` of the plain version (bf16 also within one
+    ulp), length-0 rows zero, the LSE within 2e-5 of max(1, |lse|) and -inf
+    where the plain one is."""
+    plain, plain_lse = _paged_plain(q, kp, vp, tbl, lens)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    diff = (out.float() - plain.float()).abs()
+    assert diff.max().item() < tol
+    if q.dtype == torch.bfloat16:
+        # both round the same f32 result: at most one bf16 ulp apart
+        assert bool((diff <= 2.0 ** -7 * plain.float().abs() + 1e-5).all())
+    empty = lens <= 0
+    assert bool((out[empty] == 0).all())
+    assert lse.dtype == torch.float32 and lse.shape == plain_lse.shape
+    inf = torch.isneginf(plain_lse)
+    assert torch.equal(torch.isneginf(lse), inf) and bool(inf[empty].all())
+    if bool((~inf).any()):
+        rel = (lse - plain_lse).abs() / plain_lse.abs().clamp_min(1.0)
+        assert rel[~inf].max().item() < 2e-5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", PAGED_CASES, ids=lambda c: "-".join(map(str, c.values())))
@@ -68,21 +98,136 @@ def test_paged_attention_kernel_matches_plain(cuda, case, dtype):
     q, kp, vp, tbl, lens = [torch.from_numpy(a).cuda() for a in _paged_inputs(1, **case)]
     q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
     before = kernels.launches["paged_attention"]
-    out = pg_ops.paged_attention(q, kp, vp, tbl, lens)
+    out, lse = pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
     torch.cuda.synchronize()
     assert kernels.launches["paged_attention"] == before + 1
-    B, Hq, D = q.shape
-    plain = paged_attention_ref(
-        q.reshape(B, kp.shape[2], -1, D), kp, vp, tbl, lens, scale=D ** -0.5,
-    ).reshape(q.shape)
-    assert out.dtype == dtype
-    diff = (out.float() - plain.float()).abs()
-    assert diff.max().item() < TOL[dtype]
-    if dtype == torch.bfloat16:
-        # both round the same f32 result: at most one bf16 ulp apart
-        assert bool((diff <= 2.0 ** -7 * plain.float().abs() + 1e-5).all())
+    _check_paged(out, lse, q, kp, vp, tbl, lens, TOL[dtype])
     if case.get("zero_len_row"):
         assert bool((out[0] == 0).all())
+
+
+def _split_inputs(seed, group, D, dtype, bs=16, maxb=12, Hkv=2):
+    """Lengths at the kernel's split boundaries (k x split and +-1), 0, 1,
+    the whole table and past it (clamped); rows past their length keep
+    stale, non -1 table entries or -1, alternately."""
+    split = pg_ops.split_tokens(bs)
+    cap = maxb * bs
+    lens = sorted({0, 1, cap, cap + 7} | {x for k in range(1, cap // split + 1)
+                                           for x in (k * split - 1, k * split, k * split + 1)
+                                           if 0 < x <= cap})
+    rng = np.random.default_rng(seed)
+    B, nb = len(lens), len(lens) * maxb + 8
+    q = rng.normal(size=(B, Hkv * group, D)).astype(np.float32)
+    kp = rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32)
+    vp = rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32)
+    tbl = np.full((B, maxb), -1, np.int32)
+    perm = rng.permutation(nb)
+    for b, n in enumerate(lens):
+        need = min(maxb, -(-n // bs))
+        tbl[b, :need] = perm[b * maxb:b * maxb + need]
+        if b % 2:
+            tbl[b, need:] = perm[b * maxb + need:(b + 1) * maxb]   # stale entries
+    page_dt = torch.float8_e4m3fn if dtype == "fp8" else dtype
+    q_dt = torch.bfloat16 if dtype == "fp8" else dtype
+    T = lambda a, dt: torch.from_numpy(a).cuda().to(dt)  # noqa: E731
+    return (T(q, q_dt), T(kp, page_dt), T(vp, page_dt),
+            torch.from_numpy(tbl).cuda(), torch.tensor(lens, dtype=torch.int32).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "fp8"], ids=str)
+def test_paged_attention_kernel_at_split_boundaries(cuda, dtype, group, D):
+    q, kp, vp, tbl, lens = _split_inputs(7, group, D, dtype)
+    out, lse = pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
+    torch.cuda.synchronize()
+    _check_paged(out, lse, q, kp, vp, tbl, lens, TOL.get(dtype, 2e-2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,group,D", [
+    (torch.float32, 4, 256),      # 64 slices a row: two a lane
+    (torch.bfloat16, 2, 512),
+    (torch.bfloat16, 1, 1024),    # four a lane
+    (torch.float32, 2, 1024),     # eight a lane
+    (torch.float32, 1, 2048),     # sixteen a lane
+    ("fp8", 1, 512),              # 32 slices, but wider than one TMA box
+], ids=str)
+def test_paged_attention_kernel_takes_wide_rows(cuda, dtype, group, D):
+    """Rows the TMA path does not take load straight into registers."""
+    q, kp, vp, tbl, lens = _split_inputs(9, group, D, dtype, maxb=6, Hkv=1)
+    out, lse = pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
+    torch.cuda.synchronize()
+    _check_paged(out, lse, q, kp, vp, tbl, lens, TOL.get(dtype, 2e-2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,group,bs,D", [
+    (torch.bfloat16, 1, 2, 16),   # 64-byte pages of one head
+    (torch.bfloat16, 4, 4, 8),
+    (torch.float32, 1, 1, 16),
+    ("fp8", 2, 4, 16),
+    (torch.bfloat16, 1, 4, 16),   # 128 bytes: the smallest page the TMA path takes
+], ids=str)
+def test_paged_attention_kernel_takes_small_pages(cuda, dtype, group, bs, D):
+    """Pages of one head under 128 bytes, which TMA cannot land aligned in
+    shared memory, load straight into registers."""
+    q, kp, vp, tbl, lens = _split_inputs(10, group, D, dtype, bs=bs, maxb=160 // bs)
+    out, lse = pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
+    torch.cuda.synchronize()
+    _check_paged(out, lse, q, kp, vp, tbl, lens, TOL.get(dtype, 2e-2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_short_rows_order_the_stream(cuda, dtype):
+    """Every length within one split: the split kernel writes each row
+    itself and the combine merges nothing.  A kernel queued right after the
+    call on the same stream, with no host sync between, still reads the
+    call's results (each call has its own q, so a stale read shows)."""
+    rng = np.random.default_rng(11)
+    B, Hkv, D, bs, maxb = 128, 32, 64, 16, 16
+    split = pg_ops.split_tokens(bs)
+    nb = B * maxb
+    kp = torch.from_numpy(rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32)).cuda().to(dtype)
+    vp = torch.from_numpy(rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32)).cuda().to(dtype)
+    tbl = torch.from_numpy(rng.permutation(nb).reshape(B, maxb).astype(np.int32)).cuda()
+    lens = torch.from_numpy(rng.integers(0, split + 1, size=B).astype(np.int32)).cuda()
+    qs = [torch.from_numpy(rng.normal(size=(B, Hkv, D)).astype(np.float32)).cuda().to(dtype)
+          for _ in range(8)]
+    torch.cuda.synchronize()
+    read = []
+    for q in qs:
+        out, lse = pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
+        read.append((out.clone(), lse.clone()))
+    torch.cuda.synchronize()
+    for q, (out, lse) in zip(qs, read):
+        _check_paged(out, lse, q, kp, vp, tbl, lens, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_replays_in_a_cuda_graph(cuda, dtype):
+    """One call captured in a CUDA graph, then the lengths and the table
+    changed in place and the graph replayed: the replay matches the plain
+    version on the new lengths, so the call reads neither on the host."""
+    q, kp, vp, tbl, lens = _split_inputs(8, 4, 64, dtype)
+    new_tbl, new_lens = tbl.flip(0).contiguous(), lens.flip(0).contiguous()
+    assert not torch.equal(new_lens, lens)
+    pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)    # build, warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, lse = pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    _check_paged(out, lse, q, kp, vp, tbl, lens, TOL[dtype])
+    tbl.copy_(new_tbl)
+    lens.copy_(new_lens)
+    graph.replay()
+    torch.cuda.synchronize()
+    _check_paged(out, lse, q, kp, vp, new_tbl, new_lens, TOL[dtype])
 
 
 @pytest.mark.cuda
@@ -127,14 +272,10 @@ def test_paged_attention_kernel_rejects_fp8_pages(cuda, case, q_dtype):
     q, kp, vp, tbl, lens = [torch.from_numpy(a).cuda() for a in _paged_inputs(2, **case)]
     q = q.to(q_dtype)
     kp, vp = kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn)
-    out = pg_ops.paged_attention(q, kp, vp, tbl, lens)
+    out, lse = pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
     torch.cuda.synchronize()
-    B, Hq, D = q.shape
-    plain = paged_attention_ref(
-        q.reshape(B, kp.shape[2], -1, D), kp, vp, tbl, lens, scale=D ** -0.5,
-    ).reshape(q.shape)
     assert out.dtype == q_dtype
-    assert (out.float() - plain.float()).abs().max().item() < 2e-2
+    _check_paged(out, lse, q, kp, vp, tbl, lens, 2e-2)
 
 
 @pytest.mark.cuda
