@@ -13,9 +13,11 @@ before each and read just after:
   (2 GiB bitplanes) through the ``bulk_op`` kernel, held bit-exactly against
   its plain version;
 * the full-width stablelm_1_6b (random weights from a seeded generator)
-  served through ``ServeEngine`` with a fork part-way, once as it is and
-  once with watermark maintenance, whose compaction passes move KV pages
-  through the block-copy kernel and must leave the generated ids unchanged;
+  served through ``ServeEngine`` with a fork part-way three times: eagerly
+  (``jit=False``), through the decode step's CUDA graphs, and through the
+  graphs with watermark maintenance, whose compaction passes move KV pages
+  through the block-copy kernel; the generated ids must be equal across the
+  three, and one graphed step at batch 8 bit-equal to eager;
 * the full-width stablelm_1_6b trained for 20 steps by
   ``repro_torch.launch.train --full`` (chunked attention, full remat,
   AdamW, checkpointed), then evaluated and prefilled at 4 x 2048 tokens
@@ -25,7 +27,8 @@ before each and read just after:
   generator, the leaves the reference's init leaves zero set to seeded
   nonzero values) served on their state path: ``decode_step`` over 8
   prompts of 1024 tokens through the decay-attention kernel, 32 greedy
-  one-token steps, and ``prefill_logits`` at 4 x 2048, every launch on its
+  one-token steps (rwkv6's also as a CUDA graph from the same prompt cache,
+  with equal ids), and ``prefill_logits`` at 4 x 2048, every launch on its
   family's tensor-core path (``scalar_tc`` for zamba2, ``vector_tc`` for
   rwkv6); the first layer held against the plain chunked math on both
   inputs, and the first layers' logits within the spread of the sequential
@@ -87,7 +90,9 @@ from repro_torch.models.transformer import LM  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.robustness import check_kv_pool  # noqa: E402
+from repro_torch.graphs import decode_step_jit  # noqa: E402
 from repro_torch.serve.engine import MaintenanceConfig, Request, ServeEngine  # noqa: E402
+from repro_torch.serve.paged_runner import paged_decode_step, paged_decode_step_jit  # noqa: E402
 from repro_torch.train.step import build_eval_step  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
@@ -139,6 +144,9 @@ DECAY_BF16_TOL = 2e-2
 STATE_BATCH, STATE_PROMPT, STATE_NEW = 8, 1024, 32
 # the decay kernel's path on each family's main path (bf16)
 STATE_PATH = {"rwkv6_7b": "vector_tc", "zamba2_7b": "scalar_tc"}
+# the state paths whose one-token step runs as a CUDA graph (zamba2's split
+# attention cache takes host-int lengths: ROADMAP.md)
+GRAPHED_STATE = ("rwkv6_7b",)
 # the state path's whole-model check runs the first layers of the same
 # weights, where the two plain paths still agree (the full-width models are
 # chaotic in depth under the reference's init: ROADMAP.md, fault 4).  For
@@ -652,10 +660,11 @@ def block_copy_case():
 # -- phase 4 -----------------------------------------------------------------
 
 def full_width_engine(n_requests: int, max_new: int, seed: int = 0,
-                      maintenance: MaintenanceConfig = None) -> ServeEngine:
+                      maintenance: MaintenanceConfig = None, jit: bool = True) -> ServeEngine:
     """The full-width stablelm_1_6b serve on the card: random weights from a
     seeded generator, the main-path pool, and ``n_requests`` submitted
-    requests with seeded prompts of 64-512 tokens.  Phase 4 drives it;
+    requests with seeded prompts of 64-512 tokens; ``jit`` is the engine's
+    (decode through CUDA graphs, or eagerly).  Phase 4 drives it;
     ``scripts/torch_decode_profile.py`` profiles the same serve."""
     cfg = get_config("stablelm_1_6b")
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hd, cfg.d_ff, cfg.vocab_size)
@@ -671,7 +680,7 @@ def full_width_engine(n_requests: int, max_new: int, seed: int = 0,
         head_dim=cfg.hd, n_layers=cfg.n_layers, max_seqs=MAX_SEQS,
         max_blocks_per_seq=MAX_BLOCKS, blocks_per_arena=64, dtype=cfg.kv_cache_dtype,
     )
-    engine = ServeEngine(model, params, pool_cfg, device="cuda", maintenance=maintenance)
+    engine = ServeEngine(model, params, pool_cfg, device="cuda", maintenance=maintenance, jit=jit)
     log(f"[serve] K+V pool {2 * engine.pool.k.numel() * engine.pool.k.element_size() / 1e9:.2f} GB")
     rng = np.random.default_rng(seed)
     for rid in range(n_requests):
@@ -681,32 +690,40 @@ def full_width_engine(n_requests: int, max_new: int, seed: int = 0,
     return engine
 
 
-def phase_serve(maintenance: MaintenanceConfig = None) -> dict:
+def phase_serve(maintenance: MaintenanceConfig = None, jit: bool = True) -> dict:
     """Serve 12 requests at full width with a fork part-way, the launch
-    counts zeroed just before and read just after.  With ``maintenance``,
-    every compaction pass is checked as it happens: the pool's invariants
-    hold and every live sequence's K/V pages moved bit-exactly."""
+    counts zeroed just before and read just after; ``jit`` decodes through
+    the engine's CUDA graphs (one capture per batch size), else eagerly.
+    With ``maintenance``, every compaction pass is checked as it happens:
+    the pool's invariants hold and every live sequence's K/V pages moved
+    bit-exactly.  Graphed, the first step with a full batch is also run
+    eagerly from the same state and held bit-equal (``graph_step_check``).
+    Decode timing leaves out steps that prefill, compact or capture."""
     max_new = 32
-    engine = full_width_engine(12, max_new, maintenance=maintenance)
+    engine = full_width_engine(12, max_new, maintenance=maintenance, jit=jit)
     model, params, cfg = engine.model, engine.params, engine.cfg
-    tag = "[serve+maint]" if maintenance else "[serve]"
+    tag = "[serve " + ("graph" if jit else "eager") + ("+maint]" if maintenance else "]")
     contig = []
     engine.step_hooks.append(lambda eng, s: contig.append(s["contiguity"]) if s["live"] else None)
     passes = watch_compaction(engine) if maintenance else []
 
     kernels.reset_launches()
-    decode_s, decode_tok, step_ms, fork = 0.0, 0, [], None
+    decode_s, decode_tok, step_ms, fork, step_check = 0.0, 0, [], None, None
     t_run = time.perf_counter()
     alive = True
     while alive:
+        if jit and step_check is None and len(engine.live) == MAX_SEQS:
+            step_check = graph_step_check(engine, tag)
         pre_tok, pre_fill = engine.tokens_decoded, engine.tokens_prefilled
         pre_passes = engine.compaction_passes
+        pre_captures = engine.graphs.captures if jit else 0
         t0 = time.perf_counter()
         alive = engine.step()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         if (engine.tokens_prefilled == pre_fill and engine.tokens_decoded > pre_tok
-                and engine.compaction_passes == pre_passes):
+                and engine.compaction_passes == pre_passes
+                and (engine.graphs.captures if jit else 0) == pre_captures):
             decode_s += dt
             decode_tok += engine.tokens_decoded - pre_tok
             step_ms.append(dt * 1e3)
@@ -733,6 +750,9 @@ def phase_serve(maintenance: MaintenanceConfig = None) -> dict:
     if maintenance:
         check(m["compaction_passes"] > 0 and m["blocks_migrated"] > 0,
               f"no compaction at these watermarks: {m['compaction_passes']} passes")
+    if jit:
+        check(step_check is not None and engine.graphs.captures > 0,
+              "the graphed serve never decoded a full batch through a graph")
     # one more full-width forward, to check the logits themselves
     logits = model.prefill_logits(params, {
         "tokens": torch.tensor([done[0].prompt[:64]], device="cuda"),
@@ -751,7 +771,9 @@ def phase_serve(maintenance: MaintenanceConfig = None) -> dict:
         "align_misses": m["align_misses"], "preemptions": m["preemptions"],
         "compaction_passes": m["compaction_passes"], "blocks_migrated": m["blocks_migrated"],
         "maintenance_ns_modelled": m["maintenance_ns"], "compaction_ms": [p["ms"] for p in passes],
-        "fork": fork,
+        "fork": fork, "jit": jit,
+        "captures": engine.graphs.captures if jit else 0,
+        "capture_ms": engine.graphs.capture_ms if jit else 0.0, "graph_step_check": step_check,
     }
     for k, v in out.items():
         log(f"{tag} {k}: {v}")
@@ -759,6 +781,32 @@ def phase_serve(maintenance: MaintenanceConfig = None) -> dict:
     del engine, params
     torch.cuda.empty_cache()
     return out
+
+
+def graph_step_check(engine, tag: str) -> dict:
+    """The next decode step of the live batch through the engine's graph and
+    eagerly, from the same state and without advancing it: logits, new_k
+    and new_v bit-equal.  The comparison's launches are taken back out of
+    the counts."""
+    counts = dict(kernels.launches)
+    slots = sorted(engine.live)
+    lens = engine.pool.seq_lens()
+    host = (np.array([[engine.live[s].out[-1]] for s in slots], np.int64),
+            np.array([[lens[s] - 1] for s in slots], np.int64),
+            engine.pool.block_table()[slots], lens[slots])
+    k, v = engine.pool.k, engine.pool.v
+    got = [t.clone() for t in paged_decode_step_jit(engine.params, engine.cfg, host[0], host[1],
+                                                    k, v, host[2], host[3], graphs=engine.graphs)]
+    dev = [torch.from_numpy(a).cuda() for a in host]
+    with torch.no_grad():
+        want = paged_decode_step(engine.params, engine.cfg, dev[0], dev[1], k, v, dev[2], dev[3])
+    for name, g, w in zip(("logits", "new_k", "new_v"), got, want):
+        check(torch.equal(g, w), f"{tag} graphed step: {name} differs from eager by "
+              f"{(g.float() - w.float()).abs().max().item():.3e}")
+    kernels.launches.update(counts)
+    log(f"{tag} one decode step at B = {len(slots)}, graphed and eager from the same state: "
+        f"logits {tuple(got[0].shape)}, new_k/new_v {tuple(got[1].shape)} bit-equal")
+    return {"batch": len(slots), "bit_equal": True}
 
 
 def watch_compaction(engine) -> list:
@@ -1102,18 +1150,21 @@ def phase_state_model(arch: str, seed: int) -> dict:
     if "len_rec" in cache:
         check(cache["len"] == STATE_PROMPT and cache["len_rec"] == 0, f"{tag} flush lengths")
     kernels.reset_launches()
-    ids, step_ms = [], []
-    tok = logits.argmax(-1)
-    with torch.no_grad():
-        for t in range(STATE_NEW):
-            pos = torch.full((STATE_BATCH, 1), STATE_PROMPT + t, device="cuda")
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            logits, cache = model.decode_step(params, {"tokens": tok[:, None], "positions": pos},
-                                              cache)
-            tok = logits.argmax(-1)
-            ids.append(tok.tolist())
-            step_ms.append(1e3 * (time.perf_counter() - t1))
+    graph = arch in GRAPHED_STATE
+    if graph:
+        # eager from a copy of the prompt cache, then graphed from the cache
+        layers = cache["layers"]
+        copy = {"layers": type(layers)(*(t.clone() for t in layers)), "len": cache["len"]}
+        ids, step_ms, _ = greedy_steps(lambda b, c: model.decode_step(params, b, c), copy, logits)
+        del copy
+        g_ids, g_step_ms, logits = greedy_steps(
+            lambda b, c: decode_step_jit(model, params, b, c), cache, logits)
+        check(g_ids == ids, f"{tag} graphed greedy ids differ from eager")
+        graphs = model._cuda_graphs
+        check(graphs.captures == 1, f"{tag} {graphs.captures} captures, not 1")
+    else:
+        ids, step_ms, logits = greedy_steps(lambda b, c: model.decode_step(params, b, c), cache,
+                                            logits)
     check(kernels.launches["decay_attention"] == 0, f"{tag} one-token steps launched the kernel")
     check(bool(torch.isfinite(logits).all()) and all(0 <= i < vocab for r in ids for i in r),
           f"{tag} decode")
@@ -1136,6 +1187,16 @@ def phase_state_model(arch: str, seed: int) -> dict:
            "decode_tokens_per_s": STATE_BATCH * (STATE_NEW - 1) / (sum(step_ms[1:]) / 1e3),
            "prefill_4x2048_ms": prefill_ms, "launches": n_prompt + n_prefill,
            "layer": layer, "shallow": shallow}
+    if graph:
+        res.update(graph_decode_step_ms=statistics.mean(g_step_ms[1:]),
+                   graph_decode_tokens_per_s=STATE_BATCH * (STATE_NEW - 1) / (sum(g_step_ms[1:])
+                                                                              / 1e3),
+                   captures=graphs.captures, capture_ms=graphs.capture_ms)
+        log(f"{tag} {STATE_NEW} greedy steps from the same prompt cache, eager and as a CUDA "
+            f"graph: ids equal; mean step (steps 2-{STATE_NEW}) eager {res['decode_step_ms']:.2f} "
+            f"ms, graphed {res['graph_decode_step_ms']:.2f} ms ({res['decode_tokens_per_s']:.1f} "
+            f"and {res['graph_decode_tokens_per_s']:.1f} tokens/s); {graphs.captures} capture, "
+            f"{graphs.capture_ms:.1f} ms (the first graphed step, not in the mean)")
     log(f"{tag} prompt {STATE_BATCH} x {STATE_PROMPT} through decode_step: {prompt_ms:.1f} ms, "
         f"{n_prompt} decay launches ({path}); {STATE_NEW} greedy steps: mean "
         f"{res['decode_step_ms']:.2f} ms "
@@ -1164,6 +1225,23 @@ def phase_state_model(arch: str, seed: int) -> dict:
     del params
     torch.cuda.empty_cache()
     return res
+
+
+def greedy_steps(step, cache, logits):
+    """``STATE_NEW`` greedy one-token steps of ``step(batch, cache)`` from
+    the prompt's ``logits``; returns (ids, host ms per step, last logits)."""
+    ids, step_ms = [], []
+    tok = logits.argmax(-1)
+    with torch.no_grad():
+        for t in range(STATE_NEW):
+            pos = torch.full((STATE_BATCH, 1), STATE_PROMPT + t, device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache = step({"tokens": tok[:, None], "positions": pos}, cache)
+            tok = logits.argmax(-1)
+            ids.append(tok.tolist())
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+    return ids, step_ms, logits
 
 
 def bf16_ulp(x: float) -> float:
@@ -1555,15 +1633,21 @@ def main() -> None:
     errs = phase_kernels()
     bitmap = phase_bitmap()
     phase_pud_host()
+    serve_eager = phase_serve(jit=False)
     serve = phase_serve()
     serve_maint = phase_serve(MAINTENANCE)
+    check(serve["ids"] == serve_eager["ids"], "the graphed serve's ids differ from the eager serve's")
     check(serve_maint["ids"] == serve["ids"],
           "generated ids differ with compaction from the run without it")
-    check(serve_maint["steps"] == serve["steps"]
-          and serve_maint["launches"]["paged_attention"] == serve["launches"]["paged_attention"],
-          "maintenance changed the schedule")
-    log(f"[serve+maint] {serve_maint['compaction_passes']} compaction passes moved "
-        f"{serve_maint['blocks_migrated']} blocks; ids identical to the run without maintenance")
+    for run, what in ((serve, "the graph"), (serve_maint, "maintenance")):
+        check(run["steps"] == serve_eager["steps"] and run["launches"]["paged_attention"]
+              == serve_eager["launches"]["paged_attention"], f"{what} changed the schedule")
+    log(f"[serve graph+maint] {serve_maint['compaction_passes']} compaction passes moved "
+        f"{serve_maint['blocks_migrated']} blocks; ids identical to the eager and graphed serves")
+    for key in ("decode_tokens_per_s", "mean_decode_step_ms", "decode_steps_timed", "captures",
+                "capture_ms"):
+        log(f"[serve] {key}: eager {serve_eager[key]}, graphed {serve[key]}, "
+            f"graphed+maint {serve_maint[key]}")
     phase_small_vs_cpu()
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:

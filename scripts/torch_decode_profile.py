@@ -1,27 +1,33 @@
 #!/usr/bin/env python3
-"""Where a decode step of the PyTorch/CUDA port spends its time.
+"""Where a decode step of the PyTorch/CUDA port spends its time, eager and
+as a CUDA graph, in one call.
 
     python3 scripts/torch_decode_profile.py [--arch stablelm_1_6b] [--steps 5] [--out build/profile]
 
 ``--arch stablelm_1_6b`` (the default) serves the full-width model (random
 weights from a seeded generator) through ``ServeEngine``, built as
 ``chip_smoke.py`` builds its serve (``full_width_engine``), with 8 requests
-of 64-512 prompt tokens: one step admits and prefills all of them, a few
-plain decode steps warm up, then ``--steps`` pure decode steps run with the
-profiler off and ``--steps`` more under ``torch.profiler``.
+of 64-512 prompt tokens, twice: with ``jit=False`` (eager) and with
+``jit=True`` (the decode step replays a CUDA graph).  In each, one step
+admits and prefills all of them, a few decode steps warm up (and capture the
+graph), then ``--steps`` pure decode steps run with the profiler off and
+``--steps`` more under ``torch.profiler``.
 
 ``--arch rwkv6_7b`` or ``zamba2_7b`` drives the state path of
 ``chip_smoke.py``'s ``phase_state_model`` (the same seeded weights, inert
 leaves set): 8 prompts of 1024 tokens through ``decode_step`` (and
 ``flush_cache``), once to warm up and then profiled as a window of its own
-(2 prompts off, 2 on), then greedy one-token steps as above.
+(2 prompts off, 2 on), then greedy one-token steps as above from a fresh
+prompt cache: eager, and for rwkv6 also as a CUDA graph
+(``repro_torch.graphs.decode_step_jit``; zamba2's step is not captured).
 
-For each window it prints the step time with the profiler off and on, the
-device-busy time per step (union of kernel and copy intervals on the
-device), the device idle share against the unprofiled step time, device
-events per step, and the top kernels by device time and operators by host
-time.  Writes the summary as JSON and the Chrome trace under ``--out``.
-Needs one CUDA device.
+For each window it prints the step time with the profiler off (host clock
+around the step and a synchronize), the device-busy time per step (union
+of kernel and copy intervals on the device), the device idle share against
+the unprofiled step time, device events and host launch calls per step
+(``cudaLaunchKernel``, ``cudaGraphLaunch``, copies), and the top kernels by
+device time and operators by host time.  Writes the summary as JSON and
+the Chrome trace under ``--out``.  Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -41,8 +47,12 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402  (puts src on sys.path)
 from chip_smoke import MAX_SEQS, STATE_BATCH, STATE_PROMPT, full_width_engine  # noqa: E402
+from repro_torch.graphs import decode_step_jit  # noqa: E402
 
 STATE_ARCHS = ("rwkv6_7b", "zamba2_7b")
+# the host's runtime calls that start device work, counted per step
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
 
 
 def summarize(prof, n: int, plain_ms, host_ms) -> dict:
@@ -62,6 +72,7 @@ def summarize(prof, n: int, plain_ms, host_ms) -> dict:
         t, c = by_kernel.get(e.name, (0.0, 0))
         by_kernel[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     host = prof.key_averages()
+    calls = {e.key: e.count / n for e in host if e.key in LAUNCH_CALLS}
     return {
         "steps": n,
         "step_ms_profiler_off": float(np.mean(plain_ms)),
@@ -69,6 +80,7 @@ def summarize(prof, n: int, plain_ms, host_ms) -> dict:
         "device_busy_ms_per_step": busy_us / 1e3 / n,
         "device_idle_share_profiler_off": 1.0 - (busy_us / 1e3 / n) / float(np.mean(plain_ms)),
         "device_events_per_step": len(dev) / n,
+        "host_launch_calls_per_step": calls,
         "top_device": sorted(((k[:100], t / 1e3 / n, c / n) for k, (t, c) in by_kernel.items()),
                              key=lambda r: -r[1])[:12],
         "top_host": [(e.key, e.self_cpu_time_total / 1e3 / n, e.count / n) for e in
@@ -92,16 +104,24 @@ def profile_window(step, n: int):
 
 
 def engine_windows(args) -> dict:
-    engine = full_width_engine(MAX_SEQS, max_new=2 * args.steps + 8, seed=args.seed)
-    for _ in range(4):                       # admit + prefill, then warm decode
-        engine.step()
-    torch.cuda.synchronize()
-    check_live = len(engine.live)
-    summary, prof = profile_window(engine.step, args.steps)
-    if check_live != MAX_SEQS or len(engine.live) != MAX_SEQS:
-        raise SystemExit(f"expected 8 live sequences in the window, had {check_live}")
-    summary["batch"] = check_live
-    return {"decode": (summary, prof)}
+    windows = {}
+    for jit in (False, True):
+        engine = full_width_engine(MAX_SEQS, max_new=2 * args.steps + 8, seed=args.seed, jit=jit)
+        for _ in range(4):                   # admit + prefill, then warm decode (and capture)
+            engine.step()
+        torch.cuda.synchronize()
+        check_live = len(engine.live)
+        summary, prof = profile_window(engine.step, args.steps)
+        if check_live != MAX_SEQS or len(engine.live) != MAX_SEQS:
+            raise SystemExit(f"expected 8 live sequences in the window, had {check_live}")
+        summary["batch"] = check_live
+        if jit:
+            summary["captures"] = engine.graphs.captures
+            summary["capture_ms"] = engine.graphs.capture_ms
+        windows["decode_graph" if jit else "decode_eager"] = (summary, prof)
+        del engine
+        torch.cuda.empty_cache()
+    return windows
 
 
 def state_windows(args) -> dict:
@@ -114,23 +134,31 @@ def state_windows(args) -> dict:
 
     prompt()                                 # warm-up
     windows = {"prompt": profile_window(prompt, 2)}
-    pos = [STATE_PROMPT]
-
-    def decode():
-        with torch.no_grad():
-            tok = state["logits"].argmax(-1)[:, None]
-            p = torch.full((STATE_BATCH, 1), pos[0], device="cuda")
-            state["logits"], state["cache"] = model.decode_step(
-                params, {"tokens": tok, "positions": p}, state["cache"])
-        pos[0] += 1
-
     if 3 + 2 * args.steps > chip_smoke.STATE_NEW:
         raise SystemExit(f"--steps {args.steps}: the cache holds {chip_smoke.STATE_NEW} new tokens")
-    for _ in range(3):
-        decode()
-    windows["decode"] = profile_window(decode, args.steps)
+    modes = {"decode_eager": model.decode_step}
+    if args.arch in chip_smoke.GRAPHED_STATE:
+        modes["decode_graph"] = lambda p, b, c: decode_step_jit(model, p, b, c)
+    for name, step in modes.items():
+        prompt()                             # a fresh prompt cache for each mode
+        pos = [STATE_PROMPT]
+
+        def decode():
+            with torch.no_grad():
+                tok = state["logits"].argmax(-1)[:, None]
+                p = torch.full((STATE_BATCH, 1), pos[0], device="cuda")
+                state["logits"], state["cache"] = step(
+                    params, {"tokens": tok, "positions": p}, state["cache"])
+            pos[0] += 1
+
+        for _ in range(3):                   # warm up (and capture)
+            decode()
+        windows[name] = profile_window(decode, args.steps)
     for summary, _ in windows.values():
         summary["batch"] = STATE_BATCH
+    graphs = getattr(model, "_cuda_graphs", None)
+    if graphs is not None:
+        windows["decode_graph"][0].update(captures=graphs.captures, capture_ms=graphs.capture_ms)
     return windows
 
 
@@ -153,13 +181,15 @@ def main() -> None:
     out.mkdir(parents=True, exist_ok=True)
     for name, (summary, prof) in windows.items():
         summary = {"device": smi, "arch": args.arch, "window": name, **summary}
-        stem = f"{args.arch}_{name}_profile" if args.arch in STATE_ARCHS else "decode_profile"
+        stem = f"{args.arch}_{name}_profile"
         (out / f"{stem}.json").write_text(json.dumps(summary, indent=1))
         prof.export_chrome_trace(str(out / f"{stem}.trace.json"))
         print(f"== {args.arch}, {name} window")
         for key in ("step_ms_profiler_off", "step_ms_profiler_on", "device_busy_ms_per_step",
-                    "device_idle_share_profiler_off", "device_events_per_step"):
-            print(f"{key}: {summary[key]}")
+                    "device_idle_share_profiler_off", "device_events_per_step",
+                    "host_launch_calls_per_step", "captures", "capture_ms"):
+            if key in summary:
+                print(f"{key}: {summary[key]}")
         print("top device kernels/copies by ms per step (name, ms, count per step):")
         for row in summary["top_device"]:
             print("  ", row)

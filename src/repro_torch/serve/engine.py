@@ -27,8 +27,13 @@ trips, rate-limited; its moves go through the block-copy kernel and never
 change generation.
 
 The host logic is the reference engine's, line for line, so schedules match.
-The model runs eagerly on ``device`` (default ``"cuda"``; without a card the
-caller must ask for ``"cpu"``).
+The model runs on ``device`` (default ``"cuda"``; without a card the caller
+must ask for ``"cpu"``).  With ``jit=True`` (the default, as the
+reference's) the decode step on the card replays a CUDA graph per batch
+size (``paged_decode_step_jit``), cached on the model so that every engine
+over the same model and params shares them; ``jit=False``, and every step
+on the CPU, runs it eagerly.  Prefill is eager either way: each prompt
+length would need a capture of its own.
 """
 from __future__ import annotations
 
@@ -47,7 +52,8 @@ from repro_torch.robustness import (
     EngineStalled,
     RequestRejected,
 )
-from repro_torch.serve.paged_runner import paged_decode_step
+from repro_torch.graphs import graph_cache
+from repro_torch.serve.paged_runner import paged_decode_step_jit
 
 if TYPE_CHECKING:
     from repro_torch.robustness.faults import FaultInjector
@@ -107,6 +113,8 @@ class ServeEngine:
         pool_cfg: KVPoolConfig,
         *,
         device="cuda",
+        jit: bool = True,           # decode as a CUDA graph per batch size on
+                                    # the card (False = eager)
         eos_id: Optional[int] = None,
         injector: Optional["FaultInjector"] = None,
         admission_lookahead: int = 8,
@@ -125,6 +133,8 @@ class ServeEngine:
         self.cfg = cfg
         self.params = params
         self.pool = PagedKVPool(pool_cfg, injector=injector, device=self.device)
+        self.jit = jit
+        self.graphs = graph_cache(model) if jit else None
         self.eos_id = eos_id
         self.admission_lookahead = max(1, admission_lookahead)
         self.stall_patience = max(1, stall_patience)
@@ -414,18 +424,16 @@ class ServeEngine:
         # 2) fused decode for all live sequences
         slots = sorted(self.live)
         cfg = self.cfg
-        dev = self.device
         tbl_full = self.pool.block_table()
         lens_full = self.pool.seq_lens()
         tokens = np.array([[self.live[s].out[-1]] for s in slots], np.int64)
         positions = np.array([[lens_full[s] - 1] for s in slots], np.int64)
-        tbl = torch.from_numpy(tbl_full[slots]).to(dev)
-        lens = torch.from_numpy(lens_full[slots]).to(dev)
 
-        logits, new_k, new_v = paged_decode_step(
-            self.params, cfg,
-            torch.from_numpy(tokens).to(dev), torch.from_numpy(positions).to(dev),
-            self.pool.k, self.pool.v, tbl, lens,
+        # graphed, these are the graph's own outputs: consumed below, before
+        # the next replay
+        logits, new_k, new_v = paged_decode_step_jit(
+            self.params, cfg, tokens, positions, self.pool.k, self.pool.v,
+            tbl_full[slots], lens_full[slots], graphs=self.graphs,
         )
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
 

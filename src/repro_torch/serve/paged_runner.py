@@ -6,23 +6,27 @@ returned for the caller to write into pool blocks placed by the PUMA policy.
 
 The runner mirrors ``LM.decode_step`` (same params, same math) with the
 dense cache swapped for (k_pool, v_pool, block_table, seq_lens); the layer
-loop is a plain Python loop, run eagerly.
+loop is a plain Python loop.  ``paged_decode_step`` runs it eagerly;
+``paged_decode_step_jit`` replays it as a CUDA graph, the serving engine's
+decode hot path on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import torch_dtype
 from repro_torch.configs.base import ModelConfig
+from repro_torch.graphs import CapturedStep, GraphCache, HostInputs
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import layers as L
 from repro_torch.models.attention import project
 from repro_torch.models.rope import apply_rope
 from repro_torch.models.transformer import layer_params
 
-__all__ = ["paged_decode_step"]
+__all__ = ["paged_decode_step", "paged_decode_step_jit"]
 
 
 def paged_decode_step(
@@ -104,3 +108,53 @@ def _paged_attention_with_current(q, k_pool, v_pool, block_tables, seq_lens, k_c
         + v_cur.float()[:, :, None, :] * w_cur[..., None]
     ) / denom[..., None]
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_decode_step_jit(
+    params,
+    cfg: ModelConfig,
+    tokens: np.ndarray,          # (B, 1) host arrays, as paged_decode_step's
+    positions: np.ndarray,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: np.ndarray,
+    seq_lens: np.ndarray,
+    *,
+    graphs: Optional[GraphCache],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`paged_decode_step` as a CUDA graph: the counterpart of the
+    reference's ``paged_decode_step_jit``, which compiles the step once per
+    (batch, pool) shape.
+
+    One graph per (B, block-table width, the pools' storage, shape and
+    dtype, the params dict) in ``graphs``
+    (``repro_torch.graphs.graph_cache(model)``), retired once its pools are
+    freed.
+    The four host arrays are written into pinned staging and copied into the
+    graph's static inputs without blocking the host; the replay reads the
+    pools where they are, so in-place writes to them (token K/V, ``fork``
+    and ``compact`` through the block-copy kernel) are seen, and the
+    paged-attention kernel reads neither lengths nor table on the host.
+    Returns the graph's own (logits, new_k, new_v): consume them before the
+    next replay of any graph in ``graphs``.  A failed capture raises.
+
+    With ``graphs=None`` (the engine's ``jit=False``), and on CPU pools,
+    the step runs eagerly: CPUs have no graphs.
+    """
+    host = (tokens, positions, block_tables, seq_lens)
+    if graphs is None or k_pool.device.type != "cuda":
+        t = [torch.from_numpy(a).to(k_pool.device) for a in host]
+        return paged_decode_step(params, cfg, t[0], t[1], k_pool, v_pool, t[2], t[3])
+    key = ("paged_decode_step", cfg, id(params), k_pool.data_ptr(), v_pool.data_ptr(),
+           k_pool.shape, k_pool.dtype, tokens.shape[0], block_tables.shape[1])
+
+    def make(pool):
+        inputs = HostInputs(host, k_pool.device)
+        tok, pos, tbl, lens = inputs.tensors
+        return CapturedStep(
+            lambda: paged_decode_step(params, cfg, tok, pos, k_pool, v_pool, tbl, lens),
+            pool=pool, inputs=inputs, keep=(params,), weak=(k_pool, v_pool))
+
+    step = graphs.get(key, make)
+    step.inputs.load(host)
+    return step.replay()

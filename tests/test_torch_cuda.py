@@ -25,8 +25,12 @@ from repro_torch.kernels.paged_attention import ops as pg_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.pud_bulk import ops as pud_ops  # noqa: E402
 from repro_torch.kernels.pud_bulk.ref import block_copy_ref, bulk_op_ref  # noqa: E402
+from repro_torch.core.kv_pool import KVPoolConfig  # noqa: E402
+from repro_torch.graphs import GraphCache, decode_step_jit  # noqa: E402
 from repro_torch.models import linear_scan  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
+from repro_torch.serve.engine import MaintenanceConfig, Request, ServeEngine  # noqa: E402
+from repro_torch.serve.paged_runner import paged_decode_step, paged_decode_step_jit  # noqa: E402
 
 # the reference's tolerances: 2e-5 f32 (paged and flash attention), 2e-2 bf16
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -728,3 +732,182 @@ def test_chunked_decay_attention_dispatch_on_the_card(cuda):
     assert kernels.launches["decay_attention"] == before + 1
     assert q.grad is not None and bool(torch.isfinite(q.grad).all())
     assert (y - y_plain.detach()).abs().max().item() < DECAY_TOL
+
+
+# -- the decode steps as CUDA graphs ------------------------------------------
+
+def _dense_smoke(dtype, seed=0):
+    cfg = dataclasses.replace(get_config("stablelm_1_6b").smoke(), dtype=dtype,
+                              kv_cache_dtype=dtype)
+    model = LM(cfg, remat=None)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    return model, params
+
+
+def _paged_pools(cfg, seed, nb=48, bs=8):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (cfg.n_layers, nb, bs, cfg.n_kv_heads, cfg.hd)
+    dt = getattr(torch, cfg.kv_cache_dtype)
+    return (torch.randn(shape, generator=gen, device="cuda").to(dt),
+            torch.randn(shape, generator=gen, device="cuda").to(dt))
+
+
+def _decode_inputs(cfg, B, seed, nb=48, bs=8, maxb=6):
+    """Host arrays of one decode step: tokens, positions, table, lengths."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, maxb * bs, B).astype(np.int32)
+    tbl = np.full((B, maxb), -1, np.int32)
+    for b, n in enumerate(lens):
+        need = -(-int(n) // bs)
+        tbl[b, :need] = rng.choice(nb, size=need, replace=False)
+    toks = rng.integers(0, cfg.vocab_size, (B, 1))
+    return toks, (lens - 1)[:, None].astype(np.int64), tbl, lens
+
+
+def _eager_step(params, cfg, kp, vp, toks, pos, tbl, lens):
+    t = [torch.from_numpy(a).cuda() for a in (toks, pos, tbl, lens)]
+    return paged_decode_step(params, cfg, t[0], t[1], kp, vp, t[2], t[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_paged_decode_step_graph_is_bit_equal_to_eager(cuda, B, dtype):
+    """The graphed step replayed on new tokens, positions, table and
+    lengths gives eager's logits, new_k and new_v bit for bit, from one
+    capture."""
+    model, params = _dense_smoke(dtype)
+    cfg = model.cfg
+    kp, vp = _paged_pools(cfg, 1)
+    graphs = GraphCache()
+    for seed in range(3):
+        host = _decode_inputs(cfg, B, seed)
+        got = [t.clone() for t in paged_decode_step_jit(params, cfg, *host[:2], kp, vp,
+                                                        *host[2:], graphs=graphs)]
+        want = _eager_step(params, cfg, kp, vp, *host)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert graphs.captures == 1
+
+
+@pytest.mark.cuda
+def test_paged_decode_step_graph_counts_its_launches_per_replay(cuda):
+    """Capture (and its warm-up) counts nothing; every replay adds one
+    paged-attention launch a layer, as the eager step does."""
+    model, params = _dense_smoke("bfloat16")
+    cfg = model.cfg
+    kp, vp = _paged_pools(cfg, 1)
+    graphs = GraphCache()
+    kernels.reset_launches()
+    for step in range(1, 5):
+        toks, pos, tbl, lens = _decode_inputs(cfg, 3, step)
+        paged_decode_step_jit(params, cfg, toks, pos, kp, vp, tbl, lens, graphs=graphs)
+        assert kernels.launches["paged_attention"] == step * cfg.n_layers
+    assert sum(kernels.launches.values()) == 4 * cfg.n_layers
+    assert graphs.captures == 1 and graphs.steps[next(iter(graphs.steps))].launches == {
+        "paged_attention": cfg.n_layers}
+
+
+@pytest.mark.cuda
+def test_paged_decode_step_graph_recaptures_for_new_params_batch_or_pool(cuda):
+    """A new params dict, batch size or pool gets its own capture, and the
+    replay follows the new one (never a stale graph); a key seen before
+    replays its graph.  Once a pool is freed, its step is retired at the
+    next capture."""
+    model, params = _dense_smoke("float32")
+    cfg = model.cfg
+    _, other = _dense_smoke("float32", seed=5)
+    kp, vp = _paged_pools(cfg, 1)
+    kp2, vp2 = _paged_pools(cfg, 2)
+    graphs = GraphCache()
+    cases = [(params, 3, kp, vp, 1), (params, 3, kp, vp, 1), (other, 3, kp, vp, 2),
+             (other, 2, kp, vp, 3), (other, 2, kp2, vp2, 4), (params, 3, kp, vp, 4)]
+    for i, (p, B, k, v, captures) in enumerate(cases):
+        host = _decode_inputs(cfg, B, i)
+        got = [t.clone() for t in paged_decode_step_jit(p, cfg, *host[:2], k, v, *host[2:],
+                                                        graphs=graphs)]
+        want = _eager_step(p, cfg, k, v, *host)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert graphs.captures == captures
+    assert len(graphs.steps) == 4
+    del cases, k, v, kp2, vp2
+    toks, pos, tbl, lens = _decode_inputs(cfg, 1, 9)
+    paged_decode_step_jit(params, cfg, toks, pos, kp, vp, tbl, lens, graphs=graphs)
+    assert graphs.captures == 5 and len(graphs.steps) == 4
+
+
+@pytest.mark.cuda
+def test_graphed_engine_after_fork_and_compaction_equals_eager(cuda):
+    """Two engines over one model and params, graphed (the default) and
+    eager, with watermark compaction and a fork part-way: the same ids and
+    host metrics, and the pools bit for bit, so every replay after a fork
+    or a compaction matched eager.  The graphed engine's pools kept their
+    storage (the graphs read them where they are)."""
+    model, params = _dense_smoke("float32")
+    cfg = model.cfg
+    pool_cfg = KVPoolConfig(
+        num_blocks=64, block_size=8, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        n_layers=cfg.n_layers, max_seqs=4, max_blocks_per_seq=16, blocks_per_arena=16,
+        dtype="float32")
+    maint = MaintenanceConfig(free_low=0.9, frag_high=0.05, contig_low=0.999, max_moves=64,
+                              every=2)
+    rng = np.random.default_rng(7)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(3, 40))).tolist(),
+             int(rng.integers(2, 12))) for _ in range(9)]
+    engines = {}
+    for jit in (True, False):
+        eng = ServeEngine(model, params, pool_cfg, device="cuda", jit=jit, maintenance=maint)
+        ptrs = (eng.pool.k.data_ptr(), eng.pool.v.data_ptr())
+        for rid, (prompt, n) in enumerate(reqs):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new=n))
+        forked = False
+        while eng.step():
+            if not forked and eng.steps >= 3 and eng.live and eng.pool.occupancy()["free_slots"]:
+                child = eng.pool.fork(min(eng.live))
+                assert child is not None
+                eng.pool.release(child)
+                forked = True
+        assert forked and (eng.pool.k.data_ptr(), eng.pool.v.data_ptr()) == ptrs
+        engines[jit] = eng
+    a, b = engines[True], engines[False]
+    assert len(a.done) == 9 and a.compaction_passes > 0
+    assert {r.rid: r.out for r in a.done} == {r.rid: r.out for r in b.done}
+    assert a.metrics() == b.metrics()
+    assert torch.equal(a.pool.k, b.pool.k) and torch.equal(a.pool.v, b.pool.v)
+    assert a.graphs is model._cuda_graphs and a.graphs.captures >= 1 and b.graphs is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_graphed_decode_equals_eager(cuda, dtype):
+    """rwkv6's one-token ``decode_step`` as a graph, from a copy of the same
+    prompt cache as eager: 8 greedy steps with bit-equal logits, the states
+    written in place bit-equal, one capture."""
+    cfg = dataclasses.replace(get_config("rwkv6_7b").smoke(), dtype=dtype)
+    model = LM(cfg, remat=None)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (3, 40), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    cache = model.init_cache(3, 48, device="cuda")
+    with torch.no_grad():
+        logits, cache = model.decode_step(
+            params, {"tokens": tokens, "positions": torch.arange(40, device="cuda")[None]
+                     .expand(3, 40)}, cache)
+    caches = {mode: {"layers": type(cache["layers"])(*(t.clone() for t in cache["layers"])),
+                     "len": cache["len"]} for mode in ("eager", "graph")}
+    toks = {mode: logits.argmax(-1)[:, None] for mode in caches}
+    steps = {"eager": lambda b, c: model.decode_step(params, b, c),
+             "graph": lambda b, c: decode_step_jit(model, params, b, c)}
+    with torch.no_grad():
+        for t in range(8):
+            pos = torch.full((3, 1), 40 + t, device="cuda")
+            out = {}
+            for mode, step in steps.items():
+                lg, caches[mode] = step({"tokens": toks[mode], "positions": pos}, caches[mode])
+                out[mode] = lg.clone()
+                toks[mode] = lg.argmax(-1)[:, None]
+            assert torch.equal(out["graph"], out["eager"])
+    assert caches["graph"]["len"] == caches["eager"]["len"] == 48
+    assert all(torch.equal(a, b) for a, b in zip(caches["graph"]["layers"],
+                                                 caches["eager"]["layers"]))
+    assert model._cuda_graphs.captures == 1

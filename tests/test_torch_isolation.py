@@ -15,7 +15,9 @@ PORT = ROOT / "src" / "repro_torch"
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
            ROOT / "examples" / "torch_pud_bitwise.py", ROOT / "benchmarks" / "torch_microbench.py",
            ROOT / "benchmarks" / "torch_serve_bench.py", ROOT / "scripts" / "decay_bench.py",
-           ROOT / "scripts" / "decay_precision.py"]
+           ROOT / "scripts" / "decay_precision.py", ROOT / "examples" / "torch_serve_paged.py",
+           ROOT / "src" / "repro_torch" / "launch" / "serve.py",
+           ROOT / "scripts" / "torch_decode_profile.py"]
 
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
