@@ -23,6 +23,9 @@ before each and read just after:
   AdamW, checkpointed), then evaluated and prefilled at 4 x 2048 tokens
   through the flash-attention kernel (``attn_impl="pallas"``), held against
   the chunked path on the same weights;
+* the full-width mistral_nemo_12b (GQA 32/8, head width 128; random
+  weights from a seeded generator) evaluated and prefilled the same way,
+  every flash launch on the kernel's ``wgmma`` path at D = 128;
 * the full-width rwkv6_7b and zamba2_7b (random weights from a seeded
   generator, the leaves the reference's init leaves zero set to seeded
   nonzero values) served on their state path: ``decode_step`` over 8
@@ -125,6 +128,12 @@ BULK_OPS = {"zero": (bc_ops.pud_zero, 1), "copy": (bc_ops.pud_copy, 1),
             "maj": (bc_ops.pud_maj, 3)}
 # the flash kernel's main shape: the full-width forward at 4 x 2048 tokens
 FLASH_MAIN = dict(B=4, Hq=HEADS, Hkv=HEADS, Sq=2048, Sk=2048, D=HEAD_DIM, causal=True)
+# and mistral_nemo_12b's at the same tokens: GQA 32/8 at head width 128
+FLASH_D128 = dict(B=4, Hq=32, Hkv=8, Sq=2048, Sk=2048, D=128, causal=True)
+# the GQA forward's model, its full width (layers, d, heads, KV heads, head
+# width, d_ff, vocab) and its weights' seed
+GQA_ARCH, GQA_SEED = "mistral_nemo_12b", 5
+GQA_FULL = (40, 5120, 32, 8, 128, 14336, 131072)
 # whole-model bf16 tolerances, flash path against chunked on the same weights:
 # the two differ in where attention rounds (flash rounds P to bf16 before
 # P.V), which bf16 layers carry to the loss and the logits
@@ -358,6 +367,16 @@ FLASH_CASES = [
     (2, 4, 4, 100, 1, 64, True, torch.bfloat16),
     (2, 4, 4, 1, 300, 64, False, torch.bfloat16),
     (2, 32, 8, 1024, 1024, 64, True, torch.bfloat16),
+    # the same edges at D = 128 (the GQA 32/8 case above is one), MQA 48/1
+    # (granite_34b's layout) and mistral_nemo_12b's forward
+    (1, 1, 1, 128, 128, 128, True, torch.bfloat16),
+    (2, 4, 2, 200, 333, 128, True, torch.bfloat16),
+    (2, 4, 2, 200, 333, 128, False, torch.bfloat16),
+    (1, 4, 4, 300, 130, 128, True, torch.bfloat16),
+    (2, 4, 4, 100, 1, 128, True, torch.bfloat16),
+    (2, 4, 4, 1, 300, 128, False, torch.bfloat16),
+    (1, 48, 1, 512, 512, 128, True, torch.bfloat16),
+    (4, 32, 8, 2048, 2048, 128, True, torch.bfloat16),
 ]
 
 
@@ -365,7 +384,7 @@ def flash_path(D, dtype) -> str:
     """The kernel's routing rule for 16-byte aligned inputs (all of these)."""
     if dtype != torch.bfloat16:
         return "simt"
-    return "wgmma" if D == 64 else "mma" if D % 16 == 0 else "simt"
+    return "wgmma" if D in (64, 128) else "mma" if D % 16 == 0 else "simt"
 
 
 def flash_inputs(gen, B, Hq, Hkv, Sq, Sk, D, dtype):
@@ -377,7 +396,7 @@ def flash_cases() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(7)
     errs = {}
     # then the main path's layout: (B, S, H, D) tensors transposed to (B, H, S, D)
-    transposed = [(2, 8, 2, 75, 75, 64, True, torch.bfloat16, True)]
+    transposed = [(2, 8, 2, 75, 75, D, True, torch.bfloat16, True) for D in (64, 128)]
     for B, Hq, Hkv, Sq, Sk, D, causal, dtype, *views in [*FLASH_CASES, *transposed]:
         q, k, v = flash_inputs(gen, B, Hq, Hkv, Sq, Sk, D, dtype)
         if views:
@@ -955,22 +974,25 @@ def _first_layers(cfg, params, n):
     return dataclasses.replace(cfg, n_layers=n), dict(params, layers=layers)
 
 
-def phase_flash_forward(params) -> dict:
-    """The trained full-width weights evaluated (``build_eval_step``) and
-    prefilled (``prefill_logits``) at 4 x 2048 tokens through the flash
+def phase_flash_forward(arch: str, params) -> dict:
+    """The full-width weights of ``arch`` evaluated (``build_eval_step``)
+    and prefilled (``prefill_logits``) at 4 x 2048 tokens through the flash
     kernel (``attn_impl="pallas"``), each forward with the launch counts
-    zeroed just before it and read just after (24 launches each); held
-    against ``attn_impl="chunked"`` on the same weights.
+    zeroed just before it and read just after (one launch a layer, each on
+    the ``wgmma`` path); held against ``attn_impl="chunked"`` on the same
+    weights.
 
-    Under the reference's init rule the full-width model is chaotic in
+    Under the reference's init rule the full-width models are chaotic in
     depth: two plain attention paths that differ only in float rounding give
-    24-layer prefill logits O(1) apart (the reference too: ROADMAP.md,
-    faults).  So the 24-layer eval loss, an average over 8192 positions, is
-    held to ``EVAL_LOSS_RTOL``; the prefill logits of the first layer of the
-    same weights, where rounding is not yet amplified, to ``LOGITS_TOL`` of
-    their scale; and the logits after 4 and 24 layers are reported beside
-    the spread of the two plain paths (naive against chunked)."""
-    cfg = get_config("stablelm_1_6b")
+    full-depth prefill logits O(1) apart (the reference too: ROADMAP.md,
+    faults).  So the full-depth eval loss, an average over 8192 positions,
+    is held to ``EVAL_LOSS_RTOL``; the prefill logits of the first layer of
+    the same weights, where rounding is not yet amplified, to ``LOGITS_TOL``
+    of their scale; and the logits after 4 layers and at full depth are
+    reported beside the spread of the two plain paths (naive against
+    chunked)."""
+    cfg = get_config(arch)
+    tag = f"[flash-path {arch}]"
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=FLASH_MAIN["Sq"],
                       batch_per_shard=FLASH_MAIN["B"])
     batch = {k: torch.from_numpy(v).cuda() for k, v in synth_batch(data, 0, 0).items()}
@@ -978,10 +1000,16 @@ def phase_flash_forward(params) -> dict:
                "positions": batch["positions"]}
     res = {"launches": {}, "prefill": {}}
     loss = {}
+
+    def launched(what, impl, n, layers):
+        want = layers if impl == "pallas" else 0
+        wgmma = kernels.launches["flash_attention:wgmma"]
+        check(n == want and wgmma == want,
+              f"{what} ({impl}): {n} flash_attention launches ({wgmma} wgmma), not {want}")
+
     for impl in ("pallas", "chunked"):
         y, res[f"eval_{impl}_ms"], n = _forward(LM(cfg, attn_impl=impl), "eval", params, batch)
-        check(n == (cfg.n_layers if impl == "pallas" else 0),
-              f"eval ({impl}): {n} flash_attention launches, not {cfg.n_layers}")
+        launched("eval", impl, n, cfg.n_layers)
         res["launches"][f"eval_{impl}"] = n
         loss[impl] = float(y)
     res["eval_loss"] = {**loss, "rel_diff": abs(loss["pallas"] - loss["chunked"]) / abs(loss["chunked"])}
@@ -990,11 +1018,7 @@ def phase_flash_forward(params) -> dict:
         z = {}
         for impl in ("pallas", "chunked", "naive"):
             y, ms, n = _forward(LM(cfg_d, attn_impl=impl), "prefill", params_d, prompts)
-            check(n == (depth if impl == "pallas" else 0),
-                  f"prefill ({impl}, {depth} layers): {n} flash_attention launches, not {depth}")
-            if impl == "pallas":
-                check(fl_ops.last_path == "wgmma",
-                      f"the bf16 forward took the {fl_ops.last_path} path")
+            launched(f"prefill, {depth} layers", impl, n, depth)
             check(tuple(y.shape) == (FLASH_MAIN["B"], pad_vocab(cfg)), f"prefill logits {tuple(y.shape)}")
             z[impl] = y.float()
             if depth == cfg.n_layers:
@@ -1007,22 +1031,41 @@ def phase_flash_forward(params) -> dict:
             "argmax_equal": int((z["pallas"].argmax(-1) == z["chunked"].argmax(-1)).sum()),
         }
     el, pf = res["eval_loss"], res["prefill"]
-    log(f"[flash-path] eval loss at 4 x 2048 ({cfg.n_layers} layers): flash {el['pallas']:.5f}, "
+    log(f"{tag} eval loss at 4 x 2048 ({cfg.n_layers} layers): flash {el['pallas']:.5f}, "
         f"chunked {el['chunked']:.5f} (rel diff {el['rel_diff']:.2e}, tol {EVAL_LOSS_RTOL:g}); "
-        f"{cfg.n_layers} flash launches per forward")
+        f"{cfg.n_layers} flash launches per forward, all on the wgmma path")
     for depth, r in pf.items():
-        log(f"[flash-path] prefill logits after {depth} layer(s): flash vs chunked max abs diff "
+        log(f"{tag} prefill logits after {depth} layer(s): flash vs chunked max abs diff "
             f"{r['flash_vs_chunked']:.4f}, naive vs chunked {r['naive_vs_chunked']:.4f}, of scale "
             f"{r['scale']:.3f}; argmax equal {r['argmax_equal']}/{FLASH_MAIN['B']}"
             + (f" (tol {LOGITS_TOL:g} of scale)" if depth == 1 else ""))
-    log(f"[flash-path] forward ms (host clock incl. sync): eval flash {res['eval_pallas_ms']:.1f}, "
+    log(f"{tag} forward ms (host clock incl. sync): eval flash {res['eval_pallas_ms']:.1f}, "
         f"chunked {res['eval_chunked_ms']:.1f}; prefill flash {res['prefill_pallas_ms']:.1f}, "
         f"chunked {res['prefill_chunked_ms']:.1f}, naive {res['prefill_naive_ms']:.1f}")
-    check(el["rel_diff"] < EVAL_LOSS_RTOL, "eval loss: flash vs chunked over tolerance")
+    check(el["rel_diff"] < EVAL_LOSS_RTOL, f"{arch} eval loss: flash vs chunked over tolerance")
     check(pf[1]["flash_vs_chunked"] < LOGITS_TOL * pf[1]["scale"],
-          "1-layer prefill logits: flash vs chunked over tolerance")
+          f"{arch} 1-layer prefill logits: flash vs chunked over tolerance")
     res["launches_total"] = res["launches"]["eval_pallas"] + res["launches"]["prefill_pallas"]
     return res
+
+
+def phase_gqa_forward() -> dict:
+    """``phase_flash_forward`` on the full-width mistral_nemo_12b (GQA 32/8,
+    head width 128: the flash kernel's D = 128 instance), its weights drawn
+    on the card from a seeded generator and freed when the phase ends."""
+    cfg = get_config(GQA_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size)
+          == GQA_FULL, f"{GQA_ARCH} is not at full width")
+    t0 = time.perf_counter()
+    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(GQA_SEED), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[{GQA_ARCH}] {count_params(params) / 1e9:.3f} B params ({cfg.dtype}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        return phase_flash_forward(GQA_ARCH, params)
+    finally:
+        del params
+        torch.cuda.empty_cache()
 
 
 def phase_small_train_vs_cpu(ckpt_root: str) -> dict:
@@ -1462,27 +1505,31 @@ def flash_flops(B, Hq, Sq, Sk, D, causal) -> float:
 
 def flash_times() -> dict:
     """The flash kernel at its main shape (4 x 32 heads x 2048 x 64, causal),
-    bf16 (the main path's type: tensor cores) and f32 (CUDA cores).  The
-    bound counts q, k, v read once and the output written once, and the
+    bf16 (the main path's type: tensor cores) and f32 (CUDA cores), and at
+    mistral_nemo_12b's (q 4 x 32 heads x 2048 x 128 against k, v of 8 heads,
+    causal, bf16: ``"flash_attention:d128"``).  The bound counts q, k, v
+    read once and the output written once, each by its own size, and the
     visible pairs' operations at the type's peak rate.  The library call is
-    ``scaled_dot_product_attention(is_causal=True)``, a yardstick the port
-    never calls."""
+    ``scaled_dot_product_attention(is_causal=True)`` (``enable_gqa`` where
+    Hkv < Hq), a yardstick the port never calls."""
     gen = torch.Generator(device="cuda").manual_seed(8)
-    m = FLASH_MAIN
     times = {}
-    for dtype, peak, key in ((torch.bfloat16, BF16_TC_FLOPS, "flash_attention"),
-                             (torch.float32, F32_FLOPS, "flash_attention:f32")):
+    for m, dtype, peak, key in ((FLASH_MAIN, torch.bfloat16, BF16_TC_FLOPS, "flash_attention"),
+                                (FLASH_MAIN, torch.float32, F32_FLOPS, "flash_attention:f32"),
+                                (FLASH_D128, torch.bfloat16, BF16_TC_FLOPS, "flash_attention:d128")):
         q, k, v = flash_inputs(gen, m["B"], m["Hq"], m["Hkv"], m["Sq"], m["Sk"], m["D"], dtype)
-        nbytes = 4 * q.numel() * q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        gqa = {"enable_gqa": True} if m["Hkv"] < m["Hq"] else {}
         sdpa = torch.nn.functional.scaled_dot_product_attention
         times[key] = {
             "ms": time_ms(lambda: fl_ops._launch(q, k, v, True, m["D"] ** -0.5), 20),
             "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True), 5),
-            "library_ms": time_ms(lambda: sdpa(q, k, v, is_causal=True), 20),
+            "library_ms": time_ms(lambda: sdpa(q, k, v, is_causal=True, **gqa), 20),
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "ops_ms": flash_flops(m["B"], m["Hq"], m["Sq"], m["Sk"], m["D"], True) / peak * 1e3,
-            "shape": f"q/k/v ({m['B']}, {m['Hq']}, {m['Sq']}, {m['D']}) causal "
-                     f"{str(dtype).split('.')[-1]}, {fl_ops.last_path} path",
+            "shape": f"q ({m['B']}, {m['Hq']}, {m['Sq']}, {m['D']}), k/v ({m['B']}, {m['Hkv']}, "
+                     f"{m['Sk']}, {m['D']}) causal {str(dtype).split('.')[-1]}, "
+                     f"{fl_ops.last_path} path",
         }
         del q, k, v
     torch.cuda.empty_cache()
@@ -1652,11 +1699,12 @@ def main() -> None:
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         train = phase_train(ckpt_root)
-        flash = phase_flash_forward(train.pop("params"))
+        flash = phase_flash_forward("stablelm_1_6b", train.pop("params"))
         torch.cuda.empty_cache()
         phase_small_train_vs_cpu(ckpt_root)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    gqa = phase_gqa_forward()
     state = {arch: phase_state_model(arch, seed) for arch, seed in (("rwkv6_7b", 3),
                                                                      ("zamba2_7b", 4))}
     phase_state_small_vs_cpu()
@@ -1664,7 +1712,7 @@ def main() -> None:
     launches = {"paged_attention": serve_maint["launches"]["paged_attention"],
                 "block_copy": serve_maint["launches"]["block_copy"],
                 "bulk_op": bitmap["launches"]["bulk_op"],
-                "flash_attention": flash["launches_total"],
+                "flash_attention": flash["launches_total"] + gqa["launches_total"],
                 "decay_attention": sum(r["launches"] for r in state.values())}
     errs["bulk_op"] = bitmap["max_abs_err"]
     times["bulk_op"] = times["bulk_op:and"]

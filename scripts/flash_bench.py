@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Time the bf16 flash-attention kernel at the main shape on the card.
+"""Time the bf16 flash-attention kernel at the main shapes on the card.
 
     python3 scripts/flash_bench.py [--root DIR ...] [--rounds N] [--forward N]
 
 For each checkout root (default: this repository) it builds that tree's
-``csrc/flash_attention.cu``, checks the kernel against the plain version at
-q/k/v (4, 32, 2048, 64) bf16, causal and full, and times it with
-``chip_smoke.time_ms`` (CUDA events, L2 flushed, median of 20) beside
-``scaled_dot_product_attention`` on the same inputs.  Each root runs in a
-process of its own, the roots in turn for ``--rounds`` rounds, so that two
-versions (an unpacked parent and this tree, say) compare inside one run on
-one card.  With ``--forward N`` it also times N eval (``build_eval_step``)
-and N ``prefill_logits`` forwards of the full-width stablelm_1_6b at 4 x
-2048 through the flash kernel, as ``chip_smoke.phase_flash_forward`` does
-once, with random weights from a seed.  Prints one JSON line per root and
-round.
+``csrc/flash_attention.cu``, checks the kernel against the plain version and
+times it with ``chip_smoke.time_ms`` (CUDA events, L2 flushed, median of 20)
+beside ``scaled_dot_product_attention`` on the same inputs, at two shapes:
+stablelm_1_6b's q/k/v (4, 32, 2048, 64) bf16, causal and full (``causal_*``,
+``full_*``), and mistral_nemo_12b's q (4, 32, 2048, 128) against k/v (4, 8,
+2048, 128), causal (``d128_*``; the library with ``enable_gqa``, and also on
+k/v repeated to 32 heads beforehand, ``d128_sdpa_expanded_ms``).  The shapes
+are written here, not read from the root, so an older tree times at both.
+Each root runs in a process of its own, the roots in turn for ``--rounds``
+rounds, so that two versions (an unpacked parent and this tree, say) compare
+inside one run on one card.  With ``--forward N`` it also times N eval
+(``build_eval_step``) and N ``prefill_logits`` forwards at 4 x 2048 through
+the flash kernel, as ``chip_smoke.phase_flash_forward`` does once, of the
+full-width stablelm_1_6b and then mistral_nemo_12b (``<arch>_eval_ms``,
+``<arch>_prefill_ms``), each with random weights from a seed, freed before
+the next.  Prints one JSON line per root and round.
 """
 from __future__ import annotations
 
@@ -34,34 +39,42 @@ sys.path.insert(0, root)
 import chip_smoke as c
 import torch
 gen = torch.Generator(device="cuda").manual_seed(8)
-m = c.FLASH_MAIN
-q, k, v = c.flash_inputs(gen, m["B"], m["Hq"], m["Hkv"], m["Sq"], m["Sk"], m["D"], torch.bfloat16)
-scale = m["D"] ** -0.5
 sdpa = torch.nn.functional.scaled_dot_product_attention
 res = {"root": root}
-for causal in (True, False):
-    key = "causal" if causal else "full"
+# (key, B, Hq, Hkv, S, D, causal)
+for key, B, Hq, Hkv, S, D, causal in (("causal", 4, 32, 32, 2048, 64, True),
+                                      ("full", 4, 32, 32, 2048, 64, False),
+                                      ("d128", 4, 32, 8, 2048, 128, True)):
+    q, k, v = c.flash_inputs(gen, B, Hq, Hkv, S, S, D, torch.bfloat16)
+    scale = D ** -0.5
     out = c.fl_ops._launch(q, k, v, causal, scale)
     torch.cuda.synchronize()
     res[f"{key}_path"] = c.fl_ops.last_path
     res[f"{key}_err"] = (out.float() - c.attention_ref(q, k, v, causal=causal).float()).abs().max().item()
     res[f"{key}_ms"] = c.time_ms(lambda: c.fl_ops._launch(q, k, v, causal, scale), 20)
-    res[f"{key}_sdpa_ms"] = c.time_ms(lambda: sdpa(q, k, v, is_causal=causal), 20)
-    res[f"{key}_bound_ms"] = c.flash_flops(m["B"], m["Hq"], m["Sq"], m["Sk"], m["D"], causal) \
-        / c.BF16_TC_FLOPS * 1e3
-if forward:
-    del q, k, v
-    cfg = c.get_config("stablelm_1_6b")
+    gqa = {"enable_gqa": True} if Hkv < Hq else {}
+    res[f"{key}_sdpa_ms"] = c.time_ms(lambda: sdpa(q, k, v, is_causal=causal, **gqa), 20)
+    if Hkv < Hq:
+        ke, ve = (t.repeat_interleave(Hq // Hkv, 1) for t in (k, v))
+        res[f"{key}_sdpa_expanded_ms"] = c.time_ms(lambda: sdpa(q, ke, ve, is_causal=causal), 20)
+        del ke, ve
+    res[f"{key}_bound_ms"] = c.flash_flops(B, Hq, S, S, D, causal) / c.BF16_TC_FLOPS * 1e3
+    del q, k, v, out
+for arch in ("stablelm_1_6b", "mistral_nemo_12b") if forward else ():
+    cfg = c.get_config(arch)
     params = c.LM(cfg).init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    data = c.DataConfig(vocab_size=cfg.vocab_size, seq_len=m["Sq"], batch_per_shard=m["B"])
+    data = c.DataConfig(vocab_size=cfg.vocab_size, seq_len=2048, batch_per_shard=4)
     batch = {n: torch.from_numpy(a).cuda() for n, a in c.synth_batch(data, 0, 0).items()}
     prompts = {"tokens": torch.from_numpy(c.synth_batch(data, 1, 0)["tokens"]).cuda(),
                "positions": batch["positions"]}
     model = c.LM(cfg, attn_impl="pallas")
-    res["eval_ms"], res["prefill_ms"] = [], []
+    res[f"{arch}_eval_ms"], res[f"{arch}_prefill_ms"] = [], []
     for _ in range(forward):
-        res["eval_ms"].append(c._forward(model, "eval", params, batch)[1])
-        res["prefill_ms"].append(c._forward(model, "prefill", params, prompts)[1])
+        res[f"{arch}_eval_ms"].append(c._forward(model, "eval", params, batch)[1])
+        res[f"{arch}_prefill_ms"].append(c._forward(model, "prefill", params, prompts)[1])
+    res[f"{arch}_flash_path"] = c.fl_ops.last_path
+    del params, batch, prompts
+    torch.cuda.empty_cache()
 print(json.dumps(res), flush=True)
 """
 

@@ -29,36 +29,56 @@
 //   * L2 -> shared memory: q tile i reads the K and V rows of (i+1) tiles, so
 //     with 64-row q tiles about 1.1 GB cross from L2, with 128-row tiles
 //     about 0.57 GB.
-// So it is bound by operations, with the exponentials level with them.
+// So it is bound by operations, with the exponentials level with them.  At
+// mistral_nemo_12b's shape (q B 4, H 32, S 2048, D 128 against k, v of 8
+// heads, causal, bf16) the same pairs cost twice the operations, 1.375e11 or
+// 0.139 ms, against 0.050 ms of bytes (168 MB), and the exponentials stay
+// at about 0.07 ms: bound by operations, the exponentials half of them.
+// But K and V cross from L2 to shared memory once per 128-row q tile, 1.14
+// GB in all, which takes about as long as the products at the rate the L2
+// gives: without its products the kernel still takes 0.21 ms.
 //
 // Three paths, chosen before the launch by type, D and alignment alone (a
 // path that fails raises; none falls back to another):
-//   * "wgmma": bf16 with D = 64, and q, k, v and out each with a 16-byte
-//     aligned base and, for batch, head and seq of size > 1, a positive stride
-//     of a multiple of 16 bytes (the main path's transposed views qualify).
-//     One persistent block per SM (a producer warpgroup and two consumer
-//     warpgroups of 64 query rows) walks work items of 128 query rows of one
-//     (b, h); the items come in pairs, q tiles nq-1-i and i, so that every
-//     pair carries the same causal work.  The producer's one thread loads Q
-//     into one of two buffers and K/V tiles of 128 keys into a ring of three
-//     stages with TMA (tensor maps encoded on the host for each call, the
-//     128-byte swizzle, zeros past S), paced by full and empty mbarriers,
-//     so the next item's Q and first K/V tiles load while this item ends.
-//     setmaxnreg moves registers from the producer (24) to the consumers
-//     (240).  Each consumer runs S = Q K^T as wgmma m64n128k16 (both from
-//     shared memory) and O += P V as m64n64k16 with P from registers (the S
-//     accumulator's layout is mma.sync's C layout repeated, so it packs to
-//     bf16 as the A fragment) and V read MN-major.  S of tile j is started
-//     with P V of tile j-1, and the softmax of tile j runs while P V of tile
-//     j-1 is on the tensor cores.  The softmax is base 2 (ex2.approx), with
-//     the scale folded into the exponent's FMA when it is positive, the mask
-//     applied only on tiles that cross the diagonal or the end of the keys,
-//     and each row's sum kept per thread until the item ends.  K/V tiles
-//     wholly above the diagonal are skipped: their weights are exactly 0.
-//     This is stage 2 of the redesign (stage 1, the same consumers fed by
-//     cp.async without a producer, measured slower; stage 3, the two
-//     consumer warpgroups taking turns under named barriers, gained
-//     nothing here and was not kept: PERF.md).
+//   * "wgmma": bf16 with D = 64 or 128, and q, k, v and out each with a
+//     16-byte aligned base and, for batch, head and seq of size > 1, a
+//     positive stride of a multiple of 16 bytes (the main path's transposed
+//     views qualify).  One persistent block per SM (a producer warpgroup
+//     and two consumer warpgroups of 64 query rows) walks work items of 128
+//     query rows of one (b, h); the items come in pairs, q tiles nq-1-i and
+//     i, so that every pair carries the same causal work.  The producer's
+//     one thread loads Q into one of two buffers and K/V tiles of 128 keys
+//     into a ring with TMA (tensor maps encoded on the host for each call,
+//     the 128-byte swizzle, zeros past S), paced by full and empty
+//     mbarriers, so the next item's Q and first K/V tiles load while this
+//     item ends.  setmaxnreg moves registers from the producer (24) to the
+//     consumers (240).  Each consumer runs S = Q K^T as wgmma m64n128k16
+//     (both from shared memory, D / 16 k-steps) and O += P V as one wgmma
+//     of width D per 16 keys with P from registers (the S accumulator's
+//     layout is mma.sync's C layout repeated, so it packs to bf16 as the A
+//     fragment) and V read MN-major.  S of tile j is started with P V of
+//     tile j-1, and the softmax of tile j runs while P V of tile j-1 is on
+//     the tensor cores.  The softmax is base 2 (ex2.approx), with the scale
+//     folded into the exponent's FMA when it is positive, the mask applied
+//     only on tiles that cross the diagonal or the end of the keys, and
+//     each row's sum kept per thread until the item ends.  K/V tiles wholly
+//     above the diagonal are skipped: their weights are exactly 0.
+//     At D = 64 the ring has three stages, K and V of a stage share one
+//     full and one empty barrier, and O is stored from registers.  At
+//     D = 128 a 256-byte row is two 128-byte swizzle atoms, so every tile is
+//     stored as two column halves, loaded as two boxes on one barrier, and
+//     the second half's k-steps and P V's second 64 columns take descriptors
+//     an atom stride on; two Q buffers then leave room for two stages (192
+//     KB), so K and V have barriers of their own and the producer loads K of
+//     a tile ahead of V of the one before: K is freed once S is done and
+//     loads under the softmax and P V.  There the two consumer warpgroups
+//     also take turns to issue their products (named barriers), and O goes
+//     out through each warpgroup's rows of its Q buffer by TMA.
+//     (PERF_HISTORY.md holds the variants measured and not kept: cp.async
+//     consumers without a producer; at D = 64 the turns of the two
+//     warpgroups, the split barriers and the TMA store; at D = 128 two
+//     products of width 64 for P V, a skipped rescale of O, 256-byte L2
+//     promotion.)
 //   * "mma": other bf16 with D a multiple of 16 up to 128, K/V rows on
 //     16-byte boundaries and q/out rows on 4-byte ones: one block per (q
 //     tile of 64 rows, query head, batch), the q tiles of a head in reverse
@@ -483,17 +503,44 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
   }
 }
 
-// -- bf16, D = 64, on warpgroup tensor cores (wgmma) ---------------------------
+// -- bf16, D = 64 or 128, on warpgroup tensor cores (wgmma) --------------------
 
 constexpr int kWgConsumers = 256;   // two consumer warpgroups of 64 query rows
 constexpr int kWgThreads = 128 + kWgConsumers;  // and a producer warpgroup
 constexpr int kWgBQ = 128;          // query rows per work item
 constexpr int kWgBK = 128;          // keys per K/V tile
-constexpr int kWgStages = 3;        // K/V stages in the ring
-constexpr int kWgTile = kWgBK * 128;  // bytes of a K or V tile of 64 bf16 (128-byte rows)
-constexpr int kWgQTile = kWgBQ * 128;
-// two Q buffers, the K/V ring, the full and empty barriers of both, alignment slack
-constexpr int kWgSmem = 2 * kWgQTile + 2 * kWgStages * kWgTile + 8 * (2 * kWgStages + 4) + 1024;
+
+// Shared memory of the instance for head width D.  A 128-byte row is one
+// swizzle atom, so every Q, K and V tile is stored as D / 64 column halves
+// of rows x 128 bytes, each a 64-wide tile under the 128-byte swizzle.
+template <int D>
+struct WgShape {
+  static_assert(D == 64 || D == 128, "the wgmma path takes D = 64 or 128");
+  static constexpr int kHalves = D / 64;
+  // K/V stages in the ring: three at D = 64; two at D = 128, where the two
+  // Q buffers and a third stage would pass the 227 KB a block may use
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  // K and V of a stage on barriers of their own (K freed once S is done, V
+  // once P V is), or both on one pair; two stages need the split, so that K
+  // of the next tile loads while this tile's softmax and P V run
+  static constexpr bool kSplitKV = kStages == 2;
+  // At D = 128 the two consumer warpgroups take turns to issue their
+  // products, and O is written through each warpgroup's rows of its Q
+  // buffer and out by TMA (each measured faster there: PERF_HISTORY.md);
+  // D = 64 takes neither and stores straight from registers.
+  static constexpr bool kPingPong = D == 128;
+  static constexpr bool kTmaStore = D == 128;
+  static constexpr int kHalfQ = kWgBQ * 128;   // bytes of one column half of a tile
+  static constexpr int kHalfKV = kWgBK * 128;
+  static constexpr int kQTile = kHalves * kHalfQ;
+  static constexpr int kKVTile = kHalves * kHalfKV;  // a K or a V tile
+  // barriers: full and empty per stage (for K and V apart with kSplitKV),
+  // full and empty per Q buffer
+  static constexpr int kBars = (kSplitKV ? 4 : 2) * kStages + 4;
+  // two Q buffers, the K/V ring, the barriers, alignment slack
+  static constexpr int kSmem = 2 * kQTile + 2 * kStages * kKVTile + 8 * kBars + 1024;
+  static_assert(kSmem <= 232448, "over the 227 KB of shared memory a block may use");
+};
 
 // wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
 // leading and stride byte offsets, each in 16-byte units.
@@ -554,6 +601,21 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, shared, MN-major),
+// columns 0-63 of D in d0 and 64-127 in d1; B's two 64-wide column blocks
+// lie the descriptor's leading byte offset apart
+__device__ __forceinline__ void wgmma_rs_n128(float (&d0)[32], float (&d1)[32],
+                                              const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]), "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]), "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]), "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]), "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]), "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]), "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
+        "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]), "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]), "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]), "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]), "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]), "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]), "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 // -- mbarriers, TMA and register reallocation --
 
@@ -583,15 +645,43 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
     if (n == (1 << 24)) __trap();
   }
 }
-// a box of a (D, S, H, B) tensor map at (0, s, h, b) into shared memory,
+// a box of a (D, S, H, B) tensor map at (c, s, h, b) into shared memory,
 // completing on `bar`; rows past S are filled with zeros
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int s,
-                                         int h, int b) {
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c,
+                                         int s, int h, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(s), "r"(h), "r"(b), "r"(bar)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(s), "r"(h), "r"(b), "r"(bar)
       : "memory");
+}
+// one tile of `rows` x D at (s, h, b): its D / 64 column halves, one box each,
+// one after the other in shared memory, all completing on `bar`
+template <int D>
+__device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int rows, int s, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) tma_load(dst + c * rows * 128, map, bar, 64 * c, s, h, b);
+}
+// named barrier `id` (1-15) of `n` threads: wait for it, or arrive without waiting
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// a box of a (D, S, H, B) tensor map at (c, s, h, b) from shared memory, in
+// this thread's bulk group; rows past S are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c, int s,
+                                          int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c), "r"(s), "r"(h), "r"(b), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
@@ -621,25 +711,37 @@ __device__ __forceinline__ int wg_tiles(const Params& p, int q0) {
   return (kend + kWgBK - 1) / kWgBK;
 }
 
+template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1) flash_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out, Params p) {
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
+    __nv_bfloat16* __restrict__ out, Params p) {
+  using S = WgShape<D>;
+  constexpr int NH = S::kHalves, NST = S::kStages;
   extern __shared__ uint8_t wg_smem_raw[];
   const uint32_t raw = smem_addr(wg_smem_raw);
   uint8_t* smem = wg_smem_raw + (((raw + 1023u) & ~1023u) - raw);
   // [Q buffer 0, 1][stage 0: K, V]...[stage S-1: K, V][barriers]
-  const uint32_t q_addr = smem_addr(smem), ring = q_addr + 2 * kWgQTile;
-  const uint32_t full0 = ring + 2 * kWgStages * kWgTile, empty0 = full0 + 8 * kWgStages;
-  const uint32_t q_full0 = empty0 + 8 * kWgStages, q_empty0 = q_full0 + 16;
+  const uint32_t q_addr = smem_addr(smem), ring = q_addr + 2 * S::kQTile;
+  // [K full][K empty] per stage, then with kSplitKV [V full][V empty] (else
+  // V shares K's), [Q full][Q empty] per buffer
+  const uint32_t k_full0 = ring + 2 * NST * S::kKVTile, k_empty0 = k_full0 + 8 * NST;
+  const uint32_t v_full0 = S::kSplitKV ? k_empty0 + 8 * NST : k_full0;
+  const uint32_t v_empty0 = S::kSplitKV ? v_full0 + 8 * NST : k_empty0;
+  const uint32_t q_full0 = k_full0 + 8 * (S::kBars - 4), q_empty0 = q_full0 + 16;
 
   const int tid = threadIdx.x, wg = tid / 128;
   const int nq = (p.Sq + kWgBQ - 1) / kWgBQ;
   const int npairs = p.B * p.Hq * ((nq + 1) / 2);
 
   if (tid == 0) {
-    for (int st = 0; st < kWgStages; ++st) {
-      mbar_init(full0 + 8 * st, 1);
-      mbar_init(empty0 + 8 * st, kWgConsumers / 32);  // one arrival per consumer warp
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(k_full0 + 8 * st, 1);
+      mbar_init(k_empty0 + 8 * st, kWgConsumers / 32);  // one arrival per consumer warp
+      if (S::kSplitKV) {
+        mbar_init(v_full0 + 8 * st, 1);
+        mbar_init(v_empty0 + 8 * st, kWgConsumers / 32);
+      }
     }
     for (int i = 0; i < 2; ++i) {
       mbar_init(q_full0 + 8 * i, 1);
@@ -655,25 +757,47 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_wgmma_kernel(
     setmaxnreg_dec<24>();
     if (tid == 0) {
       int n = 0, gt = 0;  // items and K/V tiles loaded so far
+      // With kSplitKV the V tile of K/V tile vt (keys from vs, KV head vhk,
+      // batch vb) waits until K of the next tile is loaded: S needs K first,
+      // and K's slot frees a product earlier than V's.
+      int vt = -1, vs = 0, vhk = 0, vb = 0;
+      auto load_v = [&]() {
+        if (vt < 0) return;
+        const int st = vt % NST;
+        mbar_wait(v_empty0 + 8 * st, ((vt / NST) & 1) ^ 1);
+        mbar_expect_tx(v_full0 + 8 * st, S::kKVTile);
+        tma_load_tile<D>(ring + (2 * st + 1) * S::kKVTile, &v_map, v_full0 + 8 * st, kWgBK, vs,
+                         vhk, vb);
+        vt = -1;
+      };
       for (int w = blockIdx.x; w < npairs; w += gridDim.x)
         for (int half = 0; half < 2; ++half) {
           int q0, h, b;
           if (!wg_item(p, nq, w, half, q0, h, b)) continue;
           const int hk = h / (p.Hq / p.Hkv), qb = n & 1;
           mbar_wait(q_empty0 + 8 * qb, ((n >> 1) & 1) ^ 1);  // the first round passes
-          mbar_expect_tx(q_full0 + 8 * qb, kWgQTile);
-          tma_load(q_addr + qb * kWgQTile, &q_map, q_full0 + 8 * qb, q0, h, b);
+          mbar_expect_tx(q_full0 + 8 * qb, S::kQTile);
+          tma_load_tile<D>(q_addr + qb * S::kQTile, &q_map, q_full0 + 8 * qb, kWgBQ, q0, h, b);
           const int ntiles = wg_tiles(p, q0);
           for (int it = 0; it < ntiles; ++it, ++gt) {
-            const int st = gt % kWgStages;
-            mbar_wait(empty0 + 8 * st, ((gt / kWgStages) & 1) ^ 1);
-            const uint32_t k_addr = ring + 2 * st * kWgTile;
-            mbar_expect_tx(full0 + 8 * st, 2 * kWgTile);
-            tma_load(k_addr, &k_map, full0 + 8 * st, it * kWgBK, hk, b);
-            tma_load(k_addr + kWgTile, &v_map, full0 + 8 * st, it * kWgBK, hk, b);
+            const int st = gt % NST;
+            const uint32_t k_addr = ring + 2 * st * S::kKVTile;
+            mbar_wait(k_empty0 + 8 * st, ((gt / NST) & 1) ^ 1);
+            if constexpr (S::kSplitKV) {
+              mbar_expect_tx(k_full0 + 8 * st, S::kKVTile);
+              tma_load_tile<D>(k_addr, &k_map, k_full0 + 8 * st, kWgBK, it * kWgBK, hk, b);
+              load_v();
+              vt = gt, vs = it * kWgBK, vhk = hk, vb = b;
+            } else {
+              mbar_expect_tx(k_full0 + 8 * st, 2 * S::kKVTile);
+              tma_load_tile<D>(k_addr, &k_map, k_full0 + 8 * st, kWgBK, it * kWgBK, hk, b);
+              tma_load_tile<D>(k_addr + S::kKVTile, &v_map, k_full0 + 8 * st, kWgBK, it * kWgBK,
+                               hk, b);
+            }
           }
           ++n;
         }
+      load_v();
     }
     return;
   }
@@ -685,37 +809,66 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_wgmma_kernel(
 
   // score registers, 8-key steps and 16-key steps of a K/V tile
   constexpr int NS = kWgBK / 2, NJ = kWgBK / 8, NK = kWgBK / 16;
-  float o[32], s[NS];
-  uint32_t pa[NK][4];  // P in bf16, the A operand of O += P V
+  float o[NH][32], s[NS];  // O in 64-wide column halves
+  uint32_t pa[NK][4];      // P in bf16, the A operand of O += P V
 #pragma unroll
   for (int i = 0; i < NS; ++i) s[i] = 0.f;
   float m0, m1, l0, l1;       // running max and (this thread's) sum of rows g and g + 8, base 2
   int wrow, row0, row1;       // this warp's first row, this thread's two rows
   int klim0, klim1;           // keys visible to rows row0 and row1: those before these
-  uint32_t qw_addr;           // this warpgroup's 64 rows of Q
+  uint32_t qw_addr;           // this warpgroup's 64 rows of Q (in the first column half)
 
-  // S = Q K^T of the tile in stage st: four k-steps of 16 over D, each 32
-  // bytes on inside the swizzled rows (started, not waited for)
+  auto fence_o = [&]() {
+#pragma unroll
+    for (int c = 0; c < NH; ++c) fence_regs(o[c]);
+  };
+  // With kPingPong the two consumer warpgroups take turns to issue their
+  // products (named barrier 1 + cw is warpgroup cw's turn), so that one's
+  // S and P V run on the tensor cores while the other's softmax runs.
+  auto my_turn = [&]() {
+    if constexpr (S::kPingPong) named_sync(1 + cw, kWgConsumers);
+  };
+  auto pass_turn = [&]() {
+    if constexpr (S::kPingPong) named_arrive(2 - cw, kWgConsumers);
+  };
+  if constexpr (S::kPingPong)
+    if (cw == 0) named_arrive(1, kWgConsumers);  // warpgroup 0 takes the first turn
+  // S = Q K^T of the tile in stage st: 4 k-steps of 16 over each column
+  // half, each 32 bytes on inside the swizzled rows (started, not waited for)
   auto start_s = [&](int st) {
-    const uint32_t k_addr = ring + 2 * st * kWgTile;
+    const uint32_t k_addr = ring + 2 * st * S::kKVTile;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n128(s, wg_desc(qw_addr + 32 * kk, 16, 1024), wg_desc(k_addr + 32 * kk, 16, 1024),
-                    kk);
+    for (int kk = 0; kk < 4 * NH; ++kk)
+      wgmma_ss_n128(s, wg_desc(qw_addr + (kk / 4) * S::kHalfQ + 32 * (kk % 4), 16, 1024),
+                    wg_desc(k_addr + (kk / 4) * S::kHalfKV + 32 * (kk % 4), 16, 1024), kk);
     wg_commit();
   };
-  // O += P V of the tile in stage st: eight k-steps of 16 keys; V is read
-  // MN-major (transposed), 8 keys of 128 bytes per 1024-byte swizzle period
+  // O += P V of the tile in stage st: eight k-steps of 16 keys, each one
+  // product over all of D (at D = 128 the two column halves, an atom stride
+  // apart, as one m64n128k16); V is read MN-major (transposed), 8 keys of
+  // 128 bytes per 1024-byte swizzle period
   auto start_pv = [&](int st) {
-    const uint32_t v_addr = ring + (2 * st + 1) * kWgTile;
+    const uint32_t v_addr = ring + (2 * st + 1) * S::kKVTile;
 #pragma unroll
-    for (int kk = 0; kk < NK; ++kk) wgmma_rs_n64(o, pa[kk], wg_desc(v_addr + kk * 2048, 16, 1024));
+    for (int kk = 0; kk < NK; ++kk) {
+      if constexpr (NH == 2)
+        wgmma_rs_n128(o[0], o[1], pa[kk], wg_desc(v_addr + kk * 2048, S::kHalfKV, 1024));
+      else
+        wgmma_rs_n64(o[0], pa[kk], wg_desc(v_addr + kk * 2048, 16, 1024));
+    }
     wg_commit();
   };
-  // this warp is done with the stage or Q buffer of barrier `bar`
+  // this warp is done with the buffer of barrier `bar`
   auto release = [&](uint32_t bar) {
     __syncwarp();
     if (lane == 0) mbar_arrive(bar);
+  };
+  // with kSplitKV V has its own barriers; else it came, and goes, with K
+  auto wait_v = [&](int st, int ph) {
+    if constexpr (S::kSplitKV) mbar_wait(v_full0 + 8 * st, ph);
+  };
+  auto release_k = [&](int st) {
+    if constexpr (S::kSplitKV) release(k_empty0 + 8 * st);
   };
   // Online softmax of the scores of keys k0.. in s, in place: s becomes the
   // weights; sets the factors that rescale O (rows g and g + 8).  s[4j + e]
@@ -817,11 +970,13 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_wgmma_kernel(
       row1 = row0 + 8;
       klim0 = p.causal ? min(p.Sk, row0 + 1) : p.Sk;
       klim1 = p.causal ? min(p.Sk, row1 + 1) : p.Sk;
-      qw_addr = q_addr + qb * kWgQTile + cw * 64 * 128;
+      qw_addr = q_addr + qb * S::kQTile + cw * 64 * 128;
       m0 = m1 = kNegInf;
       l0 = l1 = 0.f;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      for (int c = 0; c < NH; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
       mbar_wait(q_full0 + 8 * qb, (n >> 1) & 1);
 
       // The scores of tile it are computed, and their softmax runs, while
@@ -829,46 +984,59 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_wgmma_kernel(
       // two commit groups, and waiting for all but one completes S alone.
       if (ntiles > 0) {
         float alpha0, alpha1;
-        int st = gt % kWgStages;
-        mbar_wait(full0 + 8 * st, (gt / kWgStages) & 1);
+        int st = gt % NST, ph = (gt / NST) & 1;
+        mbar_wait(k_full0 + 8 * st, ph);
+        my_turn();
         wg_fence();
         start_s(st);
+        pass_turn();
         wg_wait<0>();
         fence_regs(s);
+        release_k(st);  // K of stage st may be refilled
         softmax_tile(0, alpha0, alpha1);
         pack_p();
         for (int it = 1; it < ntiles; ++it) {
-          const int prev = st;
-          st = (gt + it) % kWgStages;
-          mbar_wait(full0 + 8 * st, ((gt + it) / kWgStages) & 1);
-          fence_regs(o);
+          const int prev = st, prev_ph = ph;
+          st = (gt + it) % NST;
+          ph = ((gt + it) / NST) & 1;
+          mbar_wait(k_full0 + 8 * st, ph);
+          wait_v(prev, prev_ph);
+          fence_o();
+          my_turn();
           wg_fence();
           start_s(st);
           start_pv(prev);
+          pass_turn();
           wg_wait<1>();
           fence_regs(s);
+          release_k(st);
           softmax_tile(it * kWgBK, alpha0, alpha1);
           wg_wait<0>();
-          fence_regs(o);
+          fence_o();
           fence_regs(s);
-          release(empty0 + 8 * prev);  // stage prev may be refilled
+          release(v_empty0 + 8 * prev);  // V (and K) of stage prev may be refilled
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            o[4 * j] *= alpha0;
-            o[4 * j + 1] *= alpha0;
-            o[4 * j + 2] *= alpha1;
-            o[4 * j + 3] *= alpha1;
-          }
+          for (int c = 0; c < NH; ++c)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              o[c][4 * j] *= alpha0;
+              o[c][4 * j + 1] *= alpha0;
+              o[c][4 * j + 2] *= alpha1;
+              o[c][4 * j + 3] *= alpha1;
+            }
           pack_p();
         }
-        fence_regs(o);
+        wait_v(st, ph);
+        fence_o();
+        my_turn();
         wg_fence();
         start_pv(st);
+        pass_turn();
         wg_wait<0>();
-        fence_regs(o);
-        release(empty0 + 8 * st);
+        fence_o();
+        release(v_empty0 + 8 * st);
       }
-      release(q_empty0 + 8 * qb);  // Q buffer qb may be refilled
+      if constexpr (!S::kTmaStore) release(q_empty0 + 8 * qb);  // Q buffer qb may be refilled
       ++n;
       gt += ntiles;
 
@@ -879,15 +1047,44 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_wgmma_kernel(
         l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
       }
       const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+      if constexpr (S::kTmaStore) {
+        // O goes into this warpgroup's rows of Q buffer qb (its last S is
+        // done) in the Q tile's swizzled layout (16-byte chunk j of row r at
+        // j ^ (r & 7); rows g and g + 8 of this warp both have r & 7 = g),
+        // then out by TMA, which writes no row past Sq
+        const uint32_t row_addr = qw_addr + (warp * 16 + g) * 128 + t * 4;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = j * 8 + t * 2;
-        if (row0 < p.Sq)
-          *reinterpret_cast<uint32_t*>(ob + row0 * p.o_s + c) =
-              pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-        if (row1 < p.Sq)
-          *reinterpret_cast<uint32_t*>(ob + row1 * p.o_s + c) =
-              pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+        for (int c = 0; c < NH; ++c)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const uint32_t at = row_addr + c * S::kHalfQ + ((j ^ g) << 4);
+            st_shared(at, pack_bf16(o[c][4 * j] * inv0, o[c][4 * j + 1] * inv0));
+            st_shared(at + 8 * 128, pack_bf16(o[c][4 * j + 2] * inv1, o[c][4 * j + 3] * inv1));
+          }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
+        named_sync(3 + cw, 128);  // this warpgroup's rows are written
+        if (warp == 0 && lane == 0) {
+#pragma unroll
+          for (int c = 0; c < NH; ++c)
+            tma_store(&o_map, qw_addr + c * S::kHalfQ, 64 * c, q0 + cw * 64, h, b);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          // the buffer is read out before it is released
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        }
+        release(q_empty0 + 8 * qb);  // Q buffer qb may be refilled
+      } else {
+#pragma unroll
+        for (int c = 0; c < NH; ++c)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = c * 64 + j * 8 + t * 2;
+            if (row0 < p.Sq)
+              *reinterpret_cast<uint32_t*>(ob + row0 * p.o_s + col) =
+                  pack_bf16(o[c][4 * j] * inv0, o[c][4 * j + 1] * inv0);
+            if (row1 < p.Sq)
+              *reinterpret_cast<uint32_t*>(ob + row1 * p.o_s + col) =
+                  pack_bf16(o[c][4 * j + 2] * inv1, o[c][4 * j + 3] * inv1);
+          }
       }
     }
 }
@@ -949,19 +1146,20 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// The (D, S, H, B) map of a bf16 tensor with D = 64 contiguous and element
-// strides (sb, sh, ss), read in boxes of 64 x rows under the 128-byte swizzle,
-// zeros past S.  A dimension of size 1 takes a packed stride: its own is
-// never used and may be anything.
-int encode_map(CUtensorMap* map, const void* ptr, int rows, int S, int H, int B, long long sb,
-               long long sh, long long ss) {
+// The (D, S, H, B) map of a bf16 tensor with D contiguous and element
+// strides (sb, sh, ss), read in boxes of 64 x rows (one 128-byte swizzle atom
+// wide: a tile of D = 128 takes two, at columns 0 and 64) under the 128-byte
+// swizzle, zeros past S.  A dimension of size 1 takes a packed stride: its
+// own is never used and may be anything.
+int encode_map(CUtensorMap* map, const void* ptr, int D, int rows, int S, int H, int B,
+               long long sb, long long sh, long long ss) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (!encode) return (int)cudaErrorNotSupported;
   S = max(S, 1);  // no keys: the map is never read
-  const cuuint64_t s_b = S == 1 ? 128 : ss * 2;
+  const cuuint64_t s_b = S == 1 ? 2 * D : ss * 2;
   const cuuint64_t h_b = H == 1 ? s_b * S : sh * 2;
   const cuuint64_t b_b = B == 1 ? h_b * H : sb * 2;
-  const cuuint64_t dims[4] = {64, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {s_b, h_b, b_b};
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1}, unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -971,15 +1169,20 @@ int encode_map(CUtensorMap* map, const void* ptr, int rows, int S, int H, int B,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+template <int D>
 int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                  __nv_bfloat16* out, const Params& p, cudaStream_t st) {
-  CUtensorMap q_map, k_map, v_map;
-  int e = encode_map(&q_map, q, kWgBQ, p.Sq, p.Hq, p.B, p.q_b, p.q_h, p.q_s);
-  if (!e) e = encode_map(&k_map, k, kWgBK, p.Sk, p.Hkv, p.B, p.k_b, p.k_h, p.k_s);
-  if (!e) e = encode_map(&v_map, v, kWgBK, p.Sk, p.Hkv, p.B, p.v_b, p.v_h, p.v_s);
+  constexpr int smem = WgShape<D>::kSmem;
+  CUtensorMap q_map, k_map, v_map, o_map = {};
+  int e = encode_map(&q_map, q, D, kWgBQ, p.Sq, p.Hq, p.B, p.q_b, p.q_h, p.q_s);
+  if (!e) e = encode_map(&k_map, k, D, kWgBK, p.Sk, p.Hkv, p.B, p.k_b, p.k_h, p.k_s);
+  if (!e) e = encode_map(&v_map, v, D, kWgBK, p.Sk, p.Hkv, p.B, p.v_b, p.v_h, p.v_s);
+  // the output in boxes of one consumer warpgroup's 64 rows
+  if (!e && WgShape<D>::kTmaStore)
+    e = encode_map(&o_map, out, D, 64, p.Sq, p.Hq, p.B, p.o_b, p.o_h, p.o_s);
   if (e) return e;
-  e = (int)cudaFuncSetAttribute(flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                kWgSmem);
+  e = (int)cudaFuncSetAttribute(flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
   if (e) return e;
   // persistent: at most one block per SM, each walking its pairs of q tiles
   int device = 0, sms = 0;
@@ -990,7 +1193,7 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bflo
   const long long npairs = (long long)p.B * p.Hq * ((nq + 1) / 2);
   if (npairs > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int grid = (int)(npairs < sms ? npairs : sms);
-  flash_wgmma_kernel<<<grid, kWgThreads, kWgSmem, st>>>(q_map, k_map, v_map, out, p);
+  flash_wgmma_kernel<D><<<grid, kWgThreads, smem, st>>>(q_map, k_map, v_map, o_map, out, p);
   return (int)cudaGetLastError();
 }
 
@@ -1044,9 +1247,10 @@ int launch(const void* q, const void* k, const void* v, void* out, const long lo
                      tma_ok(k, p.B, p.Hkv, p.Sk, p.k_b, p.k_h, p.k_s) &&
                      tma_ok(v, p.B, p.Hkv, p.Sk, p.v_b, p.v_h, p.v_s) &&
                      tma_ok(out, p.B, p.Hq, p.Sq, p.o_b, p.o_h, p.o_s);
-    if (tma && p.D == 64) {
+    if (tma && (p.D == 64 || p.D == 128)) {
       path = 2;
-      status = launch_wgmma(qt, kt, vt, ot, p, st);
+      status = p.D == 64 ? launch_wgmma<64>(qt, kt, vt, ot, p, st)
+                         : launch_wgmma<128>(qt, kt, vt, ot, p, st);
     } else if (aligned && p.D % 16 == 0 && p.D <= 128) {
       path = 1;
       switch (p.D / 16) {

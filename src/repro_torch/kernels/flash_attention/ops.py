@@ -10,15 +10,17 @@ masked in the kernel: the reference's zero-padding to its tiles is a TPU
 detail and is not carried over.
 
 The kernel picks one of three paths before it launches, by type, D and
-alignment alone, and a path that fails raises (none falls back):
+alignment alone, and a path that fails raises (none falls back);
+``kernels.launches["flash_attention:<path>"]`` counts the launches by path:
 
-* ``"wgmma"``: bfloat16 with D = 64 and, for each of q, k, v and out, a
-  16-byte aligned base and positive strides of a multiple of 8 elements for
-  batch, head and seq (a dimension of size 1 is exempt).  A persistent
-  kernel with a TMA producer warpgroup and two consumer warpgroups on
-  Hopper's ``wgmma``; the model's transposed views take it.
+* ``"wgmma"``: bfloat16 with D = 64 or 128 and, for each of q, k, v and
+  out, a 16-byte aligned base and positive strides of a multiple of 8
+  elements for batch, head and seq (a dimension of size 1 is exempt).  A
+  persistent kernel with a TMA producer warpgroup and two consumer
+  warpgroups on Hopper's ``wgmma``; the model's transposed views take it.
 * ``"mma"``: other bfloat16 with D a multiple of 16 up to 128 (k and v rows
-  on 16-byte, q and out rows on 4-byte boundaries): ``mma.sync``.
+  on 16-byte, q and out rows on 4-byte boundaries): ``mma.sync``.  An
+  unaligned view at D = 64 or 128 comes here, not a failed ``"wgmma"``.
 * ``"simt"``: float32 and every other shape, on CUDA cores.
 
 Forward only, like the reference (which has no ``custom_vjp``): a call that
@@ -100,4 +102,5 @@ def _launch(q, k, v, causal, scale) -> torch.Tensor:
                                        f"k {tuple(k.shape)}, {q.dtype})")
     last_path = _PATHS[status]
     kernels.launches["flash_attention"] += 1
+    kernels.launches[f"flash_attention:{last_path}"] += 1
     return out

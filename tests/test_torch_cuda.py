@@ -317,6 +317,17 @@ FLASH_CASES = [
     (2, 4, 4, 1, 300, 64, False, torch.bfloat16),    # Sq = 1
     (2, 4, 4, 1, 300, 64, True, torch.bfloat16),
     (2, 32, 8, 384, 384, 64, True, torch.bfloat16),  # GQA 32/8
+    # the same edges at D = 128 (mistral_nemo_12b, chatglm3_6b, granite_34b)
+    (1, 1, 1, 128, 128, 128, True, torch.bfloat16),   # one tile
+    (2, 4, 2, 200, 333, 128, True, torch.bfloat16),   # ragged Sq and Sk
+    (2, 4, 2, 200, 333, 128, False, torch.bfloat16),
+    (1, 4, 4, 300, 130, 128, True, torch.bfloat16),   # Sq > Sk, causal, ragged
+    (2, 4, 4, 100, 1, 128, True, torch.bfloat16),     # Sk = 1
+    (2, 4, 4, 100, 1, 128, False, torch.bfloat16),
+    (2, 4, 4, 1, 300, 128, False, torch.bfloat16),    # Sq = 1
+    (2, 4, 4, 1, 300, 128, True, torch.bfloat16),
+    (2, 32, 8, 1024, 1024, 128, True, torch.bfloat16),  # GQA 32/8
+    (1, 48, 1, 512, 512, 128, True, torch.bfloat16),    # MQA 48/1 (granite_34b)
 ]
 
 
@@ -324,7 +335,7 @@ def _expected_path(D, dtype):
     """The routing rule for contiguous (16-byte aligned) inputs."""
     if dtype != torch.bfloat16:
         return "simt"
-    return "wgmma" if D == 64 else "mma" if D % 16 == 0 else "simt"
+    return "wgmma" if D in (64, 128) else "mma" if D % 16 == 0 else "simt"
 
 
 def _flash_inputs(seed, B, Hq, Hkv, Sq, Sk, D, dtype):
@@ -353,39 +364,42 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D, causa
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_kernel_on_transposed_views(cuda, dtype):
+def test_flash_attention_kernel_on_transposed_views(cuda, dtype, D):
     """The model hands (B, S, H, D) tensors transposed to (B, H, S, D): the
     kernel reads them through their strides and writes an output laid out
     like q, so transposing it back is contiguous."""
     rng = np.random.default_rng(4)
-    q, k, v = [torch.from_numpy(rng.normal(size=(2, 75, h, 64)).astype(np.float32)).cuda()
+    q, k, v = [torch.from_numpy(rng.normal(size=(2, 75, h, D)).astype(np.float32)).cuda()
                .to(dtype).transpose(1, 2) for h in (8, 2, 2)]
     out = _flash_check(q, k, v, True)
     assert out.transpose(1, 2).is_contiguous()
-    assert fl_ops.last_path == _expected_path(64, dtype)
+    assert fl_ops.last_path == _expected_path(D, dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("which", ["base", "row_stride"])
-def test_flash_attention_routes_unaligned_bf16_to_mma(cuda, which):
+def test_flash_attention_routes_unaligned_bf16_to_mma(cuda, which, D):
     """The wgmma path takes 16-byte aligned bases and strides only: q at a
-    4-byte offset, or a row stride of 68 elements, keeps mma.sync."""
-    q, k, v = _flash_inputs(6, 1, 4, 2, 96, 160, 64, torch.bfloat16)
+    4-byte offset, or a row stride of D + 4 elements, keeps mma.sync."""
+    q, k, v = _flash_inputs(6, 1, 4, 2, 96, 160, D, torch.bfloat16)
     if which == "base":
         q = torch.cat([q.new_zeros(2), q.flatten()])[2:].view(q.shape)
-    else:   # rows of 68 elements: only 8-byte aligned
-        q = torch.cat([q, q.new_zeros(1, 4, 96, 4)], -1)[..., :64]
+    else:   # rows of D + 4 elements: only 8-byte aligned
+        q = torch.cat([q, q.new_zeros(1, 4, 96, 4)], -1)[..., :D]
     _flash_check(q, k, v, True)
     assert fl_ops.last_path == "mma"
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("scale", [-0.3, 0.0, 2.5])
-def test_flash_attention_kernel_with_other_scales(cuda, scale):
+def test_flash_attention_kernel_with_other_scales(cuda, scale, D):
     """The wgmma path folds a positive scale into its exponent and keeps a
     separate softmax for the others; both match the plain version."""
-    q, k, v = _flash_inputs(7, 2, 4, 2, 200, 333, 64, torch.bfloat16)
+    q, k, v = _flash_inputs(7, 2, 4, 2, 200, 333, D, torch.bfloat16)
     out = fl_ops.flash_attention(q, k, v, causal=True, scale=scale)
     torch.cuda.synchronize()
     assert fl_ops.last_path == "wgmma"

@@ -29,7 +29,8 @@ from repro_torch.models.transformer import LM  # noqa: E402
 
 TOL = {np.float32: 2e-5, "bfloat16": 2e-2}
 
-# tests/test_kernels.py::test_flash_attention_matches_ref
+# tests/test_kernels.py::test_flash_attention_matches_ref, then bf16 GQA at
+# head width 128 (mistral_nemo_12b's layout, the kernel's D = 128 instance)
 SHAPES = [
     (2, 4, 2, 64, 64, 32, True, np.float32),
     (1, 8, 1, 100, 100, 64, True, np.float32),
@@ -37,6 +38,7 @@ SHAPES = [
     (1, 2, 2, 1, 200, 128, False, np.float32),
     (1, 4, 2, 128, 128, 64, True, "bfloat16"),
     (1, 48, 1, 33, 33, 128, True, np.float32),
+    (1, 8, 2, 160, 160, 128, True, "bfloat16"),
 ]
 
 
@@ -165,3 +167,26 @@ def test_lm_pallas_matches_reference_and_chunked(smoke_pair, entry):
     scale = max(1.0, float(np.abs(np.asarray(ref)).max()))
     assert _err(outs["pallas"], ref) / scale < 2e-5
     assert _err(outs["pallas"], outs["chunked"].numpy()) / scale < 2e-5
+
+
+def test_lm_pallas_at_head_width_128_matches_reference():
+    """A 2-layer dense model at head width 128 (d 256, 4 query and 2 KV
+    heads, f32), weights from the reference's init through the bridge: its
+    pallas prefill logits equal the reference's at 2e-5 of their scale."""
+    import dataclasses
+
+    shape = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, head_dim=128)
+    ref_cfg = dataclasses.replace(ref_get_config("mistral_nemo_12b").smoke(), **shape)
+    cfg = dataclasses.replace(get_config("mistral_nemo_12b").smoke(), **shape)
+    ref_params = RefLM(ref_cfg, attn_impl="naive", remat=None).init(jax.random.key(0))
+    tree = jax.tree.map(np.asarray, ref_params)
+    batch = ref_synth(RefDataConfig(vocab_size=ref_cfg.vocab_size, seq_len=40,
+                                    batch_per_shard=2), 0, 0)
+    ref = RefLM(ref_cfg, attn_impl="pallas", remat=None).prefill_logits(
+        ref_params, {k: jnp.asarray(v) for k, v in batch.items()})
+    model = LM(cfg, attn_impl="pallas")
+    with torch.no_grad():
+        ours = model.prefill_logits(params_from_numpy(model, tree, device="cpu"),
+                                    {k: torch.from_numpy(v) for k, v in batch.items()})
+    scale = max(1.0, float(np.abs(np.asarray(ref)).max()))
+    assert _err(ours, ref) / scale < 2e-5
