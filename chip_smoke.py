@@ -18,11 +18,15 @@ before each and read just after:
   graphs with watermark maintenance, whose compaction passes move KV pages
   through the block-copy kernel; the generated ids must be equal across the
   three, and one graphed step at batch 8 bit-equal to eager;
+* granite_34b at its full width (MQA: 48 query heads on one KV head of 128)
+  and 8 of its 88 layers, served eagerly and through the CUDA graphs with
+  equal ids: the paged kernel at a group of 48;
 * the full-width stablelm_1_6b trained for 20 steps by
   ``repro_torch.launch.train --full`` (chunked attention, full remat,
   AdamW, checkpointed), then evaluated and prefilled at 4 x 2048 tokens
   through the flash-attention kernel (``attn_impl="pallas"``), held against
-  the chunked path on the same weights;
+  the chunked path on the same weights, in bf16 and then cast to f32 (the
+  kernel's ``tf32x3`` path);
 * the full-width mistral_nemo_12b (GQA 32/8, head width 128; random
   weights from a seeded generator) evaluated and prefilled the same way,
   every flash launch on the kernel's ``wgmma`` path at D = 128;
@@ -38,9 +42,9 @@ before each and read just after:
   oracle.
 
 It also runs the PUD host model (the quickstart's allocator table and the
-paper's Figure 2, modelled DRAM times), holds the card's generated ids and
-training losses against the CPU at smoke size, and times each kernel beside
-its bound.  Any failed check raises, so the script exits non-zero without
+paper's Figure 2, modelled DRAM times), holds the card's generated ids,
+training losses and f32 flash forwards against the CPU at smoke size, and
+times each kernel beside its bound.  Any failed check raises, so the script exits non-zero without
 its last line; that line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits non-zero at once.
 """
@@ -98,10 +102,12 @@ from repro_torch.serve.engine import MaintenanceConfig, Request, ServeEngine  # 
 from repro_torch.serve.paged_runner import paged_decode_step, paged_decode_step_jit  # noqa: E402
 from repro_torch.train.step import build_eval_step  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 BF16_TC_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
+TF32_TC_FLOPS = 495e12         # H100 SXM TF32 tensor cores, dense
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the reference's own tolerances
 BF16_ULP = 2.0 ** -7           # bf16 cases also: within one ulp of the plain output
 PAGED_LSE_TOL = 2e-5           # paged attention's LSE, of max(1, |lse|)
@@ -130,6 +136,13 @@ BULK_OPS = {"zero": (bc_ops.pud_zero, 1), "copy": (bc_ops.pud_copy, 1),
 FLASH_MAIN = dict(B=4, Hq=HEADS, Hkv=HEADS, Sq=2048, Sk=2048, D=HEAD_DIM, causal=True)
 # and mistral_nemo_12b's at the same tokens: GQA 32/8 at head width 128
 FLASH_D128 = dict(B=4, Hq=32, Hkv=8, Sq=2048, Sk=2048, D=128, causal=True)
+# granite_34b served on the card: its full width (d, query heads, KV heads,
+# head width, d_ff, vocab, activation, norm) at 8 of its 88 layers (the
+# whole model, 68 GB in bf16, does not fit beside the rest of the script);
+# 8 requests of 64-512 prompt tokens and 16 new tokens each
+GRANITE_ARCH, GRANITE_LAYERS, GRANITE_SEED = "granite_34b", 8, 6
+GRANITE_FULL = (6144, 48, 1, 128, 24576, 49152, "gelu", "layernorm")
+GRANITE_REQUESTS, GRANITE_NEW = 8, 16
 # the GQA forward's model, its full width (layers, d, heads, KV heads, head
 # width, d_ff, vocab) and its weights' seed
 GQA_ARCH, GQA_SEED = "mistral_nemo_12b", 5
@@ -139,6 +152,9 @@ GQA_FULL = (40, 5120, 32, 8, 128, 14336, 131072)
 # P.V), which bf16 layers carry to the loss and the logits
 EVAL_LOSS_RTOL = 1e-2
 LOGITS_TOL = 5e-2              # of the logits' largest magnitude
+# the same check in f32 (the flash kernel's tf32x3 path against chunked
+# f32): the first layer's logits within 1e-4 of their scale
+LOGITS_TOL_F32 = 1e-4
 # smoke training, card against CPU, f32: the first step's loss is one
 # forward of the same weights; later steps follow AdamW, which moves every
 # element by about lr whatever the size of its gradient, so float32
@@ -269,6 +285,10 @@ def phase_kernels() -> dict:
         ("main-f32", dict(B=MAX_SEQS, Hq=HEADS, Hkv=HEADS, D=HEAD_DIM, lens=main_lens(), dtype=torch.float32)),
         ("gqa-bf16", dict(B=4, Hq=32, Hkv=8, D=128, lens=[0, 1, 300, 1024], dtype=torch.bfloat16)),
         ("gqa-f32", dict(B=4, Hq=32, Hkv=8, D=128, lens=[0, 17, 300, 1000], dtype=torch.float32)),
+        # granite_34b's MQA group: 48 query heads on one KV head of 128
+        ("mqa48-bf16", dict(B=MAX_SEQS, Hq=48, Hkv=1, D=128, lens=main_lens(), dtype=torch.bfloat16)),
+        ("mqa48-f32", dict(B=MAX_SEQS, Hq=48, Hkv=1, D=128, lens=[0, 1, 63, 64, 65, 300, 1000, 1024],
+                           dtype=torch.float32)),
     ]
     for name, kw in cases:
         args = paged_case(gen, **kw)
@@ -325,22 +345,30 @@ def phase_kernels() -> dict:
 
 
 def paged_fp8_case(gen) -> dict:
-    """fp8 e4m3 K/V pages at the main serving shape, q in bf16 and f32."""
+    """fp8 e4m3 K/V pages at the main serving shape, q in bf16 and f32, and
+    at granite_34b's MQA group (48 query heads on one KV head of 128), q in
+    bf16."""
     errs = {}
-    for qdt in (torch.bfloat16, torch.float32):
-        q, kp, vp, tbl, lens = paged_case(gen, MAX_SEQS, HEADS, HEADS, HEAD_DIM, main_lens(), qdt)
+    for qdt, Hq, Hkv, D in ((torch.bfloat16, HEADS, HEADS, HEAD_DIM),
+                            (torch.float32, HEADS, HEADS, HEAD_DIM),
+                            (torch.bfloat16, 48, 1, 128)):
+        q, kp, vp, tbl, lens = paged_case(gen, MAX_SEQS, Hq, Hkv, D, main_lens(), qdt)
         kp, vp = kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn)
         out, lse = pa_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
         torch.cuda.synchronize()
         plain, plain_lse = paged_plain(q, kp, vp, tbl, lens)
         err = (out.float() - plain.float()).abs().max().item()
-        name = f"fp8-pages-{str(qdt).split('.')[-1]}"
+        name = f"fp8-pages-{str(qdt).split('.')[-1]}" + ("-mqa48" if Hkv == 1 else "")
         errs[name] = err
         lse_err = paged_lse_err(lse, plain_lse, name)
         log(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} (tol 2e-2), "
             f"LSE {lse_err:.3e} of max(1, |lse|) (tol {PAGED_LSE_TOL:g})")
         check(out.dtype == qdt and out.shape == q.shape, f"{name}: output type/shape")
         check(err < 2e-2, f"paged_attention {name}: err {err} over tolerance")
+        if Hkv == 1:   # as the bf16 rows: one bf16 ulp from the plain version
+            diff = (out.float() - plain.float()).abs()
+            check(bool((diff <= BF16_ULP * plain.float().abs() + 1e-5).all()),
+                  f"paged_attention {name}: more than one bf16 ulp from the plain version")
     return errs
 
 
@@ -383,7 +411,7 @@ FLASH_CASES = [
 def flash_path(D, dtype) -> str:
     """The kernel's routing rule for 16-byte aligned inputs (all of these)."""
     if dtype != torch.bfloat16:
-        return "simt"
+        return "tf32x3" if D % 8 == 0 and D <= 128 else "simt"
     return "wgmma" if D in (64, 128) else "mma" if D % 16 == 0 else "simt"
 
 
@@ -882,6 +910,95 @@ def fork_and_check(engine) -> dict:
     return info
 
 
+# -- phase 4b: granite_34b's MQA group through the paged kernel ---------------
+
+def granite_engine(jit: bool):
+    """granite_34b at its full width and 8 of its 88 layers on the card:
+    random bf16 weights from a seeded generator, the main path's pool shape
+    with one KV head of 128, and 8 submitted requests of 64-512 seeded
+    prompt tokens and 16 new tokens each."""
+    cfg = dataclasses.replace(get_config(GRANITE_ARCH), n_layers=GRANITE_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size,
+           cfg.activation, cfg.norm) == GRANITE_FULL, f"{GRANITE_ARCH} is not at full width")
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(GRANITE_SEED), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[granite] {GRANITE_ARCH} at full width, reduced to {GRANITE_LAYERS} of 88 layers (the "
+        f"only cut: all 88 take 68 GB in bf16): {count_params(params) / 1e9:.3f} B params "
+        f"({cfg.dtype}) in {time.perf_counter() - t0:.1f} s")
+    pool_cfg = KVPoolConfig(
+        num_blocks=NUM_BLOCKS, block_size=BLOCK, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        n_layers=cfg.n_layers, max_seqs=MAX_SEQS, max_blocks_per_seq=MAX_BLOCKS,
+        blocks_per_arena=64, dtype=cfg.kv_cache_dtype,
+    )
+    engine = ServeEngine(model, params, pool_cfg, device="cuda", jit=jit)
+    rng = np.random.default_rng(GRANITE_SEED)
+    for rid in range(GRANITE_REQUESTS):
+        n = int(rng.integers(64, 513))
+        engine.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                              max_new=GRANITE_NEW))
+    return engine
+
+
+def phase_granite_serve() -> dict:
+    """The granite_34b serve eagerly and through the decode step's CUDA
+    graphs, the launch counts zeroed just before each and read just after:
+    every decode step's attention runs the paged kernel at a group of 48
+    (48 x 128 values a group).  The ids must be equal between the two, and
+    one graphed step at batch 8 bit-equal to eager (``graph_step_check``)."""
+    res = {}
+    for jit in (False, True):
+        tag = "[granite " + ("graph" if jit else "eager") + "]"
+        engine = granite_engine(jit)
+        kernels.reset_launches()
+        step_ms, step_check = [], None
+        alive = True
+        while alive:
+            if jit and step_check is None and len(engine.live) == MAX_SEQS:
+                step_check = graph_step_check(engine, tag)
+            pre_tok, pre_fill = engine.tokens_decoded, engine.tokens_prefilled
+            pre_captures = engine.graphs.captures if jit else 0
+            t0 = time.perf_counter()
+            alive = engine.step()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if (engine.tokens_prefilled == pre_fill and engine.tokens_decoded > pre_tok
+                    and (engine.graphs.captures if jit else 0) == pre_captures):
+                step_ms.append(dt * 1e3)
+            check(engine.clock < 10_000, f"{tag} serving did not finish")
+        launches = dict(kernels.launches)
+        cfg = engine.cfg
+        done = sorted(engine.done, key=lambda r: r.rid)
+        check(len(done) == GRANITE_REQUESTS and not engine.rejected,
+              f"{tag} served {len(done)} of {GRANITE_REQUESTS}")
+        vocab = pad_vocab(cfg)
+        for r in done:
+            check(len(r.out) == GRANITE_NEW and all(0 <= t < vocab for t in r.out),
+                  f"{tag} request {r.rid}: {len(r.out)} ids")
+        check(launches["paged_attention"] == cfg.n_layers * engine.steps and engine.steps > 0,
+              f"{tag} paged_attention launches {launches['paged_attention']} != "
+              f"{cfg.n_layers} x {engine.steps} steps")
+        if jit:
+            check(step_check is not None and engine.graphs.captures > 0,
+                  f"{tag} never decoded a full batch through a graph")
+        key = "graph" if jit else "eager"
+        res[key] = {"ids": {r.rid: list(r.out) for r in done}, "steps": engine.steps,
+                    "mean_decode_step_ms": statistics.mean(step_ms),
+                    "decode_steps_timed": len(step_ms), "paged_launches": launches["paged_attention"]}
+        log(f"{tag} {GRANITE_REQUESTS} requests x {GRANITE_NEW} ids in {engine.steps} steps: mean "
+            f"decode step {res[key]['mean_decode_step_ms']:.2f} ms over {len(step_ms)} steps (host "
+            f"clock incl. sync; steps that prefill or capture left out); {launches['paged_attention']} "
+            f"paged_attention launches, each at a group of {cfg.n_heads // cfg.n_kv_heads} x "
+            f"{cfg.hd}" + (f"; {engine.graphs.captures} captures" if jit else ""))
+        del engine
+        torch.cuda.empty_cache()
+    check(res["graph"]["ids"] == res["eager"]["ids"], "granite: graphed ids differ from eager")
+    log(f"[granite] ids equal eager and graphed; decode step eager "
+        f"{res['eager']['mean_decode_step_ms']:.2f} ms, graphed {res['graph']['mean_decode_step_ms']:.2f} ms")
+    return res
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 def phase_small_vs_cpu() -> None:
@@ -903,6 +1020,55 @@ def phase_small_vs_cpu() -> None:
     check(len(outs["cuda"]) == 6 and outs["cuda"] == outs["cpu"],
           f"card and CPU ids differ: {outs}")
     log(f"[small] smoke config, 6 requests x 8 ids: card ids == CPU ids")
+
+
+def phase_smoke_flash_vs_cpu() -> dict:
+    """stablelm_1_6b and granite_34b at ``.smoke()`` (f32, head width 32;
+    granite's heads MQA 4/1) through the flash kernel (``attn_impl="pallas"``):
+    the eval loss (``build_eval_step``) and ``prefill_logits`` at 2 x 96
+    tokens on the card against the same calls on the CPU (the kernel's plain
+    version), from the same weights, within ``SMOKE_LOGITS_TOL`` of their
+    scale, the launch counts zeroed just before each call: one flash launch
+    a layer on the card, each on the ``tf32x3`` path, none on the CPU.  The
+    same calls through ``attn_impl="chunked"`` (no kernel) on both are
+    reported beside them: the card's own float32 rounding, the control."""
+    res = {}
+    for arch in ("stablelm_1_6b", "granite_34b"):
+        cfg = get_config(arch).smoke()
+        check(cfg.dtype == "float32" and cfg.hd % 8 == 0, f"{arch} smoke: {cfg.dtype}, hd {cfg.hd}")
+        tree = params_to_numpy(LM(cfg).init(torch.Generator().manual_seed(7), device="cpu"))
+        batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=96, batch_per_shard=2),
+                            0, 0)
+        out = {}
+        for impl in ("pallas", "chunked"):
+            model = LM(cfg, attn_impl=impl)
+            for dev in ("cuda", "cpu"):
+                params = params_from_numpy(model, tree, device=dev)
+                full = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+                prompts = {k: full[k] for k in ("tokens", "positions")}
+                for what, fn, arg in (("eval loss", build_eval_step(model), full),
+                                      ("prefill logits", model.prefill_logits, prompts)):
+                    kernels.reset_launches()
+                    with torch.no_grad():
+                        y = fn(params, arg)
+                    n = kernels.launches["flash_attention"]
+                    on_path = kernels.launches["flash_attention:tf32x3"]
+                    want = cfg.n_layers if (dev, impl) == ("cuda", "pallas") else 0
+                    check(n == want and on_path == want, f"{arch} smoke {what} ({impl}) on {dev}: "
+                          f"{n} flash launches ({on_path} tf32x3), not {want}")
+                    out[impl, dev, what] = y.float().cpu()
+        for what in ("eval loss", "prefill logits"):
+            a, b = out["pallas", "cuda", what], out["pallas", "cpu", what]
+            check(a.shape == b.shape and bool(torch.isfinite(a).all()), f"{arch} smoke {what}")
+            err, scale = (a - b).abs().max().item(), b.abs().max().item()
+            ctrl = (out["chunked", "cuda", what] - out["chunked", "cpu", what]).abs().max().item()
+            res[f"{arch} {what}"] = err
+            log(f"[smoke-flash] {arch} smoke (MQA {cfg.n_heads}/{cfg.n_kv_heads}, head width "
+                f"{cfg.hd}, f32) {what}, flash kernel (tf32x3) on the card vs the CPU: max abs diff "
+                f"{err:.3e} of scale {scale:.3f} (tol {SMOKE_LOGITS_TOL:g} of max(1, scale)); "
+                f"chunked on the card vs the CPU {ctrl:.3e}; {cfg.n_layers} launches a forward")
+            check(err < SMOKE_LOGITS_TOL * max(1.0, scale), f"{arch} smoke {what}: over tolerance")
+    return res
 
 
 # -- phase 5b: the training path at full width -------------------------------
@@ -974,13 +1140,14 @@ def _first_layers(cfg, params, n):
     return dataclasses.replace(cfg, n_layers=n), dict(params, layers=layers)
 
 
-def phase_flash_forward(arch: str, params) -> dict:
+def phase_flash_forward(arch: str, params, dtype: str = "bfloat16") -> dict:
     """The full-width weights of ``arch`` evaluated (``build_eval_step``)
     and prefilled (``prefill_logits``) at 4 x 2048 tokens through the flash
     kernel (``attn_impl="pallas"``), each forward with the launch counts
     zeroed just before it and read just after (one launch a layer, each on
-    the ``wgmma`` path); held against ``attn_impl="chunked"`` on the same
-    weights.
+    the path of ``dtype``: ``wgmma`` in bf16, ``tf32x3`` in f32, where the
+    config's dtype is set to float32 and ``params`` are f32); held against
+    ``attn_impl="chunked"`` on the same weights.
 
     Under the reference's init rule the full-width models are chaotic in
     depth: two plain attention paths that differ only in float rounding give
@@ -990,9 +1157,12 @@ def phase_flash_forward(arch: str, params) -> dict:
     the same weights, where rounding is not yet amplified, to ``LOGITS_TOL``
     of their scale; and the logits after 4 layers and at full depth are
     reported beside the spread of the two plain paths (naive against
-    chunked)."""
-    cfg = get_config(arch)
-    tag = f"[flash-path {arch}]"
+    chunked).  In f32 the first layer's logits are held to
+    ``LOGITS_TOL_F32`` of their scale."""
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    path = "wgmma" if dtype == "bfloat16" else "tf32x3"
+    logits_tol = LOGITS_TOL if dtype == "bfloat16" else LOGITS_TOL_F32
+    tag = f"[flash-path {arch}" + ("" if dtype == "bfloat16" else f" {dtype}") + "]"
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=FLASH_MAIN["Sq"],
                       batch_per_shard=FLASH_MAIN["B"])
     batch = {k: torch.from_numpy(v).cuda() for k, v in synth_batch(data, 0, 0).items()}
@@ -1003,9 +1173,9 @@ def phase_flash_forward(arch: str, params) -> dict:
 
     def launched(what, impl, n, layers):
         want = layers if impl == "pallas" else 0
-        wgmma = kernels.launches["flash_attention:wgmma"]
-        check(n == want and wgmma == want,
-              f"{what} ({impl}): {n} flash_attention launches ({wgmma} wgmma), not {want}")
+        on_path = kernels.launches[f"flash_attention:{path}"]
+        check(n == want and on_path == want,
+              f"{what} ({impl}): {n} flash_attention launches ({on_path} {path}), not {want}")
 
     for impl in ("pallas", "chunked"):
         y, res[f"eval_{impl}_ms"], n = _forward(LM(cfg, attn_impl=impl), "eval", params, batch)
@@ -1033,17 +1203,17 @@ def phase_flash_forward(arch: str, params) -> dict:
     el, pf = res["eval_loss"], res["prefill"]
     log(f"{tag} eval loss at 4 x 2048 ({cfg.n_layers} layers): flash {el['pallas']:.5f}, "
         f"chunked {el['chunked']:.5f} (rel diff {el['rel_diff']:.2e}, tol {EVAL_LOSS_RTOL:g}); "
-        f"{cfg.n_layers} flash launches per forward, all on the wgmma path")
+        f"{cfg.n_layers} flash launches per forward, all on the {path} path")
     for depth, r in pf.items():
         log(f"{tag} prefill logits after {depth} layer(s): flash vs chunked max abs diff "
             f"{r['flash_vs_chunked']:.4f}, naive vs chunked {r['naive_vs_chunked']:.4f}, of scale "
             f"{r['scale']:.3f}; argmax equal {r['argmax_equal']}/{FLASH_MAIN['B']}"
-            + (f" (tol {LOGITS_TOL:g} of scale)" if depth == 1 else ""))
+            + (f" (tol {logits_tol:g} of scale)" if depth == 1 else ""))
     log(f"{tag} forward ms (host clock incl. sync): eval flash {res['eval_pallas_ms']:.1f}, "
         f"chunked {res['eval_chunked_ms']:.1f}; prefill flash {res['prefill_pallas_ms']:.1f}, "
         f"chunked {res['prefill_chunked_ms']:.1f}, naive {res['prefill_naive_ms']:.1f}")
     check(el["rel_diff"] < EVAL_LOSS_RTOL, f"{arch} eval loss: flash vs chunked over tolerance")
-    check(pf[1]["flash_vs_chunked"] < LOGITS_TOL * pf[1]["scale"],
+    check(pf[1]["flash_vs_chunked"] < logits_tol * pf[1]["scale"],
           f"{arch} 1-layer prefill logits: flash vs chunked over tolerance")
     res["launches_total"] = res["launches"]["eval_pallas"] + res["launches"]["prefill_pallas"]
     return res
@@ -1480,6 +1650,7 @@ def phase_times() -> dict:
     times.update(bulk_op_times())
     times.update(flash_times())
     times.update(paged_fp8_times())
+    times.update(paged_mqa_times())
     times.update(decay_times())
     # after every timing: the profiler slows the host's launches once it has run
     per_call = device_launches(lambda: pa_ops._launch(qg, kp, vp, tbl, lens_t, scale))
@@ -1490,6 +1661,7 @@ def phase_times() -> dict:
         log(f"[times] {name} ({t['shape']}): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"library {t['library_ms']}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
             f"kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of bound")
+        check(t["ms"] >= t["bound_ms"], f"{name}: {t['ms']} ms is under its bound {t['bound_ms']} ms")
     return times
 
 
@@ -1503,20 +1675,34 @@ def flash_flops(B, Hq, Sq, Sk, D, causal) -> float:
     return 4.0 * B * Hq * D * pairs
 
 
+def flash_op_ms(flops: float, dtype) -> float:
+    """The least time of the visible pairs' operations on the card.  bf16 at
+    the bf16 tensor cores' rate.  f32 has to hold the reference's 2e-5, which
+    one TF32 product misses: the least time of any design that holds it,
+    the smaller of the operations in float32 on CUDA cores (67 TFLOP/s) and
+    three TF32 products each (3xTF32, scripts/flash_precision.py) at the TF32
+    tensor cores' 495 TFLOP/s."""
+    if dtype == torch.bfloat16:
+        return flops / BF16_TC_FLOPS * 1e3
+    return min(flops / F32_FLOPS, 3 * flops / TF32_TC_FLOPS) * 1e3
+
+
 def flash_times() -> dict:
-    """The flash kernel at its main shape (4 x 32 heads x 2048 x 64, causal),
-    bf16 (the main path's type: tensor cores) and f32 (CUDA cores), and at
-    mistral_nemo_12b's (q 4 x 32 heads x 2048 x 128 against k, v of 8 heads,
-    causal, bf16: ``"flash_attention:d128"``).  The bound counts q, k, v
-    read once and the output written once, each by its own size, and the
-    visible pairs' operations at the type's peak rate.  The library call is
+    """The flash kernel at its main shape (4 x 32 heads x 2048 x 64, causal)
+    in bf16 (the main path's type) and f32 (``"flash_attention:f32"``), and
+    at mistral_nemo_12b's (q 4 x 32 heads x 2048 x 128 against k, v of 8
+    heads, causal) in bf16 (``"flash_attention:d128"``) and f32
+    (``"flash_attention:f32_d128"``).  The bound counts q, k, v read once and
+    the output written once, each by its own size, and the visible pairs'
+    operations (``flash_op_ms``).  The library call is
     ``scaled_dot_product_attention(is_causal=True)`` (``enable_gqa`` where
     Hkv < Hq), a yardstick the port never calls."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     times = {}
-    for m, dtype, peak, key in ((FLASH_MAIN, torch.bfloat16, BF16_TC_FLOPS, "flash_attention"),
-                                (FLASH_MAIN, torch.float32, F32_FLOPS, "flash_attention:f32"),
-                                (FLASH_D128, torch.bfloat16, BF16_TC_FLOPS, "flash_attention:d128")):
+    for m, dtype, key in ((FLASH_MAIN, torch.bfloat16, "flash_attention"),
+                          (FLASH_MAIN, torch.float32, "flash_attention:f32"),
+                          (FLASH_D128, torch.bfloat16, "flash_attention:d128"),
+                          (FLASH_D128, torch.float32, "flash_attention:f32_d128")):
         q, k, v = flash_inputs(gen, m["B"], m["Hq"], m["Hkv"], m["Sq"], m["Sk"], m["D"], dtype)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         gqa = {"enable_gqa": True} if m["Hkv"] < m["Hq"] else {}
@@ -1526,14 +1712,40 @@ def flash_times() -> dict:
             "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True), 5),
             "library_ms": time_ms(lambda: sdpa(q, k, v, is_causal=True, **gqa), 20),
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "ops_ms": flash_flops(m["B"], m["Hq"], m["Sq"], m["Sk"], m["D"], True) / peak * 1e3,
+            "ops_ms": flash_op_ms(flash_flops(m["B"], m["Hq"], m["Sq"], m["Sk"], m["D"], True), dtype),
             "shape": f"q ({m['B']}, {m['Hq']}, {m['Sq']}, {m['D']}), k/v ({m['B']}, {m['Hkv']}, "
                      f"{m['Sk']}, {m['D']}) causal {str(dtype).split('.')[-1]}, "
                      f"{fl_ops.last_path} path",
         }
+        check(fl_ops.last_path == flash_path(m["D"], dtype), f"{key}: took the {fl_ops.last_path} path")
         del q, k, v
     torch.cuda.empty_cache()
     return times
+
+
+def paged_mqa_times() -> dict:
+    """Paged attention at granite_34b's decode shape: 8 sequences of the
+    main path's lengths, 48 query heads on one KV head of 128, bf16 pages.
+    The bound counts what the main shape's counts: each sequence's K and V
+    rows once, its table entries, the lengths, q and out."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lens = main_lens()
+    Hq, D = 48, 128
+    q, kp, vp, tbl, lens_t = paged_case(gen, MAX_SEQS, Hq, 1, D, lens, torch.bfloat16)
+    qg = q.reshape(MAX_SEQS, 1, Hq, D)
+    scale = D ** -0.5
+    item = q.element_size()
+    pages_read = sum(-(-n // BLOCK) for n in lens)
+    nbytes = (2 * sum(lens) * D * item + 2 * q.numel() * item + pages_read * 4
+              + lens_t.numel() * 4)
+    return {"paged_attention:mqa48": {
+        "ms": time_ms(lambda: pa_ops._launch(qg, kp, vp, tbl, lens_t, scale), 50),
+        "plain_ms": time_ms(lambda: paged_attention_ref(qg, kp, vp, tbl, lens_t, scale=scale), 10),
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "ops_ms": 4 * Hq * D * sum(lens) / F32_FLOPS * 1e3,
+        "library_ms": None,
+        "shape": f"B={MAX_SEQS} Hq={Hq} Hkv=1 D={D} bs={BLOCK} lens={lens} bf16 (granite_34b decode)",
+    }}
 
 
 def paged_fp8_times() -> dict:
@@ -1695,11 +1907,18 @@ def main() -> None:
                 "capture_ms"):
         log(f"[serve] {key}: eager {serve_eager[key]}, graphed {serve[key]}, "
             f"graphed+maint {serve_maint[key]}")
+    granite = phase_granite_serve()
     phase_small_vs_cpu()
+    phase_smoke_flash_vs_cpu()
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         train = phase_train(ckpt_root)
-        flash = phase_flash_forward("stablelm_1_6b", train.pop("params"))
+        params = train.pop("params")
+        flash = phase_flash_forward("stablelm_1_6b", params)
+        # the same trained weights in f32: the flash kernel's tf32x3 path
+        params = tree_map(lambda t: t.float(), params)
+        flash32 = phase_flash_forward("stablelm_1_6b", params, dtype="float32")
+        del params
         torch.cuda.empty_cache()
         phase_small_train_vs_cpu(ckpt_root)
     finally:
@@ -1709,10 +1928,12 @@ def main() -> None:
                                                                      ("zamba2_7b", 4))}
     phase_state_small_vs_cpu()
     times = phase_times()
-    launches = {"paged_attention": serve_maint["launches"]["paged_attention"],
+    launches = {"paged_attention": (serve_maint["launches"]["paged_attention"]
+                                    + granite["graph"]["paged_launches"]),
                 "block_copy": serve_maint["launches"]["block_copy"],
                 "bulk_op": bitmap["launches"]["bulk_op"],
-                "flash_attention": flash["launches_total"] + gqa["launches_total"],
+                "flash_attention": (flash["launches_total"] + gqa["launches_total"]
+                                    + flash32["launches_total"]),
                 "decay_attention": sum(r["launches"] for r in state.values())}
     errs["bulk_op"] = bitmap["max_abs_err"]
     times["bulk_op"] = times["bulk_op:and"]

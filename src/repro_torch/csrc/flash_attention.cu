@@ -38,7 +38,12 @@
 // GB in all, which takes about as long as the products at the rate the L2
 // gives: without its products the kernel still takes 0.21 ms.
 //
-// Three paths, chosen before the launch by type, D and alignment alone (a
+// In f32 (q/k/v (4, 32, 2048, 64) causal) the same pairs' operations take
+// 1.026 ms at the 67 TFLOP/s of float32 on CUDA cores; on TF32 tensor cores
+// three products a fragment (below) take 3 x 6.9e10 at 495 TFLOP/s, 0.417
+// ms, against 0.080 ms of bytes (268 MB): bound by operations either way.
+//
+// Four paths, chosen before the launch by type, D and alignment alone (a
 // path that fails raises; none falls back to another):
 //   * "wgmma": bf16 with D = 64 or 128, and q, k, v and out each with a
 //     16-byte aligned base and, for batch, head and seq of size > 1, a
@@ -86,11 +91,45 @@
 //     rows on mma.sync m16n8k16, K/V tiles of 64 keys through two cp.async
 //     stages (rows padded against bank conflicts), V read transposed by
 //     ldmatrix.trans, the same base-2 softmax.
-//   * "simt": f32, and bf16 shapes neither tensor-core path takes: the same
-//     grid, 256 threads on CUDA cores in f32, a 4 x 4 score micro-tile and a
+//   * "tf32x3": f32 with D a multiple of 8 up to 128, k, v and out each with
+//     a 16-byte aligned base and, for batch, head and seq of size > 1, a
+//     stride of a multiple of 4 elements (q is read a float at a time; the
+//     model's transposed views qualify).  The reference holds f32 to 2e-5,
+//     which one TF32 product misses by 10-70x; so every operand x is split
+//     as its fragment loads, hi = x rounded to TF32 and lo = x - hi (passed
+//     as it is: the tensor core reads its top 19 bits), and each product is
+//     three mma.sync m16n8k8 TF32 products, lo.hi + hi.lo + hi.hi.  The
+//     tensor core cuts each sum it makes to its own 24 bits, so where the
+//     products accumulate matters as much as the split: S keeps hi.hi and
+//     the two small products in two accumulators, added once a tile's
+//     k-steps are done, and each K/V tile's P V is summed from zero, 64
+//     columns at a time, and added to the rescaled O in one FMA.  At the
+//     main shape that is 1.6e-6 from float64 on the card, where plain f32
+//     is 1.1e-6 and one accumulator for all of it 5.9e-6
+//     (scripts/flash_precision.py models the adder).  The grid of the "mma"
+//     path: one block per (q tile of 64 rows, query head, batch), the q
+//     tiles longest-causal-first, four warps of 16 query rows.  The q tile,
+//     scaled by scale x log2(e), sits in shared memory beside two cp.async
+//     stages of 32-key K/V tiles (rows padded to D + 4 floats, so the reads
+//     below hit distinct banks); an ldmatrix of f32 rows (an 8 x 16-byte
+//     matrix is an 8 x 4 block of f32) gives the tf32 A fragments of q and
+//     the B fragments of K.  S stays in registers, and so does P: the tf32
+//     C fragment (keys 2t, 2t+1) is not the A fragment (keys t, t+4), so
+//     P V takes key 2t as k-index t and 2t + 1 as t + 4 and reads V's rows
+//     in that order, two columns a float2, which also gives each thread
+//     four neighbouring output columns to store at once.  The softmax is
+//     the "mma" path's (base 2, ex2.approx, masks only on edge tiles, quad
+//     shuffles), the row sums kept per thread until the end; tiles above
+//     the diagonal are skipped, by a block and by a warp.  At the main
+//     shape it takes 1.38 ms, about 150 TFLOP/s of TF32 products: half of
+//     what mma.sync TF32 reaches with nothing else to issue
+//     (scripts/mma_rate.py, 319 TFLOP/s at 16 warps an SM); the splits,
+//     loads and softmax issue beside every product (PERF.md §6).
+//   * "simt": f32 and bf16 shapes no tensor-core path takes (D not a
+//     multiple of 8 or over 128, unaligned rows): the same grid, 256
+//     threads on CUDA cores in f32, a 4 x 4 score micro-tile and a
 //     4 x ceil(D/16) output micro-tile per thread, the softmax in shared
-//     memory.  f32 inputs have to stay
-//     f32: the reference holds f32 to 2e-5, which TF32 cannot meet.
+//     memory.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -500,6 +539,299 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
       *reinterpret_cast<uint32_t*>(ob + row0 * p.o_s + c) = pack_bf16(o[dt][0] * inv0, o[dt][1] * inv0);
     if (row1 < p.Sq)
       *reinterpret_cast<uint32_t*>(ob + row1 * p.o_s + c) = pack_bf16(o[dt][2] * inv1, o[dt][3] * inv1);
+  }
+}
+
+// -- f32 on TF32 tensor cores, three products a fragment (mma.sync m16n8k8) --
+
+constexpr int kTfThreads = 128;  // four warps of 16 query rows
+
+// The instance for head widths up to DP (a multiple of 16; D itself is a
+// multiple of 8, the columns past it zeros).  The block's q tile (64 rows,
+// scaled) and two stages of 32-key K/V tiles sit in shared memory: 52 KB at
+// DP = 64, so four blocks an SM (16 warps), and 101 KB at DP = 128, two.
+// Holding q in registers instead (as hi, lo pairs) and 64-key tiles took
+// every register and spilled: 2.5 % slower at D = 64, 24 % at D = 128
+// (PERF_HISTORY.md holds the variants measured).
+template <int DP>
+struct TfShape {
+  static_assert(DP % 16 == 0 && DP <= 128, "the tf32x3 path takes D up to 128");
+  static constexpr int kKeys = 32;
+  // floats a shared row: DP + 4 puts the eight rows an ldmatrix reads and
+  // the V rows 2t, 2t + 1 that P V reads in distinct banks
+  static constexpr int kStr = DP + 4;
+  static constexpr int kMinBlocks = DP <= 64 ? 4 : 2;
+  static constexpr int kSmem = (kBQ + 2 * 2 * kKeys) * kStr * 4;  // q, then K, V x 2 stages
+};
+
+// x = hi + lo as the tensor core reads them: hi rounded to TF32 (to nearest,
+// ties away from zero: cvt.rna.tf32.f32's rounding, in two integer
+// operations, which ran faster than the conversion: PERF_HISTORY.md),
+// lo = x - hi exact in f32 and passed as it is (the tensor core reads its
+// top 19 bits); scripts/flash_precision.py holds the split to float64
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a . b for split operands: lo.hi and hi.lo into c_small, hi.hi into c_big
+// (lo.lo, under 2^-22 of the product, is dropped); the two may be one
+__device__ __forceinline__ void mma_3xtf32(float (&c_big)[4], float (&c_small)[4],
+                                           const uint32_t (&ahi)[4], const uint32_t (&alo)[4],
+                                           float b0, float b1) {
+  uint32_t h0, l0, h1, l1;
+  split_tf32(b0, h0, l0);
+  split_tf32(b1, h1, l1);
+  mma_tf32(c_small, alo, h0, h1);
+  mma_tf32(c_small, ahi, l0, l1);
+  mma_tf32(c_big, ahi, h0, h1);
+}
+
+__device__ __forceinline__ void split_frag(const float (&x)[4], uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// four 8 x 16-byte matrices: lanes 8m..8m+7 give the row addresses of matrix
+// m; lane (g, t) gets word t of row g of each
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kTfThreads, TfShape<DP>::kMinBlocks) flash_tf32x3_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, Params p) {
+  using Shape = TfShape<DP>;
+  constexpr int KB = Shape::kKeys, STR = Shape::kStr;
+  constexpr int NKS = DP / 8;    // 8-wide k-steps of Q.K^T over D
+  constexpr int NKT = KB / 8;    // 8-key score tiles of a K/V tile
+  constexpr int NDC = DP / 16;   // 16-wide column chunks of O (two n-tiles each)
+  constexpr int GDC = NDC < 4 ? NDC : 4;  // chunks of a P V column group (64 columns)
+  constexpr int CPR = DP / 4;    // 16-byte chunks of a shared row
+  extern __shared__ __align__(16) float tf_smem[];  // q [kBQ][STR], [2 stages][K, V][KB][STR]
+  float* const q_sm = tf_smem;
+  float* const kv_sm = tf_smem + kBQ * STR;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row group, thread in group
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+  const float* qb = q + b * p.q_b + h * p.q_h;
+  const float* kb = k + b * p.k_b + hk * p.k_h;
+  const float* vb = v + b * p.v_b + hk * p.v_h;
+  float* ob = out + b * p.o_b + h * p.o_h;
+  const int wrow = q0 + warp * 16;  // the warp's first query row
+  const int row0 = wrow + g, row1 = row0 + 8;
+  const int D = p.D;
+
+  // K/V tile of keys k0.. into stage st: cp.async 16-byte chunks, zeros past
+  // Sk and in the columns past D
+  auto stage = [&](int st, int k0) {
+    float* ks = kv_sm + st * 2 * KB * STR;
+    float* vs = ks + KB * STR;
+#pragma unroll
+    for (int i = tid; i < KB * CPR; i += kTfThreads) {
+      const int r = i / CPR, c = (i - r * CPR) * 4;
+      const bool ok = k0 + r < p.Sk && c < D;
+      const long long off = ok ? (long long)(k0 + r) * p.k_s + c : (long long)k0 * p.k_s;
+      const long long voff = ok ? (long long)(k0 + r) * p.v_s + c : (long long)k0 * p.v_s;
+      cp_async16(ks + r * STR + c, kb + off, ok);
+      cp_async16(vs + r * STR + c, vb + voff, ok);
+    }
+    cp_async_commit();
+  };
+
+  const int kend = key_end(p, q0);
+  if (kend > 0) stage(0, 0);
+
+  // the block's q tile, scaled by scale * log2(e) (the softmax runs in base
+  // 2), zeros past Sq and D; a float at a time, so q needs no alignment
+  const float scale2 = p.scale * 1.4426950408889634f;
+  for (int i = tid; i < kBQ * DP; i += kTfThreads) {
+    const int r = i / DP, c = i - r * DP;
+    q_sm[r * STR + c] = q0 + r < p.Sq && c < D ? qb[(long long)(q0 + r) * p.q_s + c] * scale2 : 0.f;
+  }
+
+  // O's n-tiles 2j and 2j + 1 hold columns 16j + 4t + {0, 2} and
+  // 16j + 4t + {1, 3} of rows g and g + 8 (P V reads V's columns 16j + 2g and
+  // 16j + 2g + 1 as one float2), so a thread stores four neighbours a row
+  float o[2 * NDC][4];
+#pragma unroll
+  for (int j = 0; j < 2 * NDC; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf;  // running max (base 2) of rows g, g + 8
+  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
+  const int lrow = lane & 7, lcol = (lane >> 3) * 4;  // ldmatrix row address of this lane
+
+  for (int k0 = 0, it = 0; k0 < kend; k0 += KB, ++it) {
+    // the next tile streams in while this one is used
+    if (k0 + KB < kend) {
+      stage((it + 1) & 1, k0 + KB);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* ks = kv_sm + (it & 1) * 2 * KB * STR;
+    const float* vs = ks + KB * STR;
+    // under the causal mask a warp whose rows all precede the tile skips it
+    if (!p.causal || k0 <= wrow + 15) {
+      // S = Q K^T: an ldmatrix of rows j*8.. and columns 8kp.. gives lane
+      // (g, t) K[j*8 + g][8kp + t (+4, +8, +12)]: the B fragments of k-steps
+      // kp and kp + 1.  hi.hi goes to s and the two small products to ss,
+      // added once the tile's k-steps are done: the tensor core cuts each
+      // sum it makes to its own 24 bits, so the small products summed into
+      // the large one lose more than they carry (scripts/flash_precision.py)
+      float s[NKT][4], ss[NKT][4];
+#pragma unroll
+      for (int j = 0; j < NKT; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        ss[j][0] = ss[j][1] = ss[j][2] = ss[j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kp = 0; kp < NKS; kp += 2) {
+        // the A fragments of k-steps kp and kp + 1 by ldmatrix (rows g and
+        // g + 8, columns t and t + 4), split
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          uint32_t qr[4];
+          ldmatrix_x4(qr, q_sm + (warp * 16 + ((lane >> 3) & 1) * 8 + lrow) * STR + (kp + e) * 8 +
+                              (lane >> 4) * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(qr[i]), ah[e][i], al[e][i]);
+        }
+#pragma unroll
+        for (int j = 0; j < NKT; ++j) {
+          uint32_t kr[4];
+          ldmatrix_x4(kr, ks + (j * 8 + lrow) * STR + kp * 8 + lcol);
+          mma_3xtf32(s[j], ss[j], ah[0], al[0], __uint_as_float(kr[0]), __uint_as_float(kr[1]));
+          mma_3xtf32(s[j], ss[j], ah[1], al[1], __uint_as_float(kr[2]), __uint_as_float(kr[3]));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NKT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][i] += ss[j][i];
+
+      // Softmax in base 2 (ex2.approx); only tiles that cross the causal
+      // diagonal or the end of the keys need the mask
+      const bool masked = k0 + KB > p.Sk || (p.causal && k0 + KB - 1 > wrow);
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int j = 0; j < NKT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (masked) {
+            const int kpos = k0 + j * 8 + t * 2 + e;
+            if (!visible(row0, kpos, p.Sk, p.causal)) s[j][e] = kNegInf;
+            if (!visible(row1, kpos, p.Sk, p.causal)) s[j][2 + e] = kNegInf;
+          }
+          mx0 = fmaxf(mx0, s[j][e]);
+          mx1 = fmaxf(mx1, s[j][2 + e]);
+        }
+#pragma unroll
+      for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float alpha0 = exp2_approx(m0 - mn0), alpha1 = exp2_approx(m1 - mn1);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NKT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[j][e] = exp2_approx(s[j][e] - mn0);
+          s[j][2 + e] = exp2_approx(s[j][2 + e] - mn1);
+          if (masked) {  // a row with nothing visible yet has mn = kNegInf: keep its weights 0
+            const int kpos = k0 + j * 8 + t * 2 + e;
+            if (!visible(row0, kpos, p.Sk, p.causal)) s[j][e] = 0.f;
+            if (!visible(row1, kpos, p.Sk, p.causal)) s[j][2 + e] = 0.f;
+          }
+          sum0 += s[j][e];
+          sum1 += s[j][2 + e];
+        }
+      l0 = alpha0 * l0 + sum0;
+      l1 = alpha1 * l1 + sum1;
+      m0 = mn0;
+      m1 = mn1;
+
+      // O = O * alpha + P V.  S's C fragment holds keys 2t and 2t + 1 of
+      // each 8; taken as P's A fragment it puts key 2t at k-index t and key
+      // 2t + 1 at t + 4, so V's B fragment reads rows 2t and 2t + 1 (the
+      // order of the keys in a sum does not matter): P never leaves the
+      // registers.  The tile's P V is summed from zero, a group of up to 64
+      // columns at a time, and added to the rescaled O in one FMA: summed
+      // straight into O, each product would be cut to O's magnitude, over
+      // every key of the row
+#pragma unroll
+      for (int jc0 = 0; jc0 < NDC; jc0 += GDC) {
+        float pv[2 * GDC][4];
+#pragma unroll
+        for (int j = 0; j < 2 * GDC; ++j) pv[j][0] = pv[j][1] = pv[j][2] = pv[j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < NKT; ++kk) {
+          const float pf[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+          uint32_t ph[4], pl[4];
+          split_frag(pf, ph, pl);
+          const float* v0 = vs + (kk * 8 + 2 * t) * STR + 2 * g;
+#pragma unroll
+          for (int jj = 0; jj < GDC; ++jj) {
+            const int jc = jc0 + jj;
+            if (jc < NDC) {
+              const float2 x0 = *reinterpret_cast<const float2*>(v0 + jc * 16);
+              const float2 x1 = *reinterpret_cast<const float2*>(v0 + STR + jc * 16);
+              mma_3xtf32(pv[2 * jj], pv[2 * jj], ph, pl, x0.x, x1.x);
+              mma_3xtf32(pv[2 * jj + 1], pv[2 * jj + 1], ph, pl, x0.y, x1.y);
+            }
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < 2 * GDC; ++jj) {
+          const int j = 2 * jc0 + jj;
+          if (j < 2 * NDC) {
+            o[j][0] = fmaf(o[j][0], alpha0, pv[jj][0]);
+            o[j][1] = fmaf(o[j][1], alpha0, pv[jj][1]);
+            o[j][2] = fmaf(o[j][2], alpha1, pv[jj][2]);
+            o[j][3] = fmaf(o[j][3], alpha1, pv[jj][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+
+#pragma unroll
+  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+  }
+  const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+#pragma unroll
+  for (int jc = 0; jc < NDC; ++jc) {
+    const int c = jc * 16 + t * 4;
+    if (c >= D) continue;
+    const float* a = o[2 * jc];
+    const float* e = o[2 * jc + 1];
+    if (row0 < p.Sq)
+      *reinterpret_cast<float4*>(ob + (long long)row0 * p.o_s + c) =
+          make_float4(a[0] * inv0, e[0] * inv0, a[1] * inv0, e[1] * inv0);
+    if (row1 < p.Sq)
+      *reinterpret_cast<float4*>(ob + (long long)row1 * p.o_s + c) =
+          make_float4(a[2] * inv1, e[2] * inv1, a[3] * inv1, e[3] * inv1);
   }
 }
 
@@ -1131,6 +1463,19 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat
   return (int)cudaGetLastError();
 }
 
+template <int DP>
+int launch_tf32x3(const float* q, const float* k, const float* v, float* out, const Params& p,
+                  cudaStream_t st, dim3 grid) {
+  constexpr int smem = TfShape<DP>::kSmem;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_tf32x3_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  flash_tf32x3_kernel<DP><<<grid, kTfThreads, smem, st>>>(q, k, v, out, p);
+  return (int)cudaGetLastError();
+}
+
 // cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime so
 // that the library needs no link against libcuda
 PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
@@ -1213,9 +1558,18 @@ bool tma_ok(const void* ptr, int B, int H, int S, long long sb, long long sh, lo
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && ok(B, sb) && ok(H, sh) && ok(S, ss);
 }
 
+// The tf32x3 path copies K and V rows in 16-byte chunks and stores the output
+// in 16-byte pieces: a 16-byte aligned base and, for each of batch, head and
+// seq of size > 1, a stride of a multiple of 4 elements.  (q it reads a float
+// at a time.)
+bool rows16_ok(const void* ptr, int B, int H, int S, long long sb, long long sh, long long ss) {
+  auto ok = [](int n, long long s) { return n == 1 || s % 4 == 0; };
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && ok(B, sb) && ok(H, sh) && ok(S, ss);
+}
+
 // dims: B, Hq, Hkv, Sq, Sk, D; strides: q, k, v, out each (batch, head, seq).
-// Returns 2 when the wgmma path ran, 1 for the mma.sync path, 0 for the
-// CUDA-core path, or minus a cudaError_t.
+// Returns 3 when the tf32x3 path ran, 2 for the wgmma path, 1 for the
+// mma.sync path, 0 for the CUDA-core path, or minus a cudaError_t.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, const long long* dims,
            const long long* strides, float scale, int causal, void* stream) {
@@ -1262,6 +1616,24 @@ int launch(const void* q, const void* k, const void* v, void* out, const long lo
         case 6: status = launch_mma<96>(qt, kt, vt, ot, p, st, grid); break;
         case 7: status = launch_mma<112>(qt, kt, vt, ot, p, st, grid); break;
         default: status = launch_mma<128>(qt, kt, vt, ot, p, st, grid); break;
+      }
+    }
+  }
+  if constexpr (sizeof(T) == 4) {
+    const bool rows16 = rows16_ok(k, p.B, p.Hkv, p.Sk, p.k_b, p.k_h, p.k_s) &&
+                        rows16_ok(v, p.B, p.Hkv, p.Sk, p.v_b, p.v_h, p.v_s) &&
+                        rows16_ok(out, p.B, p.Hq, p.Sq, p.o_b, p.o_h, p.o_s);
+    if (rows16 && p.D % 8 == 0 && p.D <= 128) {
+      path = 3;
+      switch ((p.D + 15) / 16) {
+        case 1: status = launch_tf32x3<16>(qt, kt, vt, ot, p, st, grid); break;
+        case 2: status = launch_tf32x3<32>(qt, kt, vt, ot, p, st, grid); break;
+        case 3: status = launch_tf32x3<48>(qt, kt, vt, ot, p, st, grid); break;
+        case 4: status = launch_tf32x3<64>(qt, kt, vt, ot, p, st, grid); break;
+        case 5: status = launch_tf32x3<80>(qt, kt, vt, ot, p, st, grid); break;
+        case 6: status = launch_tf32x3<96>(qt, kt, vt, ot, p, st, grid); break;
+        case 7: status = launch_tf32x3<112>(qt, kt, vt, ot, p, st, grid); break;
+        default: status = launch_tf32x3<128>(qt, kt, vt, ot, p, st, grid); break;
       }
     }
   }

@@ -21,7 +21,10 @@
 //
 //  * Split.  The grid is (B x Hkv x head chunks, n_splits): each block takes
 //    one split of kSplitTokens tokens (whole pages) of one (b, h) and up to
-//    GH query heads.  n_splits = ceil(max_blocks / pages_per_split) comes
+//    GH query heads, so a group of any size is taken in chunks of GH heads
+//    (granite_34b's MQA group of 48 heads of 128: 12 blocks a split in bf16,
+//    6 in f32, 24 over fp8 pages); nothing in the kernel holds a whole
+//    group at once.  n_splits = ceil(max_blocks / pages_per_split) comes
 //    from shapes alone, never from seq_lens, so a call can be captured in a
 //    CUDA graph; a split at or past its sequence's length exits at once
 //    (the combine reads only the splits below the length, so it writes
@@ -72,7 +75,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroupD = 2048;   // group * D a call may take (as before the redesign)
 constexpr int kSplitTokens = 64;   // tokens a block takes (rounded to whole pages)
 constexpr int kLaneFloats = 32;    // q (and acc) floats a lane holds for its head chunk
 constexpr float kNegInf = -1e30f;  // finite "empty" max: exp2 of a difference never NaNs
@@ -431,7 +433,8 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
 }
 
 // Merges each row's live splits (two or more) into the output and its LSE.
-// One block per (b, h), threads over (g, d).
+// The grid is (b, h) x slices of kThreads (g, d) elements, so a wide group
+// (granite_34b's 48 heads of 128) is spread over many blocks.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
     const float* __restrict__ ws_ml, const float* __restrict__ ws_acc,
@@ -445,7 +448,7 @@ __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
   // stream sees its direct writes too.
   asm volatile("griddepcontrol.wait;" ::: "memory");
   if (n_live < 2) return;
-  for (int i = threadIdx.x; i < group * D; i += kThreads) {
+  for (int i = blockIdx.y * kThreads + threadIdx.x; i < group * D; i += kThreads * gridDim.y) {
     const int g = i / D, d = i - g * D;
     const long long row = (long long)bh * group + g;
     const float* ml = ws_ml + 2 * row * n_splits;
@@ -574,8 +577,8 @@ int launch(const void* q, const void* k, const void* v, const void* tbl, const v
            int num_blocks, float scale, void* stream_ptr) {
   constexpr int kEpc = 16 / sizeof(P);
   if (B <= 0 || Hkv <= 0) return 0;
-  if (group <= 0 || D <= 0 || bs <= 0 || max_blocks < 0 || group * D > kMaxGroupD ||
-      D % (16 / (int)sizeof(T)) != 0 || D % kEpc != 0)
+  if (group <= 0 || D <= 0 || bs <= 0 || max_blocks < 0 || D % (16 / (int)sizeof(T)) != 0 ||
+      D % kEpc != 0)
     return (int)cudaErrorInvalidValue;
   const int n_splits = split_count(bs, max_blocks);
   if (n_splits > 65535) return (int)cudaErrorInvalidValue;
@@ -623,7 +626,8 @@ int launch(const void* q, const void* k, const void* v, const void* tbl, const v
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * Hkv);
+  const int slices = (group * D + kThreads - 1) / kThreads;
+  cfg.gridDim = dim3(B * Hkv, slices < 65535 ? slices : 65535);
   cfg.blockDim = dim3(kThreads);
   cfg.stream = stream;
   cfg.attrs = attr;

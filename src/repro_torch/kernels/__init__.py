@@ -12,6 +12,7 @@ from __future__ import annotations
 
 launches = {"paged_attention": 0, "block_copy": 0, "bulk_op": 0, "flash_attention": 0,
             "flash_attention:simt": 0, "flash_attention:mma": 0, "flash_attention:wgmma": 0,
+            "flash_attention:tf32x3": 0,
             "decay_attention": 0, "decay_attention:simt": 0, "decay_attention:scalar_tc": 0,
             "decay_attention:vector_tc": 0}
 

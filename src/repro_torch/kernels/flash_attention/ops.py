@@ -9,7 +9,7 @@ cost no copy, and writes an output laid out like q.  Ragged Sq and Sk are
 masked in the kernel: the reference's zero-padding to its tiles is a TPU
 detail and is not carried over.
 
-The kernel picks one of three paths before it launches, by type, D and
+The kernel picks one of four paths before it launches, by type, D and
 alignment alone, and a path that fails raises (none falls back);
 ``kernels.launches["flash_attention:<path>"]`` counts the launches by path:
 
@@ -21,7 +21,14 @@ alignment alone, and a path that fails raises (none falls back);
 * ``"mma"``: other bfloat16 with D a multiple of 16 up to 128 (k and v rows
   on 16-byte, q and out rows on 4-byte boundaries): ``mma.sync``.  An
   unaligned view at D = 64 or 128 comes here, not a failed ``"wgmma"``.
-* ``"simt"``: float32 and every other shape, on CUDA cores.
+* ``"tf32x3"``: float32 with D a multiple of 8 up to 128, and k, v and out
+  each with a 16-byte aligned base and strides of a multiple of 4 elements
+  for batch, head and seq (q may sit anywhere): ``mma.sync`` on TF32 tensor
+  cores, each product taken as three (hi.hi + hi.lo + lo.hi of a TF32
+  split), which holds the reference's 2e-5 (``scripts/flash_precision.py``).
+* ``"simt"``: every other shape (float32 with D not a multiple of 8 or over
+  128, or unaligned rows; bfloat16 with D not a multiple of 16), on CUDA
+  cores.
 
 Forward only, like the reference (which has no ``custom_vjp``): a call that
 autograd would have to differentiate raises instead of returning an output
@@ -41,9 +48,9 @@ __all__ = ["flash_attention"]
 
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 
-#: the kernel path of the last launch: "wgmma", "mma" or "simt" (see above)
+#: the kernel path of the last launch: "wgmma", "mma", "tf32x3" or "simt" (see above)
 last_path = None
-_PATHS = ("simt", "mma", "wgmma")
+_PATHS = ("simt", "mma", "wgmma", "tf32x3")
 
 
 def flash_attention(

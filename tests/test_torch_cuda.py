@@ -140,7 +140,7 @@ def _split_inputs(seed, group, D, dtype, bs=16, maxb=12, Hkv=2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("group", [1, 4, 16])
+@pytest.mark.parametrize("group", [1, 4, 16, 48])    # 48: granite_34b's MQA group
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "fp8"], ids=str)
 def test_paged_attention_kernel_at_split_boundaries(cuda, dtype, group, D):
     q, kp, vp, tbl, lens = _split_inputs(7, group, D, dtype)
@@ -235,8 +235,30 @@ def test_paged_attention_kernel_replays_in_a_cuda_graph(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_replays_granite_34b_group_in_a_cuda_graph(cuda, dtype):
+    """The MQA 48/1 call captured in a CUDA graph and replayed after the
+    lengths and the table change in place."""
+    q, kp, vp, tbl, lens = _split_inputs(13, 48, 128, dtype, Hkv=1)
+    new_tbl, new_lens = tbl.flip(0).contiguous(), lens.flip(0).contiguous()
+    pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)    # build, warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, lse = pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    _check_paged(out, lse, q, kp, vp, tbl, lens, TOL[dtype])
+    tbl.copy_(new_tbl)
+    lens.copy_(new_lens)
+    graph.replay()
+    torch.cuda.synchronize()
+    _check_paged(out, lse, q, kp, vp, new_tbl, new_lens, TOL[dtype])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("group,D,dtype", [
-    (32, 128, torch.bfloat16),   # group * D over what one block holds
+    (1, 4096, torch.bfloat16),   # a row wider than the widest instance (2048 values)
     (1, 36, torch.bfloat16),     # a 72-byte head row: not whole 16-byte loads
 ])
 def test_paged_attention_kernel_rejects_shapes_over_its_limits(cuda, group, D, dtype):
@@ -328,13 +350,29 @@ FLASH_CASES = [
     (2, 4, 4, 1, 300, 128, True, torch.bfloat16),
     (2, 32, 8, 1024, 1024, 128, True, torch.bfloat16),  # GQA 32/8
     (1, 48, 1, 512, 512, 128, True, torch.bfloat16),    # MQA 48/1 (granite_34b)
+    # the tf32x3 path's edges (f32) at D = 64 and 128, then a D that is no
+    # multiple of 8 (CUDA cores)
+    *[(B, Hq, Hkv, Sq, Sk, D, causal, torch.float32) for D in (64, 128)
+      for B, Hq, Hkv, Sq, Sk, causal in (
+          (1, 1, 1, D, D, True),          # one tile
+          (2, 4, 2, 200, 333, True),      # ragged Sq and Sk
+          (2, 4, 2, 200, 333, False),
+          (1, 4, 4, 300, 130, True),      # Sq > Sk, causal, ragged
+          (2, 4, 4, 100, 1, True),        # Sk = 1
+          (2, 4, 4, 1, 300, False),       # Sq = 1
+          (2, 4, 4, 1, 300, True),
+          (1, 4, 4, 77, 0, True),         # no keys: zeros
+          (1, 48, 1, 256, 256, True),     # MQA 48/1 (granite_34b)
+          (2, 32, 8, 384, 384, True),     # GQA 32/8 (mistral_nemo_12b)
+      )],
+    (1, 4, 2, 70, 130, 36, True, torch.float32),     # D not a multiple of 8: CUDA cores
 ]
 
 
 def _expected_path(D, dtype):
     """The routing rule for contiguous (16-byte aligned) inputs."""
     if dtype != torch.bfloat16:
-        return "simt"
+        return "tf32x3" if D % 8 == 0 and D <= 128 else "simt"
     return "wgmma" if D in (64, 128) else "mma" if D % 16 == 0 else "simt"
 
 
@@ -391,6 +429,45 @@ def test_flash_attention_routes_unaligned_bf16_to_mma(cuda, which, D):
         q = torch.cat([q, q.new_zeros(1, 4, 96, 4)], -1)[..., :D]
     _flash_check(q, k, v, True)
     assert fl_ops.last_path == "mma"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("which", ["k_base", "v_row_stride"])
+def test_flash_attention_routes_unaligned_f32_to_simt(cuda, which, D):
+    """The tf32x3 path copies K and V rows in 16-byte chunks: k at a 4-byte
+    offset, or V rows of D + 2 floats, go to the CUDA cores."""
+    q, k, v = _flash_inputs(8, 1, 4, 2, 96, 160, D, torch.float32)
+    if which == "k_base":
+        k = torch.cat([k.new_zeros(1), k.flatten()])[1:].view(k.shape)
+    else:   # rows of D + 2 floats: only 8-byte aligned
+        v = torch.cat([v, v.new_zeros(1, 2, 160, 2)], -1)[..., :D]
+    _flash_check(q, k, v, True)
+    assert fl_ops.last_path == "simt"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("scale", [-0.3, 0.0, 2.5])
+def test_flash_attention_tf32x3_with_other_scales(cuda, scale, D):
+    """The tf32x3 path folds the scale into q before it splits it; negative,
+    zero and large scales are as right as the plain version.  Both are held
+    to a float64 oracle: at scale 2.5 the scores reach about 30, where
+    float32's own rounding of them moves the plain output about 3e-5 (4e-5
+    at D = 128) from float64, so the kernel is held to the larger of 2e-5
+    and the plain version's own distance."""
+    q, k, v = _flash_inputs(9, 2, 4, 2, 200, 333, D, torch.float32)
+    out = fl_ops.flash_attention(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert fl_ops.last_path == "tf32x3"
+    plain = attention_ref(q, k, v, causal=True, scale=scale)
+    kk, vv = (t.double().repeat_interleave(2, 1) for t in (k, v))
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.double(), kk) * scale
+    sc = sc.masked_fill(torch.arange(333, device="cuda") > torch.arange(200, device="cuda")[:, None],
+                        float("-inf"))
+    oracle = torch.softmax(sc, -1) @ vv
+    plain_err = (plain.double() - oracle).abs().max().item()
+    assert (out.double() - oracle).abs().max().item() < max(TOL[torch.float32], plain_err)
 
 
 @pytest.mark.cuda

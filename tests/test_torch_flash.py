@@ -190,3 +190,27 @@ def test_lm_pallas_at_head_width_128_matches_reference():
                                     {k: torch.from_numpy(v) for k, v in batch.items()})
     scale = max(1.0, float(np.abs(np.asarray(ref)).max()))
     assert _err(ours, ref) / scale < 2e-5
+
+
+def _flash_precision():
+    """scripts/flash_precision.py as a module (scripts/ is not a package)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "flash_precision.py"
+    spec = importlib.util.spec_from_file_location("flash_precision", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2, 160, 160, 64, True), (1, 4, 1, 96, 130, 128, False)])
+def test_tf32x3_split_holds_the_f32_tolerance(shape):
+    """The card's f32 flash path (tf32x3) emulated on the CPU, its split and
+    accumulation as the kernel takes them: three TF32 products a fragment
+    stay within the reference's 2e-5 of a float64 oracle, where one TF32
+    product does not (what rules it out)."""
+    prec = _flash_precision()
+    errs = prec.errors(shape, cands=("tf32", "3xtf32 split S, tile O"))
+    assert errs["3xtf32 split S, tile O"] < prec.TOL, errs
+    assert errs["tf32"] > prec.TOL, errs

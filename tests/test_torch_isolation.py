@@ -17,7 +17,8 @@ SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
            ROOT / "benchmarks" / "torch_serve_bench.py", ROOT / "scripts" / "decay_bench.py",
            ROOT / "scripts" / "decay_precision.py", ROOT / "examples" / "torch_serve_paged.py",
            ROOT / "src" / "repro_torch" / "launch" / "serve.py",
-           ROOT / "scripts" / "torch_decode_profile.py"]
+           ROOT / "scripts" / "torch_decode_profile.py", ROOT / "scripts" / "flash_precision.py",
+           ROOT / "scripts" / "mma_rate.py"]
 
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
