@@ -39,7 +39,9 @@ before each and read just after:
   family's tensor-core path (``scalar_tc`` for zamba2, ``vector_tc`` for
   rwkv6); the first layer held against the plain chunked math on both
   inputs, and the first layers' logits within the spread of the sequential
-  oracle.
+  oracle; then the same seeded weights cast to f32, ``prefill_logits`` at
+  4 x 2048 through the kernel's f32 tensor-core paths (``vector_tc_f32``,
+  ``scalar_tc_f32``) against the plain chunked math.
 
 It also runs the PUD host model (the quickstart's allocator table and the
 paper's Figure 2, modelled DRAM times), holds the card's generated ids,
@@ -122,6 +124,11 @@ SOURCES = {
                         "src/repro/kernels/flash_attention/kernel.py:87"),
     "decay_attention": ("src/repro_torch/csrc/decay_attention.cu",
                         "src/repro/kernels/decay_attention/kernel.py:79"),
+    # the same kernel's f32 paths, each a row of its own
+    "decay_attention:vector_tc_f32": ("src/repro_torch/csrc/decay_attention.cu",
+                                      "src/repro/kernels/decay_attention/kernel.py:79"),
+    "decay_attention:scalar_tc_f32": ("src/repro_torch/csrc/decay_attention.cu",
+                                      "src/repro/kernels/decay_attention/kernel.py:79"),
 }
 # the full-width serving shapes (stablelm_1_6b, bf16)
 N_LAYERS, HEADS, HEAD_DIM, BLOCK = 24, 32, 64, 16
@@ -167,8 +174,9 @@ DECAY_BF16_TOL = 2e-2
 # the state-serving path of the ssm and hybrid families: 8 prompts of 1024
 # tokens, 32 greedy steps; prefill_logits at 4 x 2048
 STATE_BATCH, STATE_PROMPT, STATE_NEW = 8, 1024, 32
-# the decay kernel's path on each family's main path (bf16)
+# the decay kernel's path on each family's main path (bf16), and in f32
 STATE_PATH = {"rwkv6_7b": "vector_tc", "zamba2_7b": "scalar_tc"}
+STATE_PATH_F32 = {arch: f"{path}_f32" for arch, path in STATE_PATH.items()}
 # the state paths whose one-token step runs as a CUDA graph (zamba2's split
 # attention cache takes host-int lengths: ROADMAP.md)
 GRAPHED_STATE = ("rwkv6_7b",)
@@ -489,7 +497,8 @@ def decay_check(name, q, k, v, lw, u=None, h0=None, oracle=False) -> float:
     """One launch against the plain chunked math on the same card inputs (and
     the sequential oracle where asked): the output within 2e-3 (f32) or 2e-2
     of the plain output's scale (bf16), the final state within 2e-3 of its
-    scale.  Returns the output's max abs error."""
+    scale; beside the oracle, the plain chunked math's own distance from it.
+    Returns the output's max abs error."""
     y, hT = dc_ops.decay_attention(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
     torch.cuda.synchronize()
     path = dc_ops.last_path
@@ -508,7 +517,9 @@ def decay_check(name, q, k, v, lw, u=None, h0=None, oracle=False) -> float:
     if oracle:
         oy, oh = decay_attention_ref(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
         oerr, oserr = (y - oy).abs().max().item(), (hT - oh).abs().max().item()
-        line += f"; vs the sequential oracle {oerr:.3e}, state {oserr:.3e}"
+        perr, pserr = (py - oy).abs().max().item(), (ph - oh).abs().max().item()
+        line += (f"; vs the sequential oracle {oerr:.3e}, state {oserr:.3e} (plain chunked "
+                 f"{perr:.3e}, {pserr:.3e})")
         check(oerr < DECAY_TOL and oserr < DECAY_TOL, f"decay {name}: oracle over tolerance")
     log(line)
     return err
@@ -519,8 +530,11 @@ def decay_cases() -> dict:
     the sequential oracle), a nonzero initial state with the final state
     compared, Mamba2's stride-0 q/k/log_w at zamba2's width in f32 and in
     bf16 (C and B sliced from one 7296-wide row, as ``mamba2.py`` slices
-    ``xBC``; an initial state), bf16 at the rwkv6 serve shape, and the
-    refusal under autograd.  Each case prints the path it took."""
+    ``xBC``; an initial state), the rwkv6 serve shape in f32 and bf16 (log_w
+    at the clip), a float32 view the 16-byte copies cannot read (``simt``),
+    and the refusal under autograd.  The f32 cases take ``vector_tc_f32`` or
+    ``scalar_tc_f32`` (the strided one ``simt``).  Each case prints the path
+    it took."""
     errs = {}
     for case in DECAY_CASES:
         errs[f"decay {case}"] = decay_check("-".join(map(str, case)), *decay_inputs(*case),
@@ -531,6 +545,12 @@ def decay_cases() -> dict:
         h0 = torch.randn(2, 3, 32, 24, generator=gen, device="cuda")
         errs[f"decay h0 bonus={bonus}"] = decay_check(f"h0 bonus={bonus}", q, k, v, lw, u, h0,
                                                       oracle=True)
+    # a float32 view whose d is not contiguous: the CUDA-core path
+    q, k, v, lw, u = decay_inputs(1, 100, 3, 32, 32, True, seed=2)
+    q2 = torch.empty(*q.shape[:3], 2 * q.shape[3], device="cuda")[..., ::2].copy_(q)
+    check(dc_ops.kernel_path(q2, k, v, lw) == "simt", "a strided f32 view must take simt")
+    errs["decay simt"] = decay_check("strided f32 q (1, 100, 3, 32/32), bonus", q2, k, v, lw, u,
+                                     oracle=True)
     # Mamba2 at zamba2's width: C, B (B, S, 64) broadcast over 112 heads, the
     # per-head decay broadcast over the state dim, a ragged S
     B, S, H, ns, hd = 2, 300, 112, 64, 64
@@ -542,20 +562,22 @@ def decay_cases() -> dict:
     check(q.stride(2) == 0 and k.stride(2) == 0 and lw.stride(3) == 0, "stride-0 views")
     errs["decay stride-0"] = decay_check("stride-0 q/k/log_w (2, 300, 112, 64/64) f32", q, k, v, lw)
     d_in = 7168
-    xBC = torch.randn(B, S, d_in + 2 * ns, generator=gen, device="cuda").bfloat16()
-    q = xBC[:, :, None, d_in + ns:].expand(B, S, H, ns)
-    k = xBC[:, :, None, d_in:d_in + ns].expand(B, S, H, ns)
-    v = v.bfloat16()
+    xBC = torch.randn(B, S, d_in + 2 * ns, generator=gen, device="cuda")
     h0 = torch.randn(B, H, ns, hd, generator=gen, device="cuda")
-    errs["decay stride-0 bf16"] = decay_check("stride-0 q/k/log_w (2, 300, 112, 64/64) bf16, h0",
-                                              q, k, v, lw, h0=h0)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = xBC.to(dtype)
+        q = x[:, :, None, d_in + ns:].expand(B, S, H, ns)
+        k = x[:, :, None, d_in:d_in + ns].expand(B, S, H, ns)
+        name = f"stride-0 q/k/log_w of a 7296-wide row (2, 300, 112, 64/64) {_dt(dtype)}, h0"
+        errs[f"decay stride-0 {_dt(dtype)}"] = decay_check(name, q, k, v.to(dtype), lw, h0=h0,
+                                                           oracle=dtype == torch.float32)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, lw, u = decay_inputs(STATE_BATCH, STATE_PROMPT, 64, 64, 64, True, seed=3)
         h0 = torch.randn(STATE_BATCH, 64, 64, 64, generator=gen, device="cuda")
         lw = lw * 4     # reach the clip at -1.8
-        name = f"rwkv6 serve shape (8, 1024, 64, 64/64) {str(dtype).split('.')[-1]}"
+        name = f"rwkv6 serve shape (8, 1024, 64, 64/64) {_dt(dtype)}"
         errs[f"decay main {dtype}"] = decay_check(name, q.to(dtype), k.to(dtype), v.to(dtype),
-                                                  lw, u, h0)
+                                                  lw, u, h0, oracle=dtype == torch.float32)
     q.requires_grad_(True)
     before = kernels.launches["decay_attention"]
     try:
@@ -567,9 +589,15 @@ def decay_cases() -> dict:
           "decay_attention must raise under autograd, before launching")
     log("[kernels] decay_attention raises under autograd (forward only, as the reference)")
     errs["decay_attention"] = errs[f"decay main {torch.bfloat16}"]
-    del q, k, v, lw, h0, xBC
+    errs["decay_attention:vector_tc_f32"] = errs[f"decay main {torch.float32}"]
+    errs["decay_attention:scalar_tc_f32"] = errs["decay stride-0 float32"]
+    del q, k, v, lw, h0, xBC, x
     torch.cuda.empty_cache()
     return errs
+
+
+def _dt(dtype) -> str:
+    return str(dtype).split(".")[-1]
 
 
 def bulk_inputs(gen, shape, dtype, n):
@@ -1440,6 +1468,71 @@ def phase_state_model(arch: str, seed: int) -> dict:
     return res
 
 
+def phase_state_f32(arch: str, seed: int) -> dict:
+    """The full-width model of ``arch`` with ``state_setup``'s seeded weights
+    cast to f32 (the config's dtype float32; the bf16 weights freed):
+    ``prefill_logits`` at 4 x 2048 through the decay kernel, the launch
+    counts zeroed just before and read just after (one launch a layer, each
+    on the family's f32 tensor-core path), and through the plain chunked
+    math on the same weights, both timed.  Then the first layer's block,
+    kernel against plain chunked (output and final state within 2e-3 of
+    their scale), and the logits of the first ``STATE_CHECK_DEPTH`` layers
+    through the kernel, the plain chunked math and the sequential oracle:
+    the kernel within the spread of the two plain forms, no further from one
+    of them than they are from each other.  (In bf16 the kernel is held to
+    the oracle's spread around plain chunked; in f32 the sequential oracle
+    is itself a float32 evaluation, as far from the truth as the others --
+    the furthest of the three at rwkv6_7b, the nearest to the kernel at
+    zamba2_7b -- so the kernel is held not to be the outlier.)"""
+    model, params, _, pbatch = state_setup(arch, seed)
+    params = tree_map(lambda t: t.float(), params)
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    model = LM(cfg)
+    tag, path, vocab = f"[state-f32 {arch}]", STATE_PATH_F32[arch], pad_vocab(cfg)
+    y, prefill_ms, _ = _forward(model, "prefill", params, pbatch)
+    n = kernels.launches["decay_attention"]
+    check(n == cfg.n_layers and kernels.launches[f"decay_attention:{path}"] == n,
+          f"{tag} prefill_logits: {n} decay launches, "
+          f"{kernels.launches[f'decay_attention:{path}']} on {path}, not {cfg.n_layers}")
+    check(tuple(y.shape) == (4, vocab) and y.dtype == torch.float32, f"{tag} prefill logits")
+    with scan_impl(chunked_decay_ref):
+        y_plain, plain_ms, _ = _forward(model, "prefill", params, pbatch)
+    check(kernels.launches["decay_attention"] == 0, f"{tag} plain forward launched the kernel")
+    full = {"kernel_vs_chunked": (y - y_plain).abs().max().item(),
+            "scale": y_plain.abs().max().item()}
+    del y, y_plain
+    layer = layer_check(model, params, pbatch["tokens"], with_state=True)
+    depth = STATE_CHECK_DEPTH[arch]
+    shallow = shallow_check(model, params, depth, None, pbatch, paths=("prefill",))["prefill"]
+    log(f"{tag} prefill_logits 4 x 2048 in f32: kernel {prefill_ms:.1f} ms ({n} decay launches, "
+        f"all {path}), plain chunked {plain_ms:.1f} ms; full depth kernel vs plain "
+        f"{full['kernel_vs_chunked']:.4f} of scale {full['scale']:.3f} (not held: chaotic in "
+        f"depth, ROADMAP.md fault 4)")
+    log(f"{tag} first layer on {layer['shape']}, kernel vs plain chunked: output "
+        f"{layer['out_err']:.3e} of scale {layer['out_scale']:.3f}, final state "
+        f"{layer['state_err']:.3e} of scale {layer['state_scale']:.3f} (tol {DECAY_TOL:g} of "
+        f"scale)")
+    log(f"{tag} prefill logits after the first {depth} layers: kernel vs plain chunked "
+        f"{shallow['kernel_vs_chunked']:.3e}, kernel vs oracle {shallow['kernel_vs_oracle']:.3e}, "
+        f"sequential oracle vs plain chunked {shallow['oracle_vs_chunked']:.3e} (tol: the kernel "
+        f"no further from one plain form than they are apart), scale {shallow['scale']:.3f}; "
+        f"argmax equal {shallow['argmax_equal']}")
+    check(layer["out_err"] < DECAY_TOL * max(1.0, layer["out_scale"]),
+          f"{tag} first layer: kernel vs plain output over tolerance")
+    check(layer["state_err"] < DECAY_TOL * max(1.0, layer["state_scale"]),
+          f"{tag} first layer: kernel vs plain state over tolerance")
+    check(shallow["oracle_vs_chunked"] < LOGITS_TOL * shallow["scale"],
+          f"{tag}: the plain paths disagree after {depth} layers")
+    check(min(shallow["kernel_vs_chunked"], shallow["kernel_vs_oracle"])
+          <= shallow["oracle_vs_chunked"],
+          f"{tag}: logits after {depth} layers outside the spread of the two plain forms")
+    del params
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_ms, "plain_ms": plain_ms, "launches": n, "layer": layer,
+            "shallow": shallow, "full": full}
+
+
 def greedy_steps(step, cache, logits):
     """``STATE_NEW`` greedy one-token steps of ``step(batch, cache)`` from
     the prompt's ``logits``; returns (ids, host ms per step, last logits)."""
@@ -1498,16 +1591,17 @@ def layer_check(model, params, tokens, with_state: bool) -> dict:
     return res
 
 
-def shallow_check(model, params, depth: int, prompts, pbatch) -> dict:
+def shallow_check(model, params, depth: int, prompts, pbatch,
+                  paths=("prompt", "prefill")) -> dict:
     """The first ``depth`` layers of the same weights, where the plain paths
     still agree (``STATE_CHECK_DEPTH``): the
     prompt logits through ``decode_step`` (with ``flush_cache``) and the
-    ``prefill_logits`` at 4 x 2048, each through the kernel, the plain
-    chunked math and the sequential oracle."""
+    ``prefill_logits`` at 4 x 2048 (or those of ``paths``), each through
+    the kernel, the plain chunked math and the sequential oracle."""
     cfg_d, params_d = _first_layers(model.cfg, params, depth)
     m = LM(cfg_d)
     res = {}
-    for path in ("prompt", "prefill"):
+    for path in paths:
         z = {}
         for name, fn in (("kernel", None), ("chunked", chunked_decay_ref),
                          ("oracle", decay_attention_ref)):
@@ -1536,8 +1630,9 @@ def phase_state_small_vs_cpu() -> dict:
     """Both families at ``.smoke()``: weights drawn once on the CPU (inert
     leaves set as above) and bridged to the card; 3 prompts of 40 tokens
     through ``decode_step`` (and ``flush_cache``), then 8 greedy steps, on the
-    card (through the kernel) and on the CPU (plain).  Ids must be equal,
-    logits within ``SMOKE_LOGITS_TOL`` of their scale."""
+    card (through the kernel: the smoke models are f32, so every launch on
+    the family's f32 tensor-core path) and on the CPU (plain).  Ids must be
+    equal, logits within ``SMOKE_LOGITS_TOL`` of their scale."""
     res = {}
     for arch in ("rwkv6_7b", "zamba2_7b"):
         cfg = get_config(arch).smoke()
@@ -1564,7 +1659,9 @@ def phase_state_small_vs_cpu() -> dict:
                         "positions": torch.full((3, 1), 40 + t, device=dev)}, cache)
                     zs.append(logits.float().cpu())
             n = kernels.launches["decay_attention"]
-            check(n == (cfg.n_layers if dev == "cuda" else 0), f"smoke {arch} {dev}: {n} launches")
+            on_path = kernels.launches[f"decay_attention:{STATE_PATH_F32[arch]}"]
+            check(n == (cfg.n_layers if dev == "cuda" else 0) and on_path == n,
+                  f"smoke {arch} {dev}: {n} launches, {on_path} on {STATE_PATH_F32[arch]}")
             out[dev] = (ids, torch.stack(zs))
         err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
         scale = out["cpu"][1].abs().max().item()
@@ -1675,13 +1772,15 @@ def flash_flops(B, Hq, Sq, Sk, D, causal) -> float:
     return 4.0 * B * Hq * D * pairs
 
 
-def flash_op_ms(flops: float, dtype) -> float:
-    """The least time of the visible pairs' operations on the card.  bf16 at
-    the bf16 tensor cores' rate.  f32 has to hold the reference's 2e-5, which
-    one TF32 product misses: the least time of any design that holds it,
-    the smaller of the operations in float32 on CUDA cores (67 TFLOP/s) and
-    three TF32 products each (3xTF32, scripts/flash_precision.py) at the TF32
-    tensor cores' 495 TFLOP/s."""
+def op_ms(flops: float, dtype) -> float:
+    """The least time of ``flops`` of products on the card.  bf16 at the bf16
+    tensor cores' rate.  f32 has to hold the plain f32 form's precision
+    (flash attention's 2e-5; the decay kernel's oracle check), which one
+    TF32 product misses, and so do three bf16 products for the decay
+    kernel: the least time of any design that holds it, the smaller of the
+    operations in float32 on CUDA cores (67 TFLOP/s) and three TF32 products
+    each (3xTF32: scripts/flash_precision.py, scripts/decay_precision.py
+    --dtype float32) at the TF32 tensor cores' 495 TFLOP/s."""
     if dtype == torch.bfloat16:
         return flops / BF16_TC_FLOPS * 1e3
     return min(flops / F32_FLOPS, 3 * flops / TF32_TC_FLOPS) * 1e3
@@ -1694,7 +1793,7 @@ def flash_times() -> dict:
     heads, causal) in bf16 (``"flash_attention:d128"``) and f32
     (``"flash_attention:f32_d128"``).  The bound counts q, k, v read once and
     the output written once, each by its own size, and the visible pairs'
-    operations (``flash_op_ms``).  The library call is
+    operations (``op_ms``).  The library call is
     ``scaled_dot_product_attention(is_causal=True)`` (``enable_gqa`` where
     Hkv < Hq), a yardstick the port never calls."""
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1712,7 +1811,7 @@ def flash_times() -> dict:
             "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True), 5),
             "library_ms": time_ms(lambda: sdpa(q, k, v, is_causal=True, **gqa), 20),
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "ops_ms": flash_op_ms(flash_flops(m["B"], m["Hq"], m["Sq"], m["Sk"], m["D"], True), dtype),
+            "ops_ms": op_ms(flash_flops(m["B"], m["Hq"], m["Sq"], m["Sk"], m["D"], True), dtype),
             "shape": f"q ({m['B']}, {m['Hq']}, {m['Sq']}, {m['D']}), k/v ({m['B']}, {m['Hkv']}, "
                      f"{m['Sk']}, {m['D']}) causal {str(dtype).split('.')[-1]}, "
                      f"{fl_ops.last_path} path",
@@ -1790,15 +1889,17 @@ def decay_flops(B, S, H, dk, dv, bonus: bool, shared_qk: bool = False) -> float:
 def decay_times() -> dict:
     """The decay kernel by path at the shapes the main path gives it: the
     rwkv6 serve shape (B 8, S 1024, H 64, 64/64, log_w f32, the bonus, h0
-    and hT) in bf16 (``vector_tc``) and in f32 (``simt``), and the zamba2
-    ``prefill_logits`` shape (B 4, S 2048, H 112, state 64, head 64; C and
-    B sliced from one 7296-wide row as ``mamba2.py`` slices ``xBC`` and
-    broadcast over heads, the decay over the state, no h0, hT written) in
-    bf16 (``scalar_tc``).  The bound counts each distinct input byte read
-    once (a stride-0 input once) and each output written once, and the
-    visible pairs' products (``decay_flops``) at the peak rate of the units
-    the path runs them on: bf16 tensor cores for the ``_tc`` paths, f32 on
-    CUDA cores otherwise.  No library call computes this function."""
+    and hT) in bf16 (``vector_tc``, key ``decay_attention``) and in f32
+    (``vector_tc_f32``), and the zamba2 ``prefill_logits`` shape (B 4, S
+    2048, H 112, state 64, head 64; C and B sliced from one 7296-wide row as
+    ``mamba2.py`` slices ``xBC`` and broadcast over heads, the decay over the
+    state, no h0, hT written) in bf16 (``scalar_tc``, key
+    ``decay_attention:zamba2``) and in f32 (``scalar_tc_f32``).  The bound
+    counts each distinct input byte read once (a stride-0 input once) and
+    each output written once, and the visible pairs' products
+    (``decay_flops``) at the least time of a design that holds the
+    tolerance (``op_ms``: bf16 tensor cores; in f32 3xTF32 or CUDA cores).
+    No library call computes this function."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     B, S, H, d = STATE_BATCH, STATE_PROMPT, 64, 64
     q, k, v = (torch.randn(B, S, H, d, generator=gen, device="cuda").bfloat16() for _ in range(3))
@@ -1807,7 +1908,8 @@ def decay_times() -> dict:
     h0 = torch.randn(B, H, d, d, generator=gen, device="cuda")
     n = B * S * H * d
     times = {}
-    for key, dtype in (("decay_attention", torch.bfloat16), ("decay_attention:simt", torch.float32)):
+    for key, dtype in (("decay_attention", torch.bfloat16),
+                       ("decay_attention:vector_tc_f32", torch.float32)):
         qt, kt, vt = q.to(dtype), k.to(dtype), v.to(dtype)
         path = dc_ops.kernel_path(qt, kt, vt, lw)
         times[key] = {
@@ -1816,36 +1918,40 @@ def decay_times() -> dict:
                                                           initial_state=h0, return_state=True), 5),
             "bytes_ms": (4 * n * dtype.itemsize + n * 4 + 2 * B * H * d * d * 4 + H * d * 4)
                         / HBM_BYTES_PER_S * 1e3,
-            "ops_ms": decay_flops(B, S, H, d, d, bonus=True)
-                      / (BF16_TC_FLOPS if path.endswith("_tc") else F32_FLOPS) * 1e3,
+            "ops_ms": op_ms(decay_flops(B, S, H, d, d, bonus=True), dtype),
             "library_ms": None,
-            "shape": f"rwkv6 serve: q/k/v ({B}, {S}, {H}, {d}) {str(dtype).split('.')[-1]}, "
+            "shape": f"rwkv6 serve: q/k/v ({B}, {S}, {H}, {d}) {_dt(dtype)}, "
                      f"log_w f32, bonus, h0 and hT; {path} path",
         }
         check(dc_ops.last_path == path, f"{key}: took the {dc_ops.last_path} path")
         del qt, kt, vt
     del q, k, v, lw, h0
     B, S, H, ns, hd, d_in = 4, 2048, 112, 64, 64, 7168
-    xBC = torch.randn(B, S, d_in + 2 * ns, generator=gen, device="cuda").bfloat16()
-    q = xBC[:, :, None, d_in + ns:].expand(B, S, H, ns)
-    k = xBC[:, :, None, d_in:d_in + ns].expand(B, S, H, ns)
+    xBC = torch.randn(B, S, d_in + 2 * ns, generator=gen, device="cuda")
     lw = (-torch.rand(B, S, H, generator=gen, device="cuda") * 2)[..., None].expand(B, S, H, ns)
-    v = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
-    path = dc_ops.kernel_path(q, k, v, lw)
-    times["decay_attention:zamba2"] = {
-        "ms": time_ms(lambda: dc_ops._launch(q, k, v, lw, None, None, True), 20),
-        "plain_ms": time_ms(lambda: chunked_decay_ref(q, k, v, lw, return_state=True), 5),
-        "bytes_ms": (2 * B * S * ns * 2 + B * S * H * 4 + 2 * B * S * H * hd * 2
-                     + B * H * ns * hd * 4) / HBM_BYTES_PER_S * 1e3,
-        "ops_ms": decay_flops(B, S, H, ns, hd, bonus=False, shared_qk=True)
-                  / (BF16_TC_FLOPS if path.endswith("_tc") else F32_FLOPS) * 1e3,
-        "library_ms": None,
-        "shape": f"zamba2 prefill: C/B ({B}, {S}, {ns}) bf16 of a {d_in + 2 * ns}-wide row, "
-                 f"stride 0 over {H} heads, log_w stride 0 over the state, v ({B}, {S}, {H}, "
-                 f"{hd}) bf16, hT; {path} path",
-    }
-    check(dc_ops.last_path == path, f"zamba2 shape: took the {dc_ops.last_path} path")
-    del xBC, q, k, v, lw
+    v32 = torch.randn(B, S, H, hd, generator=gen, device="cuda")
+    for key, dtype in (("decay_attention:zamba2", torch.bfloat16),
+                       ("decay_attention:scalar_tc_f32", torch.float32)):
+        x = xBC.to(dtype)
+        q = x[:, :, None, d_in + ns:].expand(B, S, H, ns)
+        k = x[:, :, None, d_in:d_in + ns].expand(B, S, H, ns)
+        v = v32.to(dtype)
+        item = dtype.itemsize
+        path = dc_ops.kernel_path(q, k, v, lw)
+        times[key] = {
+            "ms": time_ms(lambda: dc_ops._launch(q, k, v, lw, None, None, True), 20),
+            "plain_ms": time_ms(lambda: chunked_decay_ref(q, k, v, lw, return_state=True), 5),
+            "bytes_ms": (2 * B * S * ns * item + B * S * H * 4 + 2 * B * S * H * hd * item
+                         + B * H * ns * hd * 4) / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": op_ms(decay_flops(B, S, H, ns, hd, bonus=False, shared_qk=True), dtype),
+            "library_ms": None,
+            "shape": f"zamba2 prefill: C/B ({B}, {S}, {ns}) {_dt(dtype)} of a {d_in + 2 * ns}-wide "
+                     f"row, stride 0 over {H} heads, log_w stride 0 over the state, v ({B}, {S}, "
+                     f"{H}, {hd}) {_dt(dtype)}, hT; {path} path",
+        }
+        check(dc_ops.last_path == path, f"{key}: took the {dc_ops.last_path} path")
+        del x, q, k, v
+    del xBC, lw, v32
     torch.cuda.empty_cache()
     return times
 
@@ -1926,6 +2032,8 @@ def main() -> None:
     gqa = phase_gqa_forward()
     state = {arch: phase_state_model(arch, seed) for arch, seed in (("rwkv6_7b", 3),
                                                                      ("zamba2_7b", 4))}
+    state32 = {arch: phase_state_f32(arch, seed) for arch, seed in (("rwkv6_7b", 3),
+                                                                    ("zamba2_7b", 4))}
     phase_state_small_vs_cpu()
     times = phase_times()
     launches = {"paged_attention": (serve_maint["launches"]["paged_attention"]
@@ -1934,7 +2042,9 @@ def main() -> None:
                 "bulk_op": bitmap["launches"]["bulk_op"],
                 "flash_attention": (flash["launches_total"] + gqa["launches_total"]
                                     + flash32["launches_total"]),
-                "decay_attention": sum(r["launches"] for r in state.values())}
+                "decay_attention": sum(r["launches"] for r in state.values()),
+                "decay_attention:vector_tc_f32": state32["rwkv6_7b"]["launches"],
+                "decay_attention:scalar_tc_f32": state32["zamba2_7b"]["launches"]}
     errs["bulk_op"] = bitmap["max_abs_err"]
     times["bulk_op"] = times["bulk_op:and"]
     line = {"kernels": []}

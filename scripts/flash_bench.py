@@ -17,7 +17,7 @@ times the f32 path, ``tf32x3`` in this tree and ``simt`` before it).  Each
 output is held to the plain version first (2e-2 bf16, 2e-5 f32; a miss
 fails the run), and ``*_bound_ms`` is the least time of the visible pairs'
 operations: bf16 at 989 TFLOP/s, f32 the smaller of 67 TFLOP/s on CUDA cores
-and three TF32 products at 495 TFLOP/s (as ``chip_smoke.flash_op_ms``).  The
+and three TF32 products at 495 TFLOP/s (as ``chip_smoke.op_ms``).  The
 shapes and rates are written here, not read from the root, so an older tree
 times at both.
 Each root runs in a process of its own, the roots in turn for ``--rounds``

@@ -22,19 +22,20 @@
 // passes C and B broadcast over heads and the decay broadcast over the state
 // dim).  u (H, dk), h0 and hT (B, H, dk, dv) are contiguous f32.
 //
-// Three paths, one chosen by the caller before the launch (ops.py:
-// kernel_path), by type and strides alone:
+// Five paths, all of them the TPU kernel's counterpart, one chosen by the
+// caller before the launch (ops.py: kernel_path), by type and strides alone:
 //
-// * simt (f32 q/k/v).  Bound: at the rwkv6_7b serve shape (B 8, S 1024,
-//   H 64, dk = dv = 64, log_w f32, h0 and hT) the bytes take 0.13 ms at 3.35
-//   TB/s, the products over the visible pairs (10.8 GFLOP) 0.16 ms at the
-//   67 TFLOP/s of f32 on CUDA cores: bound by operations.  Design: one block
-//   of 256 threads per (b, h) walks the chunks in order -- the loop the TPU
-//   grid ran sequentially -- with the chunk staged in shared memory as f32,
-//   one warp per column running the cumulative sum as a shuffle scan, and
-//   16 x 16 threads computing the chunk products as small register tiles;
-//   the state lives in shared memory.  dk and dv are zero-padded to 16, 32
-//   or 64.  f32 throughout.
+// * simt (f32 views the 16-byte copies below cannot read: d not contiguous
+//   or not a multiple of 4, a base or a stride off 16 bytes).  Bound: at the
+//   rwkv6_7b serve shape (B 8, S 1024, H 64, dk = dv = 64, log_w f32, h0 and
+//   hT) the bytes take 0.21 ms at 3.35 TB/s, the products over the visible
+//   pairs (10.8 GFLOP) 0.16 ms at the 67 TFLOP/s of f32 on CUDA cores.
+//   Design: one block of 256 threads per (b, h) walks the chunks in order --
+//   the loop the TPU grid ran sequentially -- with the chunk staged in shared
+//   memory as f32 element by element, one warp per column running the
+//   cumulative sum as a shuffle scan, and 16 x 16 threads computing the chunk
+//   products as small register tiles; the state lives in shared memory.  dk
+//   and dv are zero-padded to 16, 32 or 64.  f32 throughout.
 // * scalar_tc (bf16, q and k stride 0 over heads, log_w stride 0 over d:
 //   Mamba2) and vector_tc (every other bf16 call: RWKV6).  Bound: bytes
 //   (0.074 ms at the zamba2_7b prefill shape, 0.125 ms at the rwkv6 serve
@@ -58,7 +59,29 @@
 //   makes e^(cum_i - cum_j) one f32 factor per pair, applied to C.B^T, which
 //   is exact from bf16 inputs.  Both take d contiguous, a multiple of 8 up
 //   to 64 (zero-padded to 64), and 16-byte aligned rows.
-//
+// * scalar_tc_f32 and vector_tc_f32 (f32 views whose rows the 16-byte
+//   copies read: d contiguous, a multiple of 4 up to 64, base and strides on
+//   16 bytes).  Bound: bytes, 4 of them an item: 0.145 ms at the zamba2_7b
+//   prefill shape (C and B of a 7296-wide f32 row), 0.205 ms at the rwkv6
+//   serve one; their products as three TF32 products a pair at 495 TFLOP/s
+//   take 0.103 / 0.065 ms.  Design: the bf16 paths' blocks, warps, state in
+//   the accumulators and cp.async copies, on mma.sync m16n8k8 tf32, every
+//   product of two f32 factors three TF32 products (C.B^T and v now too),
+//   the hi.hi products summed apart from the small ones; chunks staged as
+//   f32 in swizzled rows and split into TF32 hi + lo as fragments are
+//   loaded; y stored as f32 from the accumulators.  Precision sets the
+//   split: three bf16 products keep each factor to 2^-17 and land 1.0e-5 to
+//   1.7e-5 of the output's scale from a float64 oracle, ten times the plain
+//   f32 form's 0.6e-6 to 3.4e-6, and the sequential oracle's f32 spread;
+//   three TF32 products keep 2^-22.  And the cumulative log-decay is summed
+//   in float64 and each factor taken as 2^n 2^f, since a float32 sum of 32
+//   log-decays near the clip already costs the factors 2^-18 (most of the
+//   plain f32 form's error): 1.7e-7 to 3.7e-7 in all
+//   (scripts/decay_precision.py --dtype float32).  What sets their time, as
+//   in bf16, is a chunk's chain, now of 3xTF32 products: 0.43 ms (47 % of
+//   the bound) at the rwkv6 shape, 0.72 ms (20 %) at the zamba2 one (PERF.md,
+//   NVIDIA H100 80GB HBM3 at 700 W).
+
 // The mask is applied by a select, never by a multiply: a masked score of
 // the factored form can be as large as e^57.6 |q||k| (or inf), and inf * 0
 // is NaN.
@@ -315,16 +338,19 @@ constexpr int kRow = kTcD + 8;      // a shared row: 64 bf16 + 16 bytes, so ldma
 constexpr int kTile = kQ * kRow;    // one chunk of q, k or v (bf16 elements)
 constexpr int kARow = kQ + 8;       // a shared row of 32 bf16 scores (+16 bytes)
 
-struct TcParams {
+template <typename T>   // q, k, v and out: bfloat16 or float32
+struct TcParamsT {
   int B, S, H, dk, dv, use_bonus;
   long long q[4], k[4], v[4], w[4], o[4];  // element strides (b, s, h, d)
-  const __nv_bfloat16 *qp, *kp, *vp;
+  const T *qp, *kp, *vp;
   const float* wp;                          // log_w
   const float* u;                           // (H, dk) or null
   const float* h0;                          // (B, H, dk, dv) or null (zeros)
-  __nv_bfloat16* op;
+  T* op;
   float* hT;                                // (B, H, dk, dv) or null
 };
+using TcParams = TcParamsT<__nv_bfloat16>;
+using F32Params = TcParamsT<float>;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -383,8 +409,9 @@ __device__ __forceinline__ Split2 split2(float a, float b) {
 // -- fragments shared by the two tensor-core paths: the state S^T of a warp is
 // 16 dv rows (16 cs + r4, + 8) x 64 dk columns (8 n + 2 c4, + 1), 8 mma tiles
 
-__device__ __forceinline__ void load_state(float (&s)[8][4], const TcParams& p, long long off,
-                                           int cs, int lane, bool valid) {
+template <typename P>
+__device__ __forceinline__ void load_state(float (&s)[8][4], const P& p, long long off, int cs,
+                                           int lane, bool valid) {
   const int r4 = lane >> 2, c4 = lane & 3;
 #pragma unroll
   for (int n = 0; n < 8; ++n)
@@ -395,8 +422,9 @@ __device__ __forceinline__ void load_state(float (&s)[8][4], const TcParams& p, 
     }
 }
 
-__device__ __forceinline__ void store_state(const float (&s)[8][4], const TcParams& p,
-                                            long long off, int cs, int lane, bool valid) {
+template <typename P>
+__device__ __forceinline__ void store_state(const float (&s)[8][4], const P& p, long long off,
+                                            int cs, int lane, bool valid) {
   const int r4 = lane >> 2, c4 = lane & 3;
   if (!valid || !p.hT) return;
 #pragma unroll
@@ -978,12 +1006,562 @@ __global__ void __launch_bounds__(kVecThreads, 4) decay_vector_tc(TcParams p) {
   store_state(sacc, p, state_off, cs, lane, true);
 }
 
+// -- float32 on tensor cores (mma.sync m16n8k8 tf32, three products each) ----
+//
+// The f32 siblings of the two paths above: the same blocks, warps and state
+// layout, every product of two f32 factors taken as three TF32 products
+// (hi.hi + hi.lo + lo.hi; lo.lo, under 2^-22 of the product, is dropped),
+// hi.hi summed apart from the two small ones and each product's sum begun
+// from zero, so that the tensor core's truncating adder cuts each sum at its
+// own scale (the state's update joins the state in one f32 FMA).  A
+// fragment's k index runs over its 8 columns in the order 0, 2, 4, 6, 1, 3,
+// 5, 7 (logical k c4 is column 2 c4, k c4 + 4 column 2 c4 + 1), the order of
+// an mma accumulator's columns: the state in its accumulators is an A
+// operand as it stands, and a row-major operand's pair is one 8-byte load.
+// Chunks of 32 rows x 64 floats sit in shared memory with the 16-byte pieces
+// of each row permuted (swz), so that the row-wise fragment loads, the
+// column-wise loads of v and kend, the copies and the staged output each hit
+// 32 distinct banks.  The cumulative log-decay is summed in float64 and each
+// decay factor taken as 2^n 2^f (pow2): a float32 sum of 32 log-decays near
+// the clip carries 2^-18 of error per step into every factor, which is what
+// the plain chunked form in float32 loses (scripts/decay_precision.py).
+
+constexpr int kF32Tile = kQ * kTcD;   // floats of one chunk of q, k, v, log_w or kend
+
+// float index of (row, word) in a tile whose rows are `width` floats (64 or
+// 32): the 16-byte pieces of a row permuted by f(row), which differs across
+// rows 0..3, across rows 4..7, across the even rows and across the odd rows
+// of each 8-row block (the rows a fragment's row-wise and column-wise loads
+// take at once)
+__device__ __forceinline__ int swz(int row, int word, int width = kTcD) {
+  return row * width + (word ^ (((row & 3) ^ ((row >> 2) & 1)) << 3));
+}
+
+// x = hi + lo as the tensor core reads them: hi rounded to TF32 (to nearest,
+// ties away, in two integer operations), lo = x - hi exact in f32 and read
+// as its top 19 bits (flash_attention.cu's split)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// an A fragment, split: x0 (row r4, k c4), x1 (row r4 + 8, k c4), x2 (row
+// r4, k c4 + 4), x3 (row r4 + 8, k c4 + 4)
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+__device__ __forceinline__ FragA frag_a(float x0, float x1, float x2, float x3) {
+  FragA f;
+  split_tf32(x0, f.hi[0], f.lo[0]);
+  split_tf32(x1, f.hi[1], f.lo[1]);
+  split_tf32(x2, f.hi[2], f.lo[2]);
+  split_tf32(x3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+// a B fragment, split: x0 (k c4, column r4), x1 (k c4 + 4, column r4)
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+__device__ __forceinline__ FragB frag_b(float x0, float x1) {
+  FragB f;
+  split_tf32(x0, f.hi[0], f.lo[0]);
+  split_tf32(x1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+// big += a.hi b.hi;  small += a.lo b.hi + a.hi b.lo
+__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(small, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(small, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(big, a.hi, b.hi[0], b.hi[1]);
+}
+
+// 2^x for |x| < 126 as 2^n (n = x rounded to an integer, exact) times
+// ex2.approx of the fraction (|f| <= 1/2): within about 2^-22 of 2^x
+// however large |x| is
+__device__ __forceinline__ float pow2(double x) {
+  constexpr double kRound = 6755399441055744.0;   // 1.5 * 2^52: x + kRound is x rounded
+  const double t = x + kRound;
+  const int n = __double2loint(t);
+  return ex2(static_cast<float>(x - (t - kRound))) * __int_as_float((n + 127) << 23);
+}
+
+// v^T (dv rows 16 cs + r4 (+ 8), tokens 8 kk + 2 c4 (+ 1), the fragment's
+// k order), each token's column scaled by w0 / w1, as a split A fragment
+__device__ __forceinline__ FragA vt_frag(const float* v_s, int kk, int cs, int lane,
+                                         float w0 = 1.f, float w1 = 1.f) {
+  const int j = 8 * kk + 2 * (lane & 3), e = 16 * cs + (lane >> 2);
+  return frag_a(v_s[swz(j, e)] * w0, v_s[swz(j, e + 8)] * w0, v_s[swz(j + 1, e)] * w1,
+                v_s[swz(j + 1, e + 8)] * w1);
+}
+
+// the products of y^T (16 dv x 32 tokens) that the state gives, S^T x^T
+// (x = qs, or C), from zero, with the state's accumulators as the A
+// fragments (k in accumulator order)
+__device__ __forceinline__ void state_times(float (&y)[4][4], const float (&s)[8][4],
+                                            const float* x_s, int lane) {
+  const int r4 = lane >> 2, c4 = lane & 3;
+  float big[4][4] = {}, small[4][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const FragA sa = frag_a(s[ks][0], s[ks][2], s[ks][1], s[ks][3]);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float2 x = *reinterpret_cast<const float2*>(x_s + swz(8 * n + r4, 8 * ks + 2 * c4));
+      mma3(big[n], small[n], sa, frag_b(x.x, x.y));
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) y[n][x] = big[n][x] + small[n][x];
+}
+
+// the raw scores x y^T (x = qs or C, y = ks or B) of column tile j = 8 cw..
+// and row tiles m = 0, 1, from zero; m = 0 lies wholly above the diagonal
+// for cw >= 2 and is skipped (left 0)
+__device__ __forceinline__ void scores(float (&a)[2][4], const float* x_s, const float* y_s,
+                                       int cw, int lane) {
+  const int r4 = lane >> 2, c4 = lane & 3;
+  float big[2][4] = {}, small[2][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const float2 yf = *reinterpret_cast<const float2*>(y_s + swz(8 * cw + r4, 8 * ks + 2 * c4));
+    const FragB b = frag_b(yf.x, yf.y);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      if (m == 0 && cw >= 2) continue;
+      const float2 x0 = *reinterpret_cast<const float2*>(x_s + swz(16 * m + r4, 8 * ks + 2 * c4));
+      const float2 x1 =
+          *reinterpret_cast<const float2*>(x_s + swz(16 * m + r4 + 8, 8 * ks + 2 * c4));
+      mma3(big[m], small[m], frag_a(x0.x, x1.x, x0.y, x1.y), b);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) a[m][x] = big[m][x] + small[m][x];
+}
+
+// y^T += v^T A^T over the visible tokens j <= i (token tiles kk <= n), A
+// [kQ][kQ] (rows i) from shared memory
+__device__ __forceinline__ void add_v_scores(float (&y)[4][4], const float* v_s,
+                                             const float* a_s, int cs, int lane) {
+  const int r4 = lane >> 2, c4 = lane & 3;
+  float big[4][4] = {}, small[4][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const FragA va = vt_frag(v_s, kk, cs, lane);
+#pragma unroll
+    for (int n = kk; n < 4; ++n) {
+      const float2 a =
+          *reinterpret_cast<const float2*>(a_s + swz(8 * n + r4, 8 * kk + 2 * c4, kQ));
+      mma3(big[n], small[n], va, frag_b(a.x, a.y));
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) y[n][x] += big[n][x] + small[n][x];
+}
+
+// S^T <- S^T o decay + (w o v)^T x (x = kend, or B; w = 1, or per token
+// wJ[2 kk + (0, 1)] for tokens 8 kk + 2 c4 (+ 1)): the update summed from
+// zero, 32 dk columns at a time, and joined to the decayed state in one FMA;
+// decay(n) gives the pair of decays of dk columns 8 n + 2 c4 (+ 1)
+template <typename Decay>
+__device__ __forceinline__ void update_state(float (&s)[8][4], const float* v_s, const float* x_s,
+                                             const float (&wJ)[8], Decay decay, int cs, int lane) {
+  const int r4 = lane >> 2, c4 = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float big[4][4] = {}, small[4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const FragA va = vt_frag(v_s, kk, cs, lane, wJ[2 * kk], wJ[2 * kk + 1]);
+      const int j = 8 * kk + 2 * c4;
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        const int c = 8 * (4 * half + nn) + r4;
+        mma3(big[nn], small[nn], va, frag_b(x_s[swz(j, c)], x_s[swz(j + 1, c)]));
+      }
+    }
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn) {
+      const int n = 4 * half + nn;
+      const float2 d = decay(n);
+      s[n][0] = fmaf(s[n][0], d.x, big[nn][0] + small[nn][0]);
+      s[n][1] = fmaf(s[n][1], d.y, big[nn][1] + small[nn][1]);
+      s[n][2] = fmaf(s[n][2], d.x, big[nn][2] + small[nn][2]);
+      s[n][3] = fmaf(s[n][3], d.y, big[nn][3] + small[nn][3]);
+    }
+  }
+}
+
+// y^T (16 dv x 32 tokens of the chunk at s0) out as f32, straight from the
+// accumulators: each store of a warp writes four tokens' 32-byte runs of 8
+// dv columns, whole sectors
+__device__ __forceinline__ void store_yT_f32(const float (&y)[4][4], const F32Params& p,
+                                             float* ob, int s0, int cs, int lane) {
+  const int r4 = lane >> 2, c4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int t = 8 * n + 2 * c4 + (x & 1), e = 16 * cs + r4 + 8 * (x >> 1);
+      if (s0 + t < p.S && e < p.dv) ob[(s0 + t) * p.o[1] + e] = y[n][x];
+    }
+}
+
+// A = raw scores under the mask (a select) with the bonus on the diagonal,
+// this warp's tiles (rows 16 m + r4 (+ 8), columns 8 cw + 2 c4 (+ 1)), into
+// A [kQ][kQ]; scale(i, j) gives a score's decay weight
+template <typename Scale>
+__device__ __forceinline__ void store_scores(float* a_s, const float (&a)[2][4], int cw, int lane,
+                                             int bonus, const float (&dg)[4], Scale scale) {
+  const int r4 = lane >> 2, c4 = lane & 3;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int i = 16 * m + r4 + 8 * hf, j = 8 * cw + 2 * c4;
+      const float2 w = scale(i, j);
+      *reinterpret_cast<float2*>(a_s + swz(i, j, kQ)) =
+          make_float2(masked(a[m][2 * hf] * w.x, i, j, bonus, dg[2 * m + hf]),
+                      masked(a[m][2 * hf + 1] * w.y, i, j + 1, bonus, dg[2 * m + hf]));
+    }
+}
+
+// RWKV6's vector decay in f32: decay_vector_tc's blocks and steps, with
+// q, k, log_w (single stages) and v (two stages) copied in as f32, qs, ks
+// and kend made in place of q and k and beside them, every product on
+// 3xTF32, and the state's update last, once y is out.  The copies of the next chunk start as each tile is freed: v at
+// the chunk's start, log_w once its sums are taken, q and k once A and
+// S^T qs^T have read them.
+constexpr int kFvV = 0;                             // v, two stages
+constexpr int kFvQ = kFvV + 2 * kF32Tile * 4;       // q, then qs
+constexpr int kFvK = kFvQ + kF32Tile * 4;           // k, then ks
+constexpr int kFvW = kFvK + kF32Tile * 4;           // log_w
+constexpr int kFvE = kFvW + kF32Tile * 4;           // kend
+constexpr int kFvA = kFvE + kF32Tile * 4;           // A [kQ][kQ]
+constexpr int kFvPart = kFvA + kQ * kQ * 4;         // per-warp log-decay sums, f64 [4][kTcD]
+constexpr int kFvTot = kFvPart + 4 * kTcD * 8;      // e^total per column [kTcD]
+constexpr int kFvDiag = kFvTot + kTcD * 4;          // (q o u) . k per token [kQ]
+constexpr int kF32VecSmem = kFvDiag + kQ * 4;       // 55,680 bytes: 4 blocks an SM
+
+__global__ void __launch_bounds__(kVecThreads, 4) decay_vector_tf32(F32Params p) {
+  constexpr double kLog2e = 1.4426950408889634;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw + kFvQ);
+  float* k_s = reinterpret_cast<float*>(smem_raw + kFvK);
+  float* w_s = reinterpret_cast<float*>(smem_raw + kFvW);
+  float* e_s = reinterpret_cast<float*>(smem_raw + kFvE);
+  float* a_s = reinterpret_cast<float*>(smem_raw + kFvA);
+  double* part_s = reinterpret_cast<double*>(smem_raw + kFvPart);
+  float* etot_s = reinterpret_cast<float*>(smem_raw + kFvTot);
+  float* diag_s = reinterpret_cast<float*>(smem_raw + kFvDiag);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r4 = lane >> 2, c4 = lane & 3, cs = warp;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const float* qb = p.qp + b * p.q[0] + h * p.q[2];
+  const float* kb = p.kp + b * p.k[0] + h * p.k[2];
+  const float* vb = p.vp + b * p.v[0] + h * p.v[2];
+  const float* wb = p.wp + b * p.w[0] + h * p.w[2];
+  float* ob = p.op + b * p.o[0] + h * p.o[2];
+  const int n_chunks = (p.S + kQ - 1) / kQ;
+
+  auto v_stage = [&](int st) { return reinterpret_cast<float*>(smem_raw + kFvV) + st * kF32Tile; };
+  // rows s0.. of a view (row stride `stride`) into a tile, 16 bytes a copy,
+  // zeros past S and past d
+  auto copy_rows = [&](float* dst, const float* src, long long stride, int s0, int d) {
+    for (int i = tid; i < kQ * 16; i += kVecThreads) {
+      const int r = i >> 4, c = (i & 15) * 4, s = s0 + r;
+      const bool ok = s < p.S && c < d;
+      cp_async16(dst + swz(r, c), src + (ok ? s * stride + c : 0), ok);
+    }
+  };
+
+  float sacc[8][4];
+  const long long state_off = ((long long)b * p.H + h) * p.dk * p.dv;
+  load_state(sacc, p, state_off, cs, lane, true);
+  const float ones[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+
+  if (n_chunks > 0) {
+    copy_rows(q_s, qb, p.q[1], 0, p.dk);
+    copy_rows(k_s, kb, p.k[1], 0, p.dk);
+    copy_rows(w_s, wb, p.w[1], 0, p.dk);
+    copy_rows(v_stage(0), vb, p.v[1], 0, p.dv);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int st = ch & 1, s0 = ch * kQ;
+    const bool more = ch + 1 < n_chunks;
+    float* v_s = v_stage(st);
+    cp_async_wait_all();
+    __syncthreads();   // chunk ch is in; every warp is done with chunk ch - 1
+    if (more) {
+      copy_rows(v_stage(st ^ 1), vb, p.v[1], s0 + kQ, p.dv);
+      cp_async_commit();
+    }
+
+    // prep, 1: per column pair (2 lane, 2 lane + 1), tokens 8 warp..8 warp + 7:
+    // the clipped log-decays and their sum over this warp's tokens (f64)
+    const int c2 = 2 * lane, t0 = 8 * warp;
+    float2 lw[8];
+    double sx = 0.0, sy = 0.0;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const float2 w = *reinterpret_cast<const float2*>(w_s + swz(t0 + t, c2));
+      lw[t] = make_float2(fminf(fmaxf(w.x, kMinLogDecay), 0.f), fminf(fmaxf(w.y, kMinLogDecay), 0.f));
+      sx += lw[t].x;
+      sy += lw[t].y;
+    }
+    *reinterpret_cast<double2*>(part_s + warp * kTcD + c2) = make_double2(sx, sy);
+    // (q o u) . k of token t0 + r4 over columns 16 c4..16 c4 + 15
+    if (p.use_bonus) {
+      const int t = t0 + r4;
+      float d = 0.f;
+      for (int c = 16 * c4; c < 16 * c4 + 16 && c < p.dk; c += 2) {
+        const float2 qv = *reinterpret_cast<const float2*>(q_s + swz(t, c));
+        const float2 kv = *reinterpret_cast<const float2*>(k_s + swz(t, c));
+        const float* uh = p.u + (long long)h * p.dk + c;
+        d += qv.x * uh[0] * kv.x + qv.y * uh[1] * kv.y;
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      if (c4 == 0) diag_s[t] = d;
+    }
+    __syncthreads();   // the sums are in; log_w is free
+    if (more) {
+      copy_rows(w_s, wb, p.w[1], s0 + kQ, p.dk);
+      cp_async_commit();
+    }
+
+    // prep, 2: the cumulative log-decays (f64, from the earlier warps' sums);
+    // qs = q e^(qcum) and ks = k e^(-cum) (up to e^57.6) in place of q and k,
+    // kend = k e^(total - cum) (<= 1)
+    {
+      double ox = 0.0, oy = 0.0, tx = 0.0, ty = 0.0;
+#pragma unroll
+      for (int w2 = 0; w2 < 4; ++w2) {
+        const double2 pw = *reinterpret_cast<const double2*>(part_s + w2 * kTcD + c2);
+        if (w2 < warp) {
+          ox += pw.x;
+          oy += pw.y;
+        }
+        tx += pw.x;
+        ty += pw.y;
+      }
+      if (warp == 0)
+        *reinterpret_cast<float2*>(etot_s + c2) = make_float2(pow2(tx * kLog2e), pow2(ty * kLog2e));
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int o = swz(t0 + t, c2);
+        const double px = ox, py = oy;   // the sums before token t
+        ox += lw[t].x;
+        oy += lw[t].y;
+        const double qx = p.use_bonus ? px : ox, qy = p.use_bonus ? py : oy;
+        const float2 qv = *reinterpret_cast<const float2*>(q_s + o);
+        const float2 kv = *reinterpret_cast<const float2*>(k_s + o);
+        *reinterpret_cast<float2*>(q_s + o) =
+            make_float2(qv.x * pow2(qx * kLog2e), qv.y * pow2(qy * kLog2e));
+        *reinterpret_cast<float2*>(k_s + o) =
+            make_float2(kv.x * pow2(-ox * kLog2e), kv.y * pow2(-oy * kLog2e));
+        *reinterpret_cast<float2*>(e_s + o) =
+            make_float2(kv.x * pow2((tx - ox) * kLog2e), kv.y * pow2((ty - oy) * kLog2e));
+      }
+    }
+    __syncthreads();   // qs, ks, kend and e^total are in
+
+    // A = qs ks^T (this warp's column tile) masked into shared memory, and
+    // y^T = S^T qs^T
+    float araw[2][4], yacc[4][4];
+    state_times(yacc, sacc, q_s, lane);
+    scores(araw, q_s, k_s, warp, lane);
+    float dg[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dg[x] = p.use_bonus ? diag_s[8 * x + r4] : 0.f;
+    store_scores(a_s, araw, warp, lane, p.use_bonus, dg,
+                 [](int, int) { return make_float2(1.f, 1.f); });
+    __syncthreads();   // A is in; qs and ks are free
+    if (more) {
+      copy_rows(q_s, qb, p.q[1], s0 + kQ, p.dk);
+      copy_rows(k_s, kb, p.k[1], s0 + kQ, p.dk);
+      cp_async_commit();
+    }
+    // y^T += v^T A^T, out; then the state's update
+    add_v_scores(yacc, v_s, a_s, cs, lane);
+    store_yT_f32(yacc, p, ob, s0, cs, lane);
+    update_state(sacc, v_s, e_s, ones,
+                 [&](int n) { return *reinterpret_cast<const float2*>(etot_s + 8 * n + 2 * c4); },
+                 cs, lane);
+  }
+  store_state(sacc, p, state_off, cs, lane, true);
+}
+
+// Mamba2's scalar decay in f32: decay_scalar_tc's blocks (a batch row and
+// kScalarHeads heads sharing the chunk's C and B) and steps, with C, B and v
+// f32 (so C B^T and the products with v take three products too), the
+// next chunk's stage copied in while this one is computed.
+//   y^T  = (S^T C^T) e^(qcum_i)  +  v^T A^T,  A_ij = (C.B^T)_ij e^(qcum_i) e^(-cum_j)
+//   S^T <- S^T e^total  +  (w o v)^T B,        w_j = e^(total - cum_j) <= 1
+constexpr int kScalarF32Heads = 2;   // heads per block
+constexpr int kScalarF32Stage =
+    (2 + kScalarF32Heads) * kF32Tile * 4 + kScalarF32Heads * kQ * 4;
+constexpr int kScalarF32Smem = 2 * kScalarF32Stage + kScalarF32Heads * kQ * kQ * 4;
+
+__global__ void __launch_bounds__(128 * kScalarF32Heads, 4 / kScalarF32Heads)
+    decay_scalar_tf32(F32Params p) {
+  constexpr int G = kScalarF32Heads, kThreadsG = 128 * G;
+  constexpr double kLog2e = 1.4426950408889634;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* a_all = reinterpret_cast<float*>(smem_raw + 2 * kScalarF32Stage);   // per head: A
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r4 = lane >> 2, c4 = lane & 3;
+  const int hh = warp >> 2, cs = warp & 3;
+  const int hbase = blockIdx.x * G, b = blockIdx.y, h = hbase + hh;
+  const bool hvalid = h < p.H;
+  const float* cb = p.qp + b * p.q[0];   // C (q), shared by the heads
+  const float* bb = p.kp + b * p.k[0];   // B (k)
+  const float* vb = p.vp + b * p.v[0];
+  const float* wb = p.wp + b * p.w[0];
+  const int n_chunks = (p.S + kQ - 1) / kQ;
+
+  // a stage: C, B, v of each head (tiles), then log_w [G][kQ]
+  auto stage = [&](int st) { return reinterpret_cast<float*>(smem_raw + st * kScalarF32Stage); };
+  auto load_chunk = [&](int ch, int st) {
+    const int s0 = ch * kQ;
+    float* c_s = stage(st);
+    for (int i = tid; i < (2 + G) * kQ * 16; i += kThreadsG) {
+      const int t = i / (kQ * 16), r = (i >> 4) % kQ, c = (i & 15) * 4, s = s0 + r;
+      const float* src;
+      bool ok = s < p.S;
+      if (t == 0) {
+        ok = ok && c < p.dk;
+        src = cb + (ok ? s * p.q[1] + c : 0);
+      } else if (t == 1) {
+        ok = ok && c < p.dk;
+        src = bb + (ok ? s * p.k[1] + c : 0);
+      } else {
+        const int hg = hbase + t - 2;
+        ok = ok && c < p.dv && hg < p.H;
+        src = vb + (ok ? s * p.v[1] + hg * p.v[2] + c : 0);
+      }
+      cp_async16(c_s + t * kF32Tile + swz(r, c), src, ok);
+    }
+    float* l_s = c_s + (2 + G) * kF32Tile;
+    for (int i = tid; i < G * kQ; i += kThreadsG) {
+      const int g = i / kQ, r = i % kQ, s = s0 + r, hg = hbase + g;
+      const bool ok = s < p.S && hg < p.H;
+      cp_async4(l_s + i, wb + (ok ? s * p.w[1] + hg * p.w[2] : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  float sacc[8][4];
+  const long long state_off = ((long long)b * p.H + h) * p.dk * p.dv;
+  load_state(sacc, p, state_off, cs, lane, hvalid);
+
+  if (n_chunks > 0) load_chunk(0, 0);
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int st = ch & 1, s0 = ch * kQ;
+    cp_async_wait_all();
+    __syncthreads();   // chunk ch is in; every warp is done with chunk ch - 1
+    if (ch + 1 < n_chunks) load_chunk(ch + 1, st ^ 1);
+    const float* c_s = stage(st);
+    const float* b_s = c_s + kF32Tile;
+    float* v_s = stage(st) + (2 + hh) * kF32Tile;
+    const float* l_s = stage(st) + (2 + G) * kF32Tile;
+    float* a_s = a_all + hh * kQ * kQ;
+
+    if (!hvalid) continue;
+
+    // S^T C^T, which needs no decay, first
+    float yacc[4][4];
+    state_times(yacc, sacc, c_s, lane);
+
+    // per lane = token: the cumulative log-decay by a shuffle scan in f64,
+    // and the decay factors
+    const double l = fminf(fmaxf(l_s[hh * kQ + lane], kMinLogDecay), 0.f);
+    double cum = l;
+#pragma unroll
+    for (int off = 1; off < kQ; off <<= 1) {
+      const double up = __shfl_up_sync(0xffffffffu, cum, off);
+      if (lane >= off) cum += up;
+    }
+    double prev = __shfl_up_sync(0xffffffffu, cum, 1);
+    if (lane == 0) prev = 0.0;
+    const double total = __shfl_sync(0xffffffffu, cum, kQ - 1);
+    const float eq = pow2((p.use_bonus ? prev : cum) * kLog2e);   // <= 1
+    const float ek = pow2(-cum * kLog2e);                           // <= e^57.6
+    const float wj = pow2((total - cum) * kLog2e);                  // <= 1
+    const float etot = pow2(total * kLog2e);
+    float diag = 0.f;
+    if (p.use_bonus) {
+      const float* uh = p.u + (long long)h * p.dk;
+      for (int c = 0; c < p.dk; ++c) diag += c_s[swz(lane, c)] * uh[c] * b_s[swz(lane, c)];
+    }
+
+    // A = C B^T (this warp's column tile) under the decays and the mask,
+    // into the head's tile, built by its four warps
+    float araw[2][4];
+    scores(araw, c_s, b_s, cs, lane);
+    float dg[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dg[x] = __shfl_sync(0xffffffffu, diag, 8 * x + r4);
+    float eqi[4], ekj[2];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) eqi[x] = __shfl_sync(0xffffffffu, eq, 8 * x + r4);
+    ekj[0] = __shfl_sync(0xffffffffu, ek, 8 * cs + 2 * c4);
+    ekj[1] = __shfl_sync(0xffffffffu, ek, 8 * cs + 2 * c4 + 1);
+    store_scores(a_s, araw, cs, lane, p.use_bonus, dg, [&](int i, int) {
+      const float e = eqi[i >> 3];
+      return make_float2(e * ekj[0], e * ekj[1]);
+    });
+
+    // y^T = (S^T C^T) e^(qcum_i) + v^T A^T, once the head's A is in; out
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float w = __shfl_sync(0xffffffffu, eq, 8 * n + 2 * c4 + e);
+        yacc[n][e] *= w;
+        yacc[n][2 + e] *= w;
+      }
+    head_barrier(hh);
+    add_v_scores(yacc, v_s, a_s, cs, lane);
+    store_yT_f32(yacc, p, p.op + b * p.o[0] + h * p.o[2], s0, cs, lane);
+
+    // S^T <- S^T e^total + (w o v)^T B
+    float wJ[8];
+#pragma unroll
+    for (int x = 0; x < 8; ++x)
+      wJ[x] = __shfl_sync(0xffffffffu, wj, 8 * (x >> 1) + 2 * c4 + (x & 1));
+    update_state(sacc, v_s, b_s, wJ, [&](int) { return make_float2(etot, etot); }, cs, lane);
+  }
+
+  store_state(sacc, p, state_off, cs, lane, hvalid);
+}
+
 constexpr int kScalarSmem =
     2 * ((2 + kScalarHeads) * kTile * 2 + kScalarHeads * kQ * 4) + kScalarHeads * 2 * kQ * kARow * 2;
 
 // a view whose rows the 16-byte copies can read: d contiguous, the base and
 // the (b, s, h) strides on 16 bytes (a dimension of size 1 is exempt)
-bool rows16(const TcParams& p, const void* base, const long long* s, int item) {
+template <typename P>
+bool rows16(const P& p, const void* base, const long long* s, int item) {
   if (reinterpret_cast<uintptr_t>(base) % 16 || s[3] != 1) return false;
   const int size[3] = {p.B, p.S, p.H};
   for (int i = 0; i < 3; ++i)
@@ -1013,18 +1591,76 @@ int launch_tc(const TcParams& p, int path, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+int launch_tc_f32(const F32Params& p, int path, cudaStream_t st) {
+  if (p.dk % 4 || p.dv % 4 || p.dk > kTcD || p.dv > kTcD || !rows16(p, p.qp, p.q, 4) ||
+      !rows16(p, p.kp, p.k, 4) || !rows16(p, p.vp, p.v, 4) || p.o[3] != 1 || p.o[1] % 4 ||
+      p.o[2] % 4 || reinterpret_cast<uintptr_t>(p.op) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (path == 3) {
+    if (p.q[2] != 0 || p.k[2] != 0 || p.w[3] != 0) return (int)cudaErrorInvalidValue;
+    const cudaError_t e = cudaFuncSetAttribute(
+        decay_scalar_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize, kScalarF32Smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((p.H + kScalarF32Heads - 1) / kScalarF32Heads, p.B);
+    decay_scalar_tf32<<<grid, 128 * kScalarF32Heads, kScalarF32Smem, st>>>(p);
+    return (int)cudaGetLastError();
+  }
+  if (!rows16(p, p.wp, p.w, 4)) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      decay_vector_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32VecSmem);
+  if (e != cudaSuccess) return (int)e;
+  decay_vector_tf32<<<dim3(p.H, p.B), kVecThreads, kF32VecSmem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+TcParamsT<T> tc_params(const void* q, const void* k, const void* v, const void* lw,
+                       const void* u, const void* h0, void* out, void* hT,
+                       const long long* dims, const long long* strides, int use_bonus) {
+  TcParamsT<T> p;
+  p.B = (int)dims[0], p.S = (int)dims[1], p.H = (int)dims[2];
+  p.dk = (int)dims[3], p.dv = (int)dims[4];
+  p.use_bonus = use_bonus;
+  long long* s[5] = {p.q, p.k, p.v, p.w, p.o};
+  for (int t = 0; t < 5; ++t)
+    for (int i = 0; i < 4; ++i) s[t][i] = strides[4 * t + i];
+  p.qp = static_cast<const T*>(q);
+  p.kp = static_cast<const T*>(k);
+  p.vp = static_cast<const T*>(v);
+  p.wp = static_cast<const float*>(lw);
+  p.u = static_cast<const float*>(u);
+  p.h0 = static_cast<const float*>(h0);
+  p.op = static_cast<T*>(out);
+  p.hT = static_cast<float*>(hT);
+  return p;
+}
+
+// what every tensor-core path takes: 0 (nothing to do), 1 (refused) or 2 (go)
+template <typename P>
+int tc_ready(const P& p, int use_bonus, const void* u) {
+  if (p.B <= 0 || p.H <= 0) return 0;
+  if (p.S < 0 || p.dk < 1 || p.dv < 1 || p.B > 65535 || (use_bonus && !u)) return 1;
+  return 2;
+}
+
 }  // namespace
 
-// path, as ops.py's kernel_path chose it: 0 the CUDA-core kernel (f32), 1
-// the scalar-decay tensor-core kernel (bf16, q and k stride 0 over heads,
-// log_w stride 0 over d), 2 the vector-decay tensor-core kernel (bf16).
-// Each returns 0 or a cudaError_t.
+// path, as ops.py's kernel_path chose it (the index in its PATHS): 0 the
+// CUDA-core kernel (f32, any view), 1 the scalar-decay tensor-core kernel
+// (bf16, q and k stride 0 over heads, log_w stride 0 over d), 2 the
+// vector-decay tensor-core kernel (bf16), 3 and 4 their f32 siblings on
+// 3xTF32.  Each returns 0 or a cudaError_t.
 extern "C" int decay_attention_f32(const void* q, const void* k, const void* v, const void* lw,
                                    const void* u, const void* h0, void* out, void* hT,
                                    const long long* dims, const long long* strides,
                                    int use_bonus, int path, void* stream) {
-  if (path != 0) return (int)cudaErrorInvalidValue;
-  return launch<float>(q, k, v, lw, u, h0, out, hT, dims, strides, use_bonus, stream);
+  if (path == 0)
+    return launch<float>(q, k, v, lw, u, h0, out, hT, dims, strides, use_bonus, stream);
+  if (path != 3 && path != 4) return (int)cudaErrorInvalidValue;
+  const F32Params p = tc_params<float>(q, k, v, lw, u, h0, out, hT, dims, strides, use_bonus);
+  const int ready = tc_ready(p, use_bonus, u);
+  if (ready != 2) return ready ? (int)cudaErrorInvalidValue : 0;
+  return launch_tc_f32(p, path, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int decay_attention_bf16(const void* q, const void* k, const void* v, const void* lw,
@@ -1032,24 +1668,10 @@ extern "C" int decay_attention_bf16(const void* q, const void* k, const void* v,
                                     const long long* dims, const long long* strides,
                                     int use_bonus, int path, void* stream) {
   if (path != 1 && path != 2) return (int)cudaErrorInvalidValue;
-  TcParams p;
-  p.B = (int)dims[0], p.S = (int)dims[1], p.H = (int)dims[2];
-  p.dk = (int)dims[3], p.dv = (int)dims[4];
-  p.use_bonus = use_bonus;
-  long long* s[5] = {p.q, p.k, p.v, p.w, p.o};
-  for (int t = 0; t < 5; ++t)
-    for (int i = 0; i < 4; ++i) s[t][i] = strides[4 * t + i];
-  p.qp = static_cast<const __nv_bfloat16*>(q);
-  p.kp = static_cast<const __nv_bfloat16*>(k);
-  p.vp = static_cast<const __nv_bfloat16*>(v);
-  p.wp = static_cast<const float*>(lw);
-  p.u = static_cast<const float*>(u);
-  p.h0 = static_cast<const float*>(h0);
-  p.op = static_cast<__nv_bfloat16*>(out);
-  p.hT = static_cast<float*>(hT);
-  if (p.B <= 0 || p.H <= 0) return 0;
-  if (p.S < 0 || p.dk < 1 || p.dv < 1 || p.B > 65535 || (use_bonus && !u))
-    return (int)cudaErrorInvalidValue;
+  const TcParams p =
+      tc_params<__nv_bfloat16>(q, k, v, lw, u, h0, out, hT, dims, strides, use_bonus);
+  const int ready = tc_ready(p, use_bonus, u);
+  if (ready != 2) return ready ? (int)cudaErrorInvalidValue : 0;
   return launch_tc(p, path, static_cast<cudaStream_t>(stream));
 }
 

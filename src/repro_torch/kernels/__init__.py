@@ -14,7 +14,8 @@ launches = {"paged_attention": 0, "block_copy": 0, "bulk_op": 0, "flash_attentio
             "flash_attention:simt": 0, "flash_attention:mma": 0, "flash_attention:wgmma": 0,
             "flash_attention:tf32x3": 0,
             "decay_attention": 0, "decay_attention:simt": 0, "decay_attention:scalar_tc": 0,
-            "decay_attention:vector_tc": 0}
+            "decay_attention:vector_tc": 0, "decay_attention:scalar_tc_f32": 0,
+            "decay_attention:vector_tc_f32": 0}
 
 
 def reset_launches() -> None:

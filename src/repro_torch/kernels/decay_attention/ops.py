@@ -14,7 +14,7 @@ thrown away it is the reference's ``kernels/decay_attention/ops.py:
 decay_attention`` (which rounds u to q's type first; the model path keeps u
 in float32, and so does this).
 
-The kernel takes one of three paths, chosen before it launches by type and
+The kernel takes one of five paths, chosen before it launches by type and
 strides alone (:func:`kernel_path`); a path that fails raises, none falls
 back to another or to the plain version:
 
@@ -22,16 +22,21 @@ back to another or to the plain version:
   over heads) and one decay per head (log_w stride 0 over the state dim),
   Mamba2's call: tensor cores, no factored decay weights.
 * ``"vector_tc"``: every other bfloat16 call (RWKV6's): tensor cores.
-* ``"simt"``: float32, on CUDA cores.
+* ``"scalar_tc_f32"`` and ``"vector_tc_f32"``: the same two forms in
+  float32, each product three TF32 products on tensor cores.
+* ``"simt"``: float32 views the tensor-core paths' copies cannot read, on
+  CUDA cores, element by element.
 
 ``last_path`` holds the path of the last launch, and
 ``kernels.launches["decay_attention:<path>"]`` counts launches by path.
 
-The bfloat16 paths copy rows of q, k, v (and of log_w on ``vector_tc``) in
-16-byte pieces, so they take only views whose d is contiguous and a
-multiple of 8, whose base is 16-byte aligned and whose other strides are
-multiples of 16 bytes (a dimension of size 1 is exempt); others raise
-rather than being copied.  The model path's views meet this.
+The tensor-core paths copy rows of q, k, v (and of log_w on the vector
+forms) in 16-byte pieces, so they take only views whose d is contiguous and
+a multiple of 8 (bfloat16) or 4 (float32) elements, whose base is 16-byte
+aligned and whose other strides are multiples of 16 bytes (a dimension of
+size 1 is exempt).  A bfloat16 view that misses this raises rather than
+being copied; a float32 one takes ``simt``.  The model path's views meet
+it.
 
 Forward only, like the reference (its kernel has no ``custom_vjp``): a call
 that autograd would have to differentiate raises.
@@ -52,7 +57,7 @@ __all__ = ["decay_attention", "kernel_path", "MAX_D", "PATHS"]
 MAX_D = 64
 _ENTRY = {torch.float32: "decay_attention_f32", torch.bfloat16: "decay_attention_bf16"}
 #: the kernel paths, by the code the C entry points take
-PATHS = ("simt", "scalar_tc", "vector_tc")
+PATHS = ("simt", "scalar_tc", "vector_tc", "scalar_tc_f32", "vector_tc_f32")
 
 #: the kernel path of the last launch
 last_path = None
@@ -105,25 +110,27 @@ def _rows_ok(t: torch.Tensor, align: int) -> bool:
 
 
 def kernel_path(q, k, v, log_w) -> str:
-    """The kernel path a call on the card takes: ``"simt"`` for float32,
-    ``"scalar_tc"`` for bfloat16 with q and k stride 0 over heads and log_w
-    stride 0 over the state dim, else ``"vector_tc"``.  Decided from type and
-    strides alone.  Raises ValueError for a bfloat16 view that the
-    tensor-core paths' 16-byte row copies cannot read."""
-    if q.dtype != torch.bfloat16:
-        return "simt"
-    path = ("scalar_tc" if q.stride(2) == 0 and k.stride(2) == 0 and log_w.stride(3) == 0
-            else "vector_tc")
+    """The kernel path a call on the card takes, decided from type and
+    strides alone: ``"scalar_tc"`` (bfloat16) or ``"scalar_tc_f32"``
+    (float32) when q and k are stride 0 over heads and log_w stride 0 over
+    the state dim, else ``"vector_tc"`` or ``"vector_tc_f32"``; a float32
+    view that the 16-byte row copies cannot read takes ``"simt"``.  Raises
+    ValueError for such a bfloat16 view."""
+    scalar = q.stride(2) == 0 and k.stride(2) == 0 and log_w.stride(3) == 0
     dk, dv = q.shape[3], v.shape[3]
     bad = [name for name, t in (("q", q), ("k", k), ("v", v)) if not _rows_ok(t, 16)]
-    if path == "vector_tc" and not _rows_ok(log_w, 16):
+    if not scalar and not _rows_ok(log_w, 16):
         bad.append("log_w")
+    if q.dtype != torch.bfloat16:
+        if dk % 4 or dv % 4 or bad:
+            return "simt"
+        return "scalar_tc_f32" if scalar else "vector_tc_f32"
     if dk % 8 or dv % 8 or bad:
         raise ValueError(
             f"the bfloat16 kernel paths copy rows in 16-byte pieces: they take dk and dv "
             f"multiples of 8 (got {dk}, {dv}) and views with d contiguous, a 16-byte aligned "
             f"base and strides of whole 16 bytes (not so: {', '.join(bad) or 'none'})")
-    return path
+    return "scalar_tc" if scalar else "vector_tc"
 
 
 def _launch(q, k, v, log_w, bonus, h0, return_state):

@@ -642,22 +642,36 @@ def _decay_inputs(B, S, H, dk, dv, bonus, seed=0):
             for a in (q, k, v, lw, u)]
 
 
-def _decay_path(q, k, lw):
-    """The path the wrapper's rule gives (ops.py): simt for float32; for
-    bfloat16, scalar_tc when q and k are stride 0 over heads and log_w over
-    the state dim, else vector_tc."""
-    if q.dtype == torch.float32:
-        return "simt"
-    return ("scalar_tc" if q.stride(2) == 0 and k.stride(2) == 0 and lw.stride(3) == 0
-            else "vector_tc")
+def _rows16(t):
+    """d contiguous, a 16-byte aligned base, the other strides on 16 bytes
+    (a dimension of size 1 exempt): what the tensor-core paths' copies read."""
+    item = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(t.shape[i] == 1 or (t.stride(i) * item) % 16 == 0 for i in range(3)))
+
+
+def _decay_path(q, k, v, lw):
+    """The path the wrapper's rule gives (ops.py): the scalar form when q
+    and k are stride 0 over heads and log_w over the state dim, else the
+    vector form; bfloat16 on ``scalar_tc`` / ``vector_tc``; float32 on their
+    ``_f32`` siblings when d is a multiple of 4 and the rows are whole 16
+    bytes, else on ``simt``."""
+    scalar = q.stride(2) == 0 and k.stride(2) == 0 and lw.stride(3) == 0
+    form = "scalar_tc" if scalar else "vector_tc"
+    if q.dtype == torch.bfloat16:
+        return form
+    rows = all(_rows16(t) for t in (q, k, v) + (() if scalar else (lw,)))
+    return form + "_f32" if rows and q.shape[3] % 4 == 0 and v.shape[3] % 4 == 0 else "simt"
 
 
 def _decay_check(q, k, v, lw, u=None, h0=None, tol=DECAY_TOL):
     before = kernels.launches["decay_attention"]
+    path = _decay_path(q, k, v, lw)
+    on_path = kernels.launches[f"decay_attention:{path}"]
     y, hT = dc_ops.decay_attention(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
     torch.cuda.synchronize()
     assert kernels.launches["decay_attention"] == before + 1
-    assert dc_ops.last_path == _decay_path(q, k, lw)
+    assert dc_ops.last_path == path and kernels.launches[f"decay_attention:{path}"] == on_path + 1
     py, ph = chunked_decay_ref(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
     assert y.dtype == q.dtype and y.shape == v.shape and hT.dtype == torch.float32
     scale = max(1.0, py.float().abs().max().item()) if q.dtype == torch.bfloat16 else 1.0
@@ -702,6 +716,8 @@ STRIDE0_CASES = [
     (torch.float32, 2, 75, 8, 16, 32, False, False),
     (torch.bfloat16, 2, 300, 112, 64, 64, True, False),
     (torch.bfloat16, 1, 100, 5, 32, 64, True, True),
+    (torch.float32, 2, 300, 112, 64, 64, True, False),
+    (torch.float32, 1, 100, 5, 32, 64, True, True),
 ]
 
 
@@ -751,14 +767,148 @@ def test_decay_attention_kernel_bf16(cuda, bonus, lw_scale):
     _decay_check(q.bfloat16(), k.bfloat16(), v.bfloat16(), lw * lw_scale, u, h0, tol=2e-2)
 
 
+def _scalar_views(B, S, H, ns, hd, dtype=torch.float32, dt_scale=1.0, seed=3, lead=0):
+    """Mamba2's call: C and B slices of one wider row (``lead`` floats
+    before them), broadcast over heads; the per-head decay over the state."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xBC = torch.randn(B, S, lead + 2 * ns, generator=g, device="cuda")
+    xBC[..., lead + ns:] *= 0.3
+    xBC = xBC.to(dtype)
+    q = xBC[:, :, None, lead:lead + ns].expand(B, S, H, ns)
+    k = xBC[:, :, None, lead + ns:].expand(B, S, H, ns)
+    lw = (-torch.rand(B, S, H, generator=g, device="cuda") * dt_scale)[..., None].expand(B, S, H, ns)
+    v = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dtype)
+    return q, k, v, lw
+
+
+# (form, dk, dv): widths 16, 32 and 64 with dk != dv, and 4 (the least f32 width)
+F32_WIDTHS = [(f, dk, dv) for f in ("vector", "scalar")
+              for dk, dv in ((16, 32), (32, 64), (64, 16), (64, 64), (4, 12))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_WIDTHS, ids=lambda c: "-".join(map(str, c)))
+def test_decay_attention_f32_paths_at_each_width(cuda, case):
+    """Both f32 tensor-core paths at d 16/32/64 (dk != dv) and 4, a ragged
+    S, an initial state and the final state, the bonus on the vector form:
+    within 2e-3 of the plain chunked form, and of the sequential oracle."""
+    form, dk, dv = case
+    g = torch.Generator(device="cuda").manual_seed(dk + dv)
+    if form == "vector":
+        q, k, v, lw, u = _decay_inputs(2, 77, 3, dk, dv, True, seed=dk)
+    else:
+        q, k, v, lw = _scalar_views(2, 77, 3, dk, dv, seed=dk)
+        u = None
+    h0 = torch.randn(2, 3, dk, dv, generator=g, device="cuda")
+    y, hT = _decay_check(q, k, v, lw, u, h0)
+    assert dc_ops.last_path == f"{form}_tc_f32"
+    oy, oh = decay_attention_ref(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
+    assert (y - oy).abs().max().item() < DECAY_TOL
+    assert (hT - oh).abs().max().item() < DECAY_TOL * max(1.0, oh.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["vector", "scalar"])
+@pytest.mark.parametrize("decay", ["at-the-clip", "times4"])
+def test_decay_attention_f32_paths_at_the_clip(cuda, form, decay):
+    """log_w pinned past the clip (every step -1.8: the factored decays
+    reach e^(+-57.6) in a chunk) and the reference statistics times 4:
+    within 2e-3 of the plain chunked form and of the sequential oracle."""
+    if form == "vector":
+        q, k, v, lw, u = _decay_inputs(2, 130, 4, 64, 64, True, seed=4)
+        lw = torch.full_like(lw, -2.0) if decay == "at-the-clip" else lw * 4
+    else:
+        q, k, v, lw = _scalar_views(2, 130, 4, 64, 64, dt_scale=4.0)
+        u = None
+        if decay == "at-the-clip":
+            lw = torch.full(lw.shape[:3], -2.0, device="cuda")[..., None].expand(lw.shape)
+    h0 = torch.randn(q.shape[0], q.shape[2], 64, 64, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(5))
+    y, hT = _decay_check(q, k, v, lw, u, h0)
+    assert dc_ops.last_path == f"{form}_tc_f32"
+    oy, oh = decay_attention_ref(q, k, v, lw, bonus=u, initial_state=h0, return_state=True)
+    assert (y - oy).abs().max().item() < DECAY_TOL
+    assert (hT - oh).abs().max().item() < DECAY_TOL * max(1.0, oh.abs().max().item())
+
+
+# views at the 16-byte edge: (what, build from contiguous f32 q, k, v, lw, path)
+EDGE_VIEWS = [
+    ("rows padded by 16 bytes", lambda t: torch.zeros(*t.shape[:3], t.shape[3] + 4,
+                                                      device="cuda")[..., :t.shape[3]].copy_(t),
+     "vector_tc_f32"),
+    ("base 16 bytes in", lambda t: torch.zeros(t.numel() + 4, device="cuda")[4:]
+     .view(t.shape).copy_(t), "vector_tc_f32"),
+    ("base 4 bytes in", lambda t: torch.zeros(t.numel() + 1, device="cuda")[1:]
+     .view(t.shape).copy_(t), "simt"),
+    ("rows padded by 8 bytes", lambda t: torch.zeros(*t.shape[:3], t.shape[3] + 2,
+                                                     device="cuda")[..., :t.shape[3]].copy_(t),
+     "simt"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", EDGE_VIEWS, ids=lambda e: e[0])
+def test_decay_attention_f32_views_at_the_16_byte_edge(cuda, edge):
+    """f32 views whose rows sit on whole 16 bytes take the tensor-core path,
+    those a few bytes off take ``simt``; both hold the plain chunked form."""
+    what, make, want = edge
+    q, k, v, lw, u = _decay_inputs(2, 45, 3, 16, 16, True, seed=7)
+    views = [make(t) for t in (q, k, v, lw)]
+    y, hT = _decay_check(*views, u)
+    assert dc_ops.last_path == want
+    y0, h0 = dc_ops.decay_attention(q, k, v, lw, bonus=u, return_state=True)
+    assert (y - y0).abs().max().item() < DECAY_TOL and (hT - h0).abs().max().item() < DECAY_TOL
+
+
+@pytest.mark.cuda
+def test_decay_attention_f32_paths_count_and_refuse(cuda):
+    """Each f32 path counts its own launches, raises under autograd before
+    launching, and a tensor-core launch that the C entry refuses (d past 64,
+    a vector view sent to the scalar path) raises: no fallback."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    vec = _decay_inputs(1, 40, 2, 16, 16, True)
+    sca = _scalar_views(1, 40, 2, 16, 16)
+    kernels.reset_launches()
+    dc_ops.decay_attention(*vec[:4], bonus=vec[4])
+    dc_ops.decay_attention(*sca)
+    dc_ops.decay_attention(*sca)
+    assert kernels.launches["decay_attention:vector_tc_f32"] == 1
+    assert kernels.launches["decay_attention:scalar_tc_f32"] == 2
+    assert kernels.launches["decay_attention"] == 3
+    for views in (vec[:4], sca):
+        q = views[0].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="forward-only"):
+            dc_ops.decay_attention(q, *views[1:4])
+    assert kernels.launches["decay_attention"] == 3
+    lib = _build.library("decay_attention")
+    fn = lib.decay_attention_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    q = torch.zeros(1, 40, 2, 68, device="cuda")
+    out = torch.empty(1, 40, 2, 68, device="cuda")
+    strides = (ctypes.c_longlong * 20)(*(q.stride(i) for _ in range(5) for i in range(4)))
+    stream = torch.cuda.current_stream().cuda_stream
+    for dims, path in (((1, 40, 2, 68, 68), 4), ((1, 40, 2, 64, 64), 3), ((1, 40, 2, 68, 68), 3)):
+        status = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(), None, None,
+                    out.data_ptr(), None, (ctypes.c_longlong * 5)(*dims), strides, 0, path, stream)
+        assert status != 0, (dims, path)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check(lib, status, "decay_attention")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,path", [("zamba2_7b", "scalar_tc"), ("rwkv6_7b", "vector_tc")])
 def test_decay_attention_model_views_take_their_path(cuda, arch, path):
     """The smoke model's own calls (``mamba2.py``'s C/B slices of ``xBC``
     and broadcast decay; ``rwkv6.py``'s reshaped projections and f32 decay)
-    in bfloat16 take the tensor-core path of their family, in float32
-    ``simt``; every launch of a ``prefill_logits`` forward counts there."""
-    for dtype, want in (("bfloat16", path), ("float32", "simt")):
+    take the tensor-core path of their family, in bfloat16 and in float32
+    (its ``_f32`` sibling); every launch of a ``prefill_logits`` forward
+    counts there."""
+    for dtype, want in (("bfloat16", path), ("float32", f"{path}_f32")):
         cfg = dataclasses.replace(get_config(arch).smoke(), dtype=dtype)
         model = LM(cfg, remat=None)
         params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
