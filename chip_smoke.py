@@ -21,6 +21,11 @@ before each and read just after:
 * granite_34b at its full width (MQA: 48 query heads on one KV head of 128)
   and 8 of its 88 layers, served eagerly and through the CUDA graphs with
   equal ids: the paged kernel at a group of 48;
+* granite_moe_3b_a800m at its full width and depth (32 layers of 40
+  experts of d_ff 512, top-8) served eagerly and through the CUDA graphs
+  with a fork, ids equal and one graphed step bit-equal: the MoE layer
+  (routing, capacity buffer, expert products) on the serving main path,
+  the paged kernel at a group of 3;
 * the full-width stablelm_1_6b trained for 20 steps by
   ``repro_torch.launch.train --full`` (chunked attention, full remat,
   AdamW, checkpointed), then evaluated and prefilled at 4 x 2048 tokens
@@ -54,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib.util
 import json
 import math
@@ -91,6 +97,7 @@ from repro_torch.kernels.pud_bulk.ref import block_copy_ref, bulk_op_ref  # noqa
 from repro_torch.models.bridge import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.models import inert  # noqa: E402
 from repro_torch.models import mamba2 as M2  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import rwkv6 as R6  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.layers import pad_vocab  # noqa: E402
@@ -104,7 +111,7 @@ from repro_torch.serve.engine import MaintenanceConfig, Request, ServeEngine  # 
 from repro_torch.serve.paged_runner import paged_decode_step, paged_decode_step_jit  # noqa: E402
 from repro_torch.train.step import build_eval_step  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.tree import leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
@@ -150,6 +157,12 @@ FLASH_D128 = dict(B=4, Hq=32, Hkv=8, Sq=2048, Sk=2048, D=128, causal=True)
 GRANITE_ARCH, GRANITE_LAYERS, GRANITE_SEED = "granite_34b", 8, 6
 GRANITE_FULL = (6144, 48, 1, 128, 24576, 49152, "gelu", "layernorm")
 GRANITE_REQUESTS, GRANITE_NEW = 8, 16
+# the MoE serve: granite_moe_3b_a800m unreduced (layers, d, query heads, KV
+# heads, head width, expert d_ff, vocab, experts, experts a token), 12
+# requests of 64-512 seeded prompt tokens and 32 new tokens each
+MOE_ARCH, MOE_SEED = "granite_moe_3b_a800m", 9
+MOE_FULL = (32, 1536, 24, 8, 64, 512, 49155, 40, 8)
+MOE_REQUESTS, MOE_NEW = 12, 32
 # the GQA forward's model, its full width (layers, d, heads, KV heads, head
 # width, d_ff, vocab) and its weights' seed
 GQA_ARCH, GQA_SEED = "mistral_nemo_12b", 5
@@ -297,6 +310,10 @@ def phase_kernels() -> dict:
         ("mqa48-bf16", dict(B=MAX_SEQS, Hq=48, Hkv=1, D=128, lens=main_lens(), dtype=torch.bfloat16)),
         ("mqa48-f32", dict(B=MAX_SEQS, Hq=48, Hkv=1, D=128, lens=[0, 1, 63, 64, 65, 300, 1000, 1024],
                            dtype=torch.float32)),
+        # granite_moe_3b_a800m's GQA group: 24 query heads on 8 KV heads of 64
+        ("moe-bf16", dict(B=MAX_SEQS, Hq=24, Hkv=8, D=64, lens=main_lens(), dtype=torch.bfloat16)),
+        ("moe-f32", dict(B=MAX_SEQS, Hq=24, Hkv=8, D=64, lens=[0, 1, 63, 64, 65, 300, 1000, 1024],
+                         dtype=torch.float32)),
     ]
     for name, kw in cases:
         args = paged_case(gen, **kw)
@@ -933,12 +950,39 @@ def fork_and_check(engine) -> dict:
     engine.pool.release(new)
     info = {"parent_slot": slot, "blocks": int(len(pb)),
             "same_arena": float(np.mean(pb // 64 == fb // 64))}
-    log(f"[serve] fork of slot {slot} at step {engine.steps}: {len(pb)} blocks x 24 layers, "
+    log(f"[serve] fork of slot {slot} at step {engine.steps}: {len(pb)} blocks x "
+        f"{engine.cfg.n_layers} layers, "
         f"pages equal; {info['same_arena']:.2f} of blocks in the parent's arena")
     return info
 
 
 # -- phase 4b: granite_34b's MQA group through the paged kernel ---------------
+
+def drive(engine, tag: str, jit: bool, fork: bool = False):
+    """Step ``engine`` until it is idle: graphed, the first step with a full
+    batch is also held bit-equal to eager (``graph_step_check``); with
+    ``fork``, a live sequence is forked as soon as a slot is free for the
+    child (``fork_and_check``).  Returns the host ms of each step that
+    neither prefills nor captures, the step check and the fork's record."""
+    step_ms, step_check, forked = [], None, None
+    alive = True
+    while alive:
+        if jit and step_check is None and len(engine.live) == MAX_SEQS:
+            step_check = graph_step_check(engine, tag)
+        pre_tok, pre_fill = engine.tokens_decoded, engine.tokens_prefilled
+        pre_captures = engine.graphs.captures if jit else 0
+        t0 = time.perf_counter()
+        alive = engine.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if (engine.tokens_prefilled == pre_fill and engine.tokens_decoded > pre_tok
+                and (engine.graphs.captures if jit else 0) == pre_captures):
+            step_ms.append(dt * 1e3)
+        if fork and forked is None and engine.live and engine.pool.occupancy()["free_slots"]:
+            forked = fork_and_check(engine)
+        check(engine.clock < 10_000, f"{tag} serving did not finish")
+    return step_ms, step_check, forked
+
 
 def granite_engine(jit: bool):
     """granite_34b at its full width and 8 of its 88 layers on the card:
@@ -980,21 +1024,7 @@ def phase_granite_serve() -> dict:
         tag = "[granite " + ("graph" if jit else "eager") + "]"
         engine = granite_engine(jit)
         kernels.reset_launches()
-        step_ms, step_check = [], None
-        alive = True
-        while alive:
-            if jit and step_check is None and len(engine.live) == MAX_SEQS:
-                step_check = graph_step_check(engine, tag)
-            pre_tok, pre_fill = engine.tokens_decoded, engine.tokens_prefilled
-            pre_captures = engine.graphs.captures if jit else 0
-            t0 = time.perf_counter()
-            alive = engine.step()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            if (engine.tokens_prefilled == pre_fill and engine.tokens_decoded > pre_tok
-                    and (engine.graphs.captures if jit else 0) == pre_captures):
-                step_ms.append(dt * 1e3)
-            check(engine.clock < 10_000, f"{tag} serving did not finish")
+        step_ms, step_check, _ = drive(engine, tag, jit)
         launches = dict(kernels.launches)
         cfg = engine.cfg
         done = sorted(engine.done, key=lambda r: r.rid)
@@ -1027,27 +1057,170 @@ def phase_granite_serve() -> dict:
     return res
 
 
+# -- phase 4c: the MoE family on the serving main path ------------------------
+
+def moe_engine(jit: bool, n_requests: int = MOE_REQUESTS, max_new: int = MOE_NEW,
+               seed: int = MOE_SEED) -> ServeEngine:
+    """granite_moe_3b_a800m at its full width and depth on the card: random
+    bf16 weights from a seeded generator, the main path's pool shape with 8
+    KV heads of 64, and ``n_requests`` submitted requests of 64-512 seeded
+    prompt tokens and ``max_new`` new tokens each.  ``phase_moe_serve``
+    drives it; ``scripts/torch_decode_profile.py --arch granite_moe_3b_a800m``
+    profiles the same serve."""
+    cfg = get_config(MOE_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+           cfg.vocab_size, cfg.n_experts, cfg.experts_per_tok) == MOE_FULL,
+          f"{MOE_ARCH} is not at full width and depth")
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[moe] {MOE_ARCH} unreduced: {count_params(params) / 1e9:.3f} B params ({cfg.dtype}, "
+        f"the vocab padded to {pad_vocab(cfg)}; the config's own count {cfg.n_params() / 1e9:.3f} "
+        f"B) in {time.perf_counter() - t0:.1f} s")
+    pool_cfg = KVPoolConfig(
+        num_blocks=NUM_BLOCKS, block_size=BLOCK, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        n_layers=cfg.n_layers, max_seqs=MAX_SEQS, max_blocks_per_seq=MAX_BLOCKS,
+        blocks_per_arena=64, dtype=cfg.kv_cache_dtype,
+    )
+    engine = ServeEngine(model, params, pool_cfg, device="cuda", jit=jit)
+    log(f"[moe] K+V pool {2 * engine.pool.k.numel() * engine.pool.k.element_size() / 1e9:.2f} GB")
+    rng = np.random.default_rng(seed)
+    for rid in range(n_requests):
+        n = int(rng.integers(64, 513))
+        engine.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                              max_new=max_new))
+    return engine
+
+
+def phase_moe_serve() -> dict:
+    """The granite_moe_3b_a800m serve eagerly and through the decode step's
+    CUDA graphs, with a fork part-way, the launch counts zeroed just before
+    each and read just after: every layer runs the paged kernel at a group
+    of 3 and the MoE block (routing, one scatter into the capacity buffer,
+    three batched expert products, one gather).  The ids must be equal
+    between the two, one graphed step at batch 8 bit-equal to eager, and no
+    request rejected.  Each prompt's prefill is timed on its own.  The eager
+    serve also counts the slots dropped over capacity, in prefill and in
+    decode (at 8 slots every expert takes 8, more than a step can send it,
+    so decode drops none); graphed, a count would be taken once, at capture."""
+    res = {}
+    for jit in (False, True):
+        tag = "[moe " + ("graph" if jit else "eager") + "]"
+        engine = moe_engine(jit)
+        cfg = engine.cfg
+        weight_bytes = sum(t.numel() * t.element_size() for t in leaves(engine.params))
+        drops = {"prefill": [], "decode": []}
+        phase, prefill_ms = ["decode"], []
+        prefill, route = engine._prefill, MOE._route
+
+        def timed_prefill(req):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            phase[0] = "prefill"
+            try:
+                return prefill(req)
+            finally:
+                phase[0] = "decode"
+                torch.cuda.synchronize()
+                prefill_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def counted(xt, router, cfg_):
+            out = route(xt, router, cfg_)
+            C = MOE.capacity(cfg_, xt.shape[0])
+            drops[phase[0]].append((out[3] == cfg_.n_experts * C).sum())
+            return out
+
+        engine._prefill = timed_prefill
+        if not jit:
+            MOE._route = counted
+        kernels.reset_launches()
+        try:
+            step_ms, step_check, fork = drive(engine, tag, jit, fork=True)
+        finally:
+            MOE._route = route
+            del engine._prefill
+        launches = dict(kernels.launches)
+        done = sorted(engine.done, key=lambda r: r.rid)
+        check(len(done) == MOE_REQUESTS and not engine.rejected and not engine.cancelled,
+              f"{tag} served {len(done)} of {MOE_REQUESTS} (rejected {len(engine.rejected)})")
+        vocab = pad_vocab(cfg)
+        for r in done:
+            check(len(r.out) == MOE_NEW and all(0 <= t < vocab for t in r.out),
+                  f"{tag} request {r.rid}: {len(r.out)} ids")
+        check(launches["paged_attention"] == cfg.n_layers * engine.steps and engine.steps > 0,
+              f"{tag} paged_attention launches {launches['paged_attention']} != "
+              f"{cfg.n_layers} x {engine.steps} steps")
+        check(fork is not None and launches["block_copy"] > 0,
+              f"{tag} the fork launched {launches['block_copy']} block copies")
+        if jit:
+            check(step_check is not None and engine.graphs.captures > 0,
+                  f"{tag} never decoded a full batch through a graph")
+        key = "graph" if jit else "eager"
+        res[key] = {"ids": {r.rid: list(r.out) for r in done}, "steps": engine.steps,
+                    "mean_decode_step_ms": statistics.mean(step_ms),
+                    "decode_steps_timed": len(step_ms),
+                    "mean_prefill_ms": statistics.mean(prefill_ms), "prefills": len(prefill_ms),
+                    "paged_launches": launches["paged_attention"],
+                    "block_copy_launches": launches["block_copy"],
+                    "captures": engine.graphs.captures if jit else 0}
+        log(f"{tag} {MOE_REQUESTS} requests x {MOE_NEW} ids in {engine.steps} steps: mean decode "
+            f"step {res[key]['mean_decode_step_ms']:.2f} ms over {len(step_ms)} steps (host clock "
+            f"incl. sync; steps that prefill or capture left out); mean prefill "
+            f"{res[key]['mean_prefill_ms']:.2f} ms per prompt over {len(prefill_ms)} prompts; "
+            f"{launches['paged_attention']} paged_attention launches at a group of "
+            f"{cfg.n_heads // cfg.n_kv_heads} x {cfg.hd}, {launches['block_copy']} block_copy"
+            + (f"; {engine.graphs.captures} captures" if jit else ""))
+        if not jit:
+            n_drop = {k: int(torch.stack(v).sum()) if v else 0 for k, v in drops.items()}
+            calls = {k: len(v) for k, v in drops.items()}
+            res["dropped"] = n_drop
+            log(f"{tag} slots dropped over capacity: prefill {n_drop['prefill']} over "
+                f"{calls['prefill']} layer calls (C = 1.25 x S x {cfg.experts_per_tok} / "
+                f"{cfg.n_experts} for a prompt of S), decode {n_drop['decode']} over "
+                f"{calls['decode']} (C = {MOE.capacity(cfg, MAX_SEQS)} at {MAX_SEQS} slots)")
+            check(n_drop["decode"] == 0, f"{tag} decode dropped {n_drop['decode']} slots")
+            res["floor_ms"] = weight_bytes / HBM_BYTES_PER_S * 1e3
+            log(f"[moe] floor of the reference's math: the capacity buffer runs every expert, so "
+                f"each decode step reads all {weight_bytes / 1e9:.2f} GB of weights: "
+                f"{res['floor_ms']:.3f} ms at 3.35 TB/s")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(res["graph"]["ids"] == res["eager"]["ids"], "moe: graphed ids differ from eager")
+    check(res["graph"]["steps"] == res["eager"]["steps"], "moe: the graph changed the schedule")
+    log(f"[moe] ids equal eager and graphed; decode step eager "
+        f"{res['eager']['mean_decode_step_ms']:.2f} ms, graphed "
+        f"{res['graph']['mean_decode_step_ms']:.2f} ms (floor {res['floor_ms']:.3f} ms)")
+    return res
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 def phase_small_vs_cpu() -> None:
-    cfg = get_config("stablelm_1_6b").smoke()
-    model = LM(cfg)
-    tree = params_to_numpy(model.init(torch.Generator().manual_seed(1), device="cpu"))
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(4, 40))).tolist() for _ in range(6)]
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        pool_cfg = KVPoolConfig(
-            num_blocks=64, block_size=8, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-            n_layers=cfg.n_layers, max_seqs=3, max_blocks_per_seq=16,
-            blocks_per_arena=16, dtype="float32")
-        eng = ServeEngine(model, params_from_numpy(model, tree, device=dev), pool_cfg, device=dev)
-        for rid, p in enumerate(prompts):
-            eng.submit(Request(rid=rid, prompt=p, max_new=8))
-        outs[dev] = {r.rid: r.out for r in eng.run()}
-    check(len(outs["cuda"]) == 6 and outs["cuda"] == outs["cpu"],
-          f"card and CPU ids differ: {outs}")
-    log(f"[small] smoke config, 6 requests x 8 ids: card ids == CPU ids")
+    """The smoke stablelm_1_6b and granite_moe_1b_a400m (f32) served on the
+    card and on the CPU from the same weights: 6 requests x 8 ids, equal."""
+    for arch in ("stablelm_1_6b", "granite_moe_1b_a400m"):
+        cfg = get_config(arch).smoke()
+        model = LM(cfg)
+        tree = params_to_numpy(model.init(torch.Generator().manual_seed(1), device="cpu"))
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(4, 40))).tolist()
+                   for _ in range(6)]
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            pool_cfg = KVPoolConfig(
+                num_blocks=64, block_size=8, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                n_layers=cfg.n_layers, max_seqs=3, max_blocks_per_seq=16,
+                blocks_per_arena=16, dtype="float32")
+            eng = ServeEngine(model, params_from_numpy(model, tree, device=dev), pool_cfg,
+                              device=dev)
+            for rid, p in enumerate(prompts):
+                eng.submit(Request(rid=rid, prompt=p, max_new=8))
+            outs[dev] = {r.rid: r.out for r in eng.run()}
+        check(len(outs["cuda"]) == 6 and outs["cuda"] == outs["cpu"],
+              f"{arch} smoke: card and CPU ids differ: {outs}")
+        log(f"[small] {arch} smoke config, 6 requests x 8 ids: card ids == CPU ids")
 
 
 def phase_smoke_flash_vs_cpu() -> dict:
@@ -1748,6 +1921,7 @@ def phase_times() -> dict:
     times.update(flash_times())
     times.update(paged_fp8_times())
     times.update(paged_mqa_times())
+    times.update(paged_moe_times())
     times.update(decay_times())
     # after every timing: the profiler slows the host's launches once it has run
     per_call = device_launches(lambda: pa_ops._launch(qg, kp, vp, tbl, lens_t, scale))
@@ -1844,6 +2018,33 @@ def paged_mqa_times() -> dict:
         "ops_ms": 4 * Hq * D * sum(lens) / F32_FLOPS * 1e3,
         "library_ms": None,
         "shape": f"B={MAX_SEQS} Hq={Hq} Hkv=1 D={D} bs={BLOCK} lens={lens} bf16 (granite_34b decode)",
+    }}
+
+
+def paged_moe_times() -> dict:
+    """Paged attention at granite_moe_3b_a800m's decode shape: 8 sequences
+    of the main path's lengths, 24 query heads on 8 KV heads of 64 (a group
+    of 3), bf16 pages.  The bound counts what the main shape's counts: each
+    sequence's K and V rows once, its table entries, the lengths, q and
+    out."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lens = main_lens()
+    Hq, Hkv, D = 24, 8, 64
+    q, kp, vp, tbl, lens_t = paged_case(gen, MAX_SEQS, Hq, Hkv, D, lens, torch.bfloat16)
+    qg = q.reshape(MAX_SEQS, Hkv, Hq // Hkv, D)
+    scale = D ** -0.5
+    item = q.element_size()
+    pages_read = sum(-(-n // BLOCK) for n in lens)
+    nbytes = (2 * sum(lens) * Hkv * D * item + 2 * q.numel() * item + pages_read * 4
+              + lens_t.numel() * 4)
+    return {"paged_attention:moe": {
+        "ms": time_ms(lambda: pa_ops._launch(qg, kp, vp, tbl, lens_t, scale), 50),
+        "plain_ms": time_ms(lambda: paged_attention_ref(qg, kp, vp, tbl, lens_t, scale=scale), 10),
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "ops_ms": 4 * Hq * D * sum(lens) / F32_FLOPS * 1e3,
+        "library_ms": None,
+        "shape": f"B={MAX_SEQS} Hq={Hq} Hkv={Hkv} D={D} bs={BLOCK} lens={lens} bf16 "
+                 f"(granite_moe_3b_a800m decode)",
     }}
 
 
@@ -2014,6 +2215,7 @@ def main() -> None:
         log(f"[serve] {key}: eager {serve_eager[key]}, graphed {serve[key]}, "
             f"graphed+maint {serve_maint[key]}")
     granite = phase_granite_serve()
+    moe = phase_moe_serve()
     phase_small_vs_cpu()
     phase_smoke_flash_vs_cpu()
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2036,9 +2238,13 @@ def main() -> None:
                                                                     ("zamba2_7b", 4))}
     phase_state_small_vs_cpu()
     times = phase_times()
+    log(f"[times] paged_attention:moe launches on the graphed MoE serve: "
+        f"{moe['graph']['paged_launches']}")
     launches = {"paged_attention": (serve_maint["launches"]["paged_attention"]
-                                    + granite["graph"]["paged_launches"]),
-                "block_copy": serve_maint["launches"]["block_copy"],
+                                    + granite["graph"]["paged_launches"]
+                                    + moe["graph"]["paged_launches"]),
+                "block_copy": (serve_maint["launches"]["block_copy"]
+                               + moe["graph"]["block_copy_launches"]),
                 "bulk_op": bitmap["launches"]["bulk_op"],
                 "flash_attention": (flash["launches_total"] + gqa["launches_total"]
                                     + flash32["launches_total"]),

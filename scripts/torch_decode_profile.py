@@ -13,6 +13,14 @@ admits and prefills all of them, a few decode steps warm up (and capture the
 graph), then ``--steps`` pure decode steps run with the profiler off and
 ``--steps`` more under ``torch.profiler``.
 
+``--arch granite_moe_3b_a800m`` serves the full-width MoE model the same
+way, built as ``chip_smoke.py``'s MoE phase builds it (``moe_engine``), and
+then times each piece of the MoE layer at the decode shape (8 tokens), for
+all 32 layers' weights in one CUDA graph: routing (router product, softmax,
+sort, positions), dispatch (the index add into the capacity buffer), the
+expert products, combine (the gather and the gate-weighted sum), and the
+whole block with its aux loss.
+
 ``--arch rwkv6_7b`` or ``zamba2_7b`` drives the state path of
 ``chip_smoke.py``'s ``phase_state_model`` (the same seeded weights, inert
 leaves set): 8 prompts of 1024 tokens through ``decode_step`` (and
@@ -25,8 +33,9 @@ For each window it prints the step time with the profiler off (host clock
 around the step and a synchronize), the device-busy time per step (union
 of kernel and copy intervals on the device), the device idle share against
 the unprofiled step time, device events and host launch calls per step
-(``cudaLaunchKernel``, ``cudaGraphLaunch``, copies), and the top kernels by
-device time and operators by host time.  Writes the summary as JSON and
+(``cudaLaunchKernel``, ``cudaGraphLaunch``, copies), the device time by
+kind of kernel (``CATEGORIES``: by name), and the top kernels by device time
+and operators by host time.  Writes the summary as JSON and
 the Chrome trace under ``--out``.  Needs one CUDA device.
 """
 from __future__ import annotations
@@ -46,10 +55,25 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402  (puts src on sys.path)
-from chip_smoke import MAX_SEQS, STATE_BATCH, STATE_PROMPT, full_width_engine  # noqa: E402
+from chip_smoke import (MAX_SEQS, MOE_ARCH, STATE_BATCH, STATE_PROMPT,  # noqa: E402
+                        full_width_engine, moe_engine)
 from repro_torch.graphs import decode_step_jit  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models.transformer import layer_params  # noqa: E402
 
 STATE_ARCHS = ("rwkv6_7b", "zamba2_7b")
+# a step's device time by kind of kernel: the first kind whose pattern is in
+# a kernel's name takes it (the rest is "other")
+CATEGORIES = (
+    ("paged attention", ("paged_",)),
+    ("copies", ("Memcpy", "Memset", "copy_kernel")),
+    ("sort, searchsorted", ("sort", "Sort", "searchsorted")),
+    ("index add", ("index_add", "indexFunc")),
+    ("gather, index", ("index_elementwise", "gather", "Gather")),
+    ("matmuls", ("nvjet", "gemm", "gemv", "cutlass", "xmma", "splitK", "Kernel2")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise_kernel",)),
+)
 # the host's runtime calls that start device work, counted per step
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch", "cudaMemcpyAsync",
                 "cudaMemsetAsync")
@@ -71,6 +95,10 @@ def summarize(prof, n: int, plain_ms, host_ms) -> dict:
     for e in dev:
         t, c = by_kernel.get(e.name, (0.0, 0))
         by_kernel[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    by_kind = {}
+    for name, (t, _) in by_kernel.items():
+        kind = next((k for k, pats in CATEGORIES if any(p in name for p in pats)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + t / 1e3 / n
     host = prof.key_averages()
     calls = {e.key: e.count / n for e in host if e.key in LAUNCH_CALLS}
     return {
@@ -81,8 +109,9 @@ def summarize(prof, n: int, plain_ms, host_ms) -> dict:
         "device_idle_share_profiler_off": 1.0 - (busy_us / 1e3 / n) / float(np.mean(plain_ms)),
         "device_events_per_step": len(dev) / n,
         "host_launch_calls_per_step": calls,
+        "device_ms_per_step_by_kind": dict(sorted(by_kind.items(), key=lambda r: -r[1])),
         "top_device": sorted(((k[:100], t / 1e3 / n, c / n) for k, (t, c) in by_kernel.items()),
-                             key=lambda r: -r[1])[:12],
+                             key=lambda r: -r[1])[:16],
         "top_host": [(e.key, e.self_cpu_time_total / 1e3 / n, e.count / n) for e in
                      sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]],
     }
@@ -103,10 +132,59 @@ def profile_window(step, n: int):
     return summarize(prof, n, plain_ms, host_ms), prof
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device ms of one call of ``fn``, captured as a CUDA graph and replayed
+    ``reps`` times between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                 # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def moe_pieces(params, cfg, reps: int = 20) -> dict:
+    """Device ms a decode step of each piece of the MoE layer at 8 tokens,
+    over every layer's weights (each piece one graph of 32 calls)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xt = torch.randn(MAX_SEQS, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    layers = [layer_params(params["layers"], li)["moe"] for li in range(cfg.n_layers)]
+    E, C = cfg.n_experts, MOE.capacity(cfg, MAX_SEQS)
+    with torch.no_grad():
+        routed = [MOE._route(xt, p["router"], cfg) for p in layers]
+        bufs = [MOE._dispatch(xt, r[3], E, C) for r in routed]
+        outs = [MOE._experts(b, p["wg"], p["wu"], p["wo"]) for b, p in zip(bufs, layers)]
+        pieces = {
+            "route": lambda: [MOE._route(xt, p["router"], cfg) for p in layers],
+            "dispatch": lambda: [MOE._dispatch(xt, r[3], E, C) for r in routed],
+            "expert products": lambda: [MOE._experts(b, p["wg"], p["wu"], p["wo"])
+                                        for b, p in zip(bufs, layers)],
+            "combine": lambda: [MOE._combine(eo, r[3], r[1]) for eo, r in zip(outs, routed)],
+            "whole block (_moe_math, with the aux loss)": lambda: [
+                MOE._moe_math(xt, p["router"], p["wg"], p["wu"], p["wo"], cfg) for p in layers],
+        }
+        times = {name: graph_ms(fn, reps) for name, fn in pieces.items()}
+    expert_bytes = sum(p[w].numel() * p[w].element_size() for p in layers for w in ("wg", "wu", "wo"))
+    times["expert weights' byte bound"] = expert_bytes / chip_smoke.HBM_BYTES_PER_S * 1e3
+    return times
+
+
 def engine_windows(args) -> dict:
     windows = {}
+    make = moe_engine if args.arch == MOE_ARCH else (
+        lambda jit, n_requests, max_new, seed: full_width_engine(n_requests, max_new, seed, jit=jit))
     for jit in (False, True):
-        engine = full_width_engine(MAX_SEQS, max_new=2 * args.steps + 8, seed=args.seed, jit=jit)
+        engine = make(jit=jit, n_requests=MAX_SEQS, max_new=2 * args.steps + 8, seed=args.seed)
         for _ in range(4):                   # admit + prefill, then warm decode (and capture)
             engine.step()
         torch.cuda.synchronize()
@@ -119,6 +197,8 @@ def engine_windows(args) -> dict:
             summary["captures"] = engine.graphs.captures
             summary["capture_ms"] = engine.graphs.capture_ms
         windows["decode_graph" if jit else "decode_eager"] = (summary, prof)
+        if jit and args.arch == MOE_ARCH:
+            summary["moe_pieces_device_ms_per_step"] = moe_pieces(engine.params, engine.cfg)
         del engine
         torch.cuda.empty_cache()
     return windows
@@ -164,9 +244,11 @@ def state_windows(args) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm_1_6b", choices=("stablelm_1_6b",) + STATE_ARCHS)
+    ap.add_argument("--arch", default="stablelm_1_6b",
+                    choices=("stablelm_1_6b", MOE_ARCH) + STATE_ARCHS)
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=None,
+                    help="weights' seed (default: chip_smoke.py's for the arch)")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -176,6 +258,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
+    if args.seed is None:
+        args.seed = chip_smoke.MOE_SEED if args.arch == MOE_ARCH else 0
     windows = state_windows(args) if args.arch in STATE_ARCHS else engine_windows(args)
     out = ROOT / args.out
     out.mkdir(parents=True, exist_ok=True)
@@ -187,7 +271,8 @@ def main() -> None:
         print(f"== {args.arch}, {name} window")
         for key in ("step_ms_profiler_off", "step_ms_profiler_on", "device_busy_ms_per_step",
                     "device_idle_share_profiler_off", "device_events_per_step",
-                    "host_launch_calls_per_step", "captures", "capture_ms"):
+                    "host_launch_calls_per_step", "captures", "capture_ms",
+                    "device_ms_per_step_by_kind", "moe_pieces_device_ms_per_step"):
             if key in summary:
                 print(f"{key}: {summary[key]}")
         print("top device kernels/copies by ms per step (name, ms, count per step):")

@@ -1,1 +1,1 @@
-"""Dense transformer math for serving (the dense family of the reference)."""
+"""Model math of the port: the dense, moe, ssm and hybrid families of the reference."""

@@ -1,10 +1,11 @@
-"""Model assembly: the dense, ssm (RWKV6) and hybrid (Zamba2) families.
+"""Model assembly: the dense, moe, ssm (RWKV6) and hybrid (Zamba2) families.
 
 One :class:`LM` object per config exposes plain functions over a params dict
 (stacked leading "layers" axis, the reference's paths):
 
   * ``init(generator, device=...) -> params``
-  * ``train_loss(params, batch)``     (teacher-forced CE over the padded vocab)
+  * ``train_loss(params, batch)``     (teacher-forced CE over the padded vocab
+                                       + the MoE aux loss)
   * ``prefill_logits(params, batch)`` (last-position logits)
   * ``decode_step(params, batch, cache) -> (logits, cache)``
   * ``init_cache(batch, max_len, device=...)`` / ``flush_cache(cache)``
@@ -14,9 +15,11 @@ The layer stack is a Python loop over the stacked weights; with
 recomputed in the backward pass (``torch.utils.checkpoint``), the
 reference's ``jax.checkpoint`` of the scan body (in the hybrid family, of
 the Mamba body only, as there).  Caches are written in place: K/V rows, and
-the recurrent states of the ssm and hybrid families.  The moe, encdec and
-vlm families are later slices of the port (ROADMAP.md, 'Modules to port'),
-and raise here.
+the recurrent states of the ssm and hybrid families.  The moe family is the
+dense one with its MLP replaced by routed experts (``models/moe.py``), whose
+load-balance loss each layer returns.  The vlm and encdec families are later
+slices of the port (ROADMAP.md, 'Modules to port', items 4 and 5), and raise
+here.
 """
 from __future__ import annotations
 
@@ -29,14 +32,14 @@ from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R6
 from repro_torch.models.attention import apply_attention, attn_defs
 from repro_torch.models.params import ParamDef, init_params, map_defs
 
 _LATER_FAMILIES = {
-    "moe": "item 3 (MoE model math)",
-    "encdec": "item 8 (other model families)",
-    "vlm": "item 8 (other model families)",
+    "vlm": "item 4 (vlm)",
+    "encdec": "item 5 (encdec)",
 }
 
 
@@ -75,6 +78,8 @@ def cross_entropy(
 # ---------------------------------------------------------------------------
 
 def _dense_block(lp, cfg, impl, x, pos, cache, cache_len):
+    """Returns (x, new_cache, aux): aux is the MoE layer's load-balance loss
+    (f32), None without experts."""
     h = L.apply_norm(lp["ln1"], x)
     a, new_cache = apply_attention(
         lp["attn"], cfg, h, pos,
@@ -82,7 +87,10 @@ def _dense_block(lp, cfg, impl, x, pos, cache, cache_len):
     )
     x = x + a
     h = L.apply_norm(lp["ln2"], x)
-    return x + L.apply_mlp(lp["mlp"], h), new_cache
+    if cfg.n_experts:
+        m, aux = MOE.apply_moe(lp["moe"], cfg, h)
+        return x + m, new_cache, aux
+    return x + L.apply_mlp(lp["mlp"], h), new_cache, None
 
 
 def _rwkv_block(lp, cfg, x, state: Optional[R6.RwkvState]):
@@ -146,12 +154,16 @@ class LM:
             }
         if self.family == "hybrid":
             return {"ln": L.norm_defs(cfg), "mamba": M2.mamba_defs(cfg)}
-        return {
+        out = {
             "ln1": L.norm_defs(cfg),
             "attn": attn_defs(cfg),
             "ln2": L.norm_defs(cfg),
-            "mlp": L.mlp_defs(cfg),
         }
+        if self.family == "moe":
+            out["moe"] = MOE.moe_defs(cfg)
+        else:
+            out["mlp"] = L.mlp_defs(cfg)
+        return out
 
     def param_defs(self) -> Dict:
         cfg = self.cfg
@@ -185,13 +197,17 @@ class LM:
         return x, batch["positions"]
 
     def _run_decoder_stack(self, params, x, pos, caches, cache_len):
-        """Layer loop; returns (x, caches) with the caches updated in place."""
+        """Layer loop; returns (x, caches, aux) with the caches updated in
+        place.  aux is the MoE layers' load-balance loss summed in f32 in
+        layer order (None for the other families)."""
         cfg = self.cfg
         remat = self.remat == "full" and caches is None and torch.is_grad_enabled()
+        aux = None
         for li in range(cfg.n_layers):
             lp = layer_params(params["layers"], li)
+            a = None
             if remat:
-                x = checkpoint(self._layer, lp, x, pos, use_reentrant=False)
+                x, a = checkpoint(self._layer, lp, x, pos, use_reentrant=False)
             elif self.family == "ssm":
                 x = _rwkv_block(lp, cfg, x, None if caches is None else layer_params(caches, li))
             elif self.family == "hybrid":
@@ -199,7 +215,9 @@ class LM:
                 x = _mamba_block(lp, cfg, x, st)
             else:
                 cache = None if caches is None else layer_params(caches, li)
-                x, _ = _dense_block(lp, cfg, self.attn_impl, x, pos, cache, cache_len)
+                x, _, a = _dense_block(lp, cfg, self.attn_impl, x, pos, cache, cache_len)
+            if a is not None:
+                aux = a if aux is None else aux + a
             if self.family == "hybrid" and (li + 1) % cfg.attn_every == 0:
                 # the shared block after each group of attn_every Mamba layers
                 # (zamba2: 13 groups of 6, then 3 remainder layers), each
@@ -207,31 +225,37 @@ class LM:
                 g = (li + 1) // cfg.attn_every - 1
                 cache = None if caches is None else layer_params(caches["attn"], g)
                 sp = params["shared_attn"]   # a dense block whose first norm is "ln"
-                x, _ = _dense_block(dict(sp, ln1=sp["ln"]), cfg, self.attn_impl, x, pos,
-                                    cache, cache_len)
-        return x, caches
+                x, _, _ = _dense_block(dict(sp, ln1=sp["ln"]), cfg, self.attn_impl, x, pos,
+                                       cache, cache_len)
+        return x, caches, aux
 
     def _layer(self, lp, x, pos):
-        """One layer without a cache (the body ``remat`` recomputes)."""
+        """One layer without a cache (the body ``remat`` recomputes):
+        (x, aux), aux None but in the moe family."""
         if self.family == "ssm":
-            return _rwkv_block(lp, self.cfg, x, None)
+            return _rwkv_block(lp, self.cfg, x, None), None
         if self.family == "hybrid":
-            return _mamba_block(lp, self.cfg, x, None)
-        return _dense_block(lp, self.cfg, self.attn_impl, x, pos, None, None)[0]
+            return _mamba_block(lp, self.cfg, x, None), None
+        x, _, aux = _dense_block(lp, self.cfg, self.attn_impl, x, pos, None, None)
+        return x, aux
 
     # -- public entry points ------------------------------------------------------
     def train_loss(self, params, batch) -> torch.Tensor:
         """Teacher-forced cross entropy over the padded vocab, averaged over
-        ``batch["loss_mask"]`` where given."""
+        ``batch["loss_mask"]`` where given; in the moe family plus 0.01 x the
+        load-balance loss averaged over the layers."""
         x, pos = self._embed_inputs(params, batch)
-        x, _ = self._run_decoder_stack(params, x, pos, None, None)
+        x, _, aux = self._run_decoder_stack(params, x, pos, None, None)
         x = L.apply_norm(params["final_ln"], x)
         logits = L.logits_from(params["embed"], x)
-        return cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
+        loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
+        if aux is not None:
+            loss = loss + 0.01 * aux / self.cfg.n_layers
+        return loss
 
     def prefill_logits(self, params, batch) -> torch.Tensor:
         x, pos = self._embed_inputs(params, batch)
-        x, _ = self._run_decoder_stack(params, x, pos, None, None)
+        x, _, _ = self._run_decoder_stack(params, x, pos, None, None)
         x = L.apply_norm(params["final_ln"], x[:, -1:])
         return L.logits_from(params["embed"], x)[:, 0]
 
@@ -242,7 +266,7 @@ class LM:
         x, pos = self._embed_inputs(params, batch)
         split = "len_rec" in cache
         cache_len = (cache["len"], cache["len_rec"]) if split else cache["len"]
-        x, _ = self._run_decoder_stack(params, x, pos, cache["layers"], cache_len)
+        x, _, _ = self._run_decoder_stack(params, x, pos, cache["layers"], cache_len)
         x = L.apply_norm(params["final_ln"], x[:, -1:])
         logits = L.logits_from(params["embed"], x)[:, 0]
         new_cache = dict(cache)

@@ -1,4 +1,4 @@
-"""Decode step over the PUMA paged KV pool (dense family).
+"""Decode step over the PUMA paged KV pool (dense/moe families).
 
 Attention reads KV through the *block table* with the paged-attention
 kernel (``repro_torch.kernels.paged_attention``), and the new token's K/V is
@@ -22,6 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.graphs import CapturedStep, GraphCache, HostInputs
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.attention import project
 from repro_torch.models.rope import apply_rope
 from repro_torch.models.transformer import layer_params
@@ -45,10 +46,6 @@ def paged_decode_step(
     ``seq_lens``, which already counts the current token; its K/V is merged
     analytically with the attention over the pool.
     """
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE decode is not ported yet (ROADMAP.md, 'Modules to port', item 3)"
-        )
     x = L.embed_tokens(params["embed"], tokens, torch_dtype(cfg.dtype))   # (B, 1, d)
 
     new_ks, new_vs = [], []
@@ -67,7 +64,11 @@ def paged_decode_step(
         a = attn_out.reshape(attn_out.shape[0], -1) @ wo.reshape(-1, wo.shape[-1])
         x = x + a[:, None]
         h = L.apply_norm(lp["ln2"], x)
-        x = x + L.apply_mlp(lp["mlp"], h)
+        if cfg.n_experts:
+            m, _ = MOE.apply_moe(lp["moe"], cfg, h)
+        else:
+            m = L.apply_mlp(lp["mlp"], h)
+        x = x + m
         new_ks.append(k1[:, 0])
         new_vs.append(v1[:, 0])
 

@@ -28,6 +28,7 @@ from repro_torch.kernels.pud_bulk.ref import block_copy_ref, bulk_op_ref  # noqa
 from repro_torch.core.kv_pool import KVPoolConfig  # noqa: E402
 from repro_torch.graphs import GraphCache, decode_step_jit  # noqa: E402
 from repro_torch.models import linear_scan  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
 from repro_torch.serve.engine import MaintenanceConfig, Request, ServeEngine  # noqa: E402
 from repro_torch.serve.paged_runner import paged_decode_step, paged_decode_step_jit  # noqa: E402
@@ -208,6 +209,33 @@ def test_paged_attention_kernel_short_rows_order_the_stream(cuda, dtype):
     torch.cuda.synchronize()
     for q, (out, lse) in zip(qs, read):
         _check_paged(out, lse, q, kp, vp, tbl, lens, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "fp8"], ids=str)
+def test_paged_attention_kernel_at_granite_moe_decode_shape(cuda, dtype):
+    """granite_moe_3b_a800m's decode call: q (8, 24, 64) on 8 KV heads (a
+    group of 3), 16-token pages, lengths 64-1024; f32, bf16, and fp8 pages
+    with bf16 q; the LSE too."""
+    rng = np.random.default_rng(23)
+    B, Hkv, group, D, bs, maxb = 8, 8, 3, 64, 16, 64
+    nb = B * maxb
+    lens = rng.integers(64, 1025, size=B).astype(np.int32)
+    tbl = np.full((B, maxb), -1, np.int32)
+    perm = rng.permutation(nb)
+    for b, n in enumerate(lens):
+        need = -(-int(n) // bs)
+        tbl[b, :need] = perm[b * maxb:b * maxb + need]
+    page_dt = torch.float8_e4m3fn if dtype == "fp8" else dtype
+    q_dt = torch.bfloat16 if dtype == "fp8" else dtype
+    T = lambda a, dt: torch.from_numpy(a).cuda().to(dt)  # noqa: E731
+    q = T(rng.normal(size=(B, Hkv * group, D)).astype(np.float32), q_dt)
+    kp = T(rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32), page_dt)
+    vp = T(rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32), page_dt)
+    tbl, lens = torch.from_numpy(tbl).cuda(), torch.from_numpy(lens).cuda()
+    out, lse = pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
+    torch.cuda.synchronize()
+    _check_paged(out, lse, q, kp, vp, tbl, lens, TOL.get(dtype, 2e-2))
 
 
 @pytest.mark.cuda
@@ -1152,3 +1180,84 @@ def test_rwkv6_graphed_decode_equals_eager(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(caches["graph"]["layers"],
                                                  caches["eager"]["layers"]))
     assert model._cuda_graphs.captures == 1
+
+
+# -- the MoE family's decode step as a CUDA graph -------------------------------
+
+def _moe_smoke(dtype, seed=0):
+    cfg = dataclasses.replace(get_config("granite_moe_1b_a400m").smoke(), dtype=dtype,
+                              kv_cache_dtype=dtype)
+    model = LM(cfg, remat=None)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    return model, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_moe_paged_decode_step_graph_is_bit_equal_to_eager(cuda, B, dtype):
+    """The MoE step (sorts, index adds, gathers; no host sync) is captured
+    once, and each replay on new inputs gives eager's logits, new_k and
+    new_v bit for bit: every kept slot has a buffer row of its own, so the
+    atomic scatter is exact."""
+    model, params = _moe_smoke(dtype)
+    cfg = model.cfg
+    kp, vp = _paged_pools(cfg, 1)
+    graphs = GraphCache()
+    for seed in range(3):
+        host = _decode_inputs(cfg, B, seed)
+        got = [t.clone() for t in paged_decode_step_jit(params, cfg, *host[:2], kp, vp,
+                                                        *host[2:], graphs=graphs)]
+        want = _eager_step(params, cfg, kp, vp, *host)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert graphs.captures == 1
+
+
+@pytest.mark.cuda
+def test_moe_graph_replays_new_routes_bit_equal_to_eager(cuda, monkeypatch):
+    """Replays whose tokens route to other experts than the captured step's
+    (the eager steps' expert ids differ step to step) stay bit-equal to
+    eager."""
+    model, params = _moe_smoke("bfloat16")
+    cfg = model.cfg
+    kp, vp = _paged_pools(cfg, 1)
+    graphs = GraphCache()
+    route, routes = moe._route, []
+
+    def recording(*args):
+        out = route(*args)
+        routes[-1].append(out[2].clone())
+        return out
+
+    for seed in range(4):
+        host = _decode_inputs(cfg, 8, 10 + seed)
+        got = [t.clone() for t in paged_decode_step_jit(params, cfg, *host[:2], kp, vp,
+                                                        *host[2:], graphs=graphs)]
+        routes.append([])
+        with monkeypatch.context() as m:
+            m.setattr(moe, "_route", recording)
+            want = _eager_step(params, cfg, kp, vp, *host)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert graphs.captures == 1 and all(len(r) == cfg.n_layers for r in routes)
+    for a, b in zip(routes, routes[1:]):
+        assert not all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_moe_paged_decode_step_does_not_sync_the_host(cuda):
+    """Eagerly, with CUDA's sync debug mode set to raise: the MoE step (its
+    routing, dispatch and combine) reads nothing back to the host."""
+    model, params = _moe_smoke("bfloat16")
+    cfg = model.cfg
+    kp, vp = _paged_pools(cfg, 1)
+    dev = [torch.from_numpy(a).cuda() for a in _decode_inputs(cfg, 8, 3)]
+    _eager_step(params, cfg, kp, vp, *_decode_inputs(cfg, 8, 3))   # warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            out = paged_decode_step(params, cfg, dev[0], dev[1], kp, vp, dev[2], dev[3])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(out[0]).all())
