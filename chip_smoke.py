@@ -26,6 +26,13 @@ before each and read just after:
   with a fork, ids equal and one graphed step bit-equal: the MoE layer
   (routing, capacity buffer, expert products) on the serving main path,
   the paged kernel at a group of 3;
+* qwen2_vl_72b at its full width (GQA 64/8 of 128, d_ff 29568, vocab
+  152064, M-RoPE) and 16 of its 80 layers, served eagerly and through the
+  CUDA graphs with a fork, ids equal and one graphed step bit-equal, every
+  position (B, S, 3): the paged kernel at a group of 8 x 128; then
+  evaluated and prefilled at 4 x 2048 tokens with 256 patch embeddings
+  spliced in, through the flash kernel's ``wgmma`` path at 64 query heads
+  over 8, held against the chunked path;
 * the full-width stablelm_1_6b trained for 20 steps by
   ``repro_torch.launch.train --full`` (chunked attention, full remat,
   AdamW, checkpointed), then evaluated and prefilled at 4 x 2048 tokens
@@ -80,6 +87,7 @@ import torch  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.kv_pool import KVPoolConfig  # noqa: E402
+from repro_torch.configs.base import RunShape  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, synth_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decay_attention import ops as dc_ops  # noqa: E402
@@ -104,6 +112,7 @@ from repro_torch.models.layers import pad_vocab  # noqa: E402
 from repro_torch.models.params import count_params  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.inputs import make_batch  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.robustness import check_kv_pool  # noqa: E402
 from repro_torch.graphs import decode_step_jit  # noqa: E402
@@ -163,6 +172,15 @@ GRANITE_REQUESTS, GRANITE_NEW = 8, 16
 MOE_ARCH, MOE_SEED = "granite_moe_3b_a800m", 9
 MOE_FULL = (32, 1536, 24, 8, 64, 512, 49155, 40, 8)
 MOE_REQUESTS, MOE_NEW = 12, 32
+# qwen2_vl_72b served and run forward on the card: its full width (d, query
+# heads, KV heads, head width, d_ff, vocab, rope, M-RoPE sections) at 16 of
+# its 80 layers (all 80 take 145 GB in bf16, the 16 about 33 GB); 10
+# requests of 64-512 seeded prompt tokens and 16 new tokens each, one forked
+VLM_ARCH, VLM_LAYERS, VLM_SEED = "qwen2_vl_72b", 16, 10
+VLM_FULL = (8192, 64, 8, 128, 29568, 152064, "mrope", (16, 24, 24))
+VLM_REQUESTS, VLM_NEW = 10, 16
+# its flash shape at 4 x 2048 tokens: 64 query heads over 8 KV heads of 128
+FLASH_VLM = dict(B=4, Hq=64, Hkv=8, Sq=2048, Sk=2048, D=128, causal=True)
 # the GQA forward's model, its full width (layers, d, heads, KV heads, head
 # width, d_ff, vocab) and its weights' seed
 GQA_ARCH, GQA_SEED = "mistral_nemo_12b", 5
@@ -314,6 +332,10 @@ def phase_kernels() -> dict:
         ("moe-bf16", dict(B=MAX_SEQS, Hq=24, Hkv=8, D=64, lens=main_lens(), dtype=torch.bfloat16)),
         ("moe-f32", dict(B=MAX_SEQS, Hq=24, Hkv=8, D=64, lens=[0, 1, 63, 64, 65, 300, 1000, 1024],
                          dtype=torch.float32)),
+        # qwen2_vl_72b's GQA group: 64 query heads on 8 KV heads of 128
+        ("vlm-bf16", dict(B=MAX_SEQS, Hq=64, Hkv=8, D=128, lens=main_lens(), dtype=torch.bfloat16)),
+        ("vlm-f32", dict(B=MAX_SEQS, Hq=64, Hkv=8, D=128, lens=[0, 1, 63, 64, 65, 300, 1000, 1024],
+                         dtype=torch.float32)),
     ]
     for name, kw in cases:
         args = paged_case(gen, **kw)
@@ -371,26 +393,28 @@ def phase_kernels() -> dict:
 
 def paged_fp8_case(gen) -> dict:
     """fp8 e4m3 K/V pages at the main serving shape, q in bf16 and f32, and
-    at granite_34b's MQA group (48 query heads on one KV head of 128), q in
+    at granite_34b's MQA group (48 query heads on one KV head of 128) and
+    qwen2_vl_72b's GQA group (64 query heads on 8 KV heads of 128), q in
     bf16."""
     errs = {}
     for qdt, Hq, Hkv, D in ((torch.bfloat16, HEADS, HEADS, HEAD_DIM),
                             (torch.float32, HEADS, HEADS, HEAD_DIM),
-                            (torch.bfloat16, 48, 1, 128)):
+                            (torch.bfloat16, 48, 1, 128),
+                            (torch.bfloat16, 64, 8, 128)):
         q, kp, vp, tbl, lens = paged_case(gen, MAX_SEQS, Hq, Hkv, D, main_lens(), qdt)
         kp, vp = kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn)
         out, lse = pa_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
         torch.cuda.synchronize()
         plain, plain_lse = paged_plain(q, kp, vp, tbl, lens)
         err = (out.float() - plain.float()).abs().max().item()
-        name = f"fp8-pages-{str(qdt).split('.')[-1]}" + ("-mqa48" if Hkv == 1 else "")
+        name = f"fp8-pages-{str(qdt).split('.')[-1]}" + {1: "-mqa48", 8: "-vlm"}.get(Hkv, "")
         errs[name] = err
         lse_err = paged_lse_err(lse, plain_lse, name)
         log(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} (tol 2e-2), "
             f"LSE {lse_err:.3e} of max(1, |lse|) (tol {PAGED_LSE_TOL:g})")
         check(out.dtype == qdt and out.shape == q.shape, f"{name}: output type/shape")
         check(err < 2e-2, f"paged_attention {name}: err {err} over tolerance")
-        if Hkv == 1:   # as the bf16 rows: one bf16 ulp from the plain version
+        if D == 128:   # as the bf16 rows: one bf16 ulp from the plain version
             diff = (out.float() - plain.float()).abs()
             check(bool((diff <= BF16_ULP * plain.float().abs() + 1e-5).all()),
                   f"paged_attention {name}: more than one bf16 ulp from the plain version")
@@ -430,6 +454,9 @@ FLASH_CASES = [
     (2, 4, 4, 1, 300, 128, False, torch.bfloat16),
     (1, 48, 1, 512, 512, 128, True, torch.bfloat16),
     (4, 32, 8, 2048, 2048, 128, True, torch.bfloat16),
+    # qwen2_vl_72b's forward (64 query heads over 8), causal and full
+    (4, 64, 8, 2048, 2048, 128, True, torch.bfloat16),
+    (2, 64, 8, 1024, 1024, 128, False, torch.bfloat16),
 ]
 
 
@@ -883,8 +910,10 @@ def graph_step_check(engine, tag: str) -> dict:
     counts = dict(kernels.launches)
     slots = sorted(engine.live)
     lens = engine.pool.seq_lens()
-    host = (np.array([[engine.live[s].out[-1]] for s in slots], np.int64),
-            np.array([[lens[s] - 1] for s in slots], np.int64),
+    pos = np.array([[lens[s] - 1] for s in slots], np.int64)
+    if engine.cfg.rope == "mrope":          # (B, 1, 3), as the engine's step
+        pos = np.repeat(pos[..., None], 3, axis=-1)
+    host = (np.array([[engine.live[s].out[-1]] for s in slots], np.int64), pos,
             engine.pool.block_table()[slots], lens[slots])
     k, v = engine.pool.k, engine.pool.v
     got = [t.clone() for t in paged_decode_step_jit(engine.params, engine.cfg, host[0], host[1],
@@ -962,8 +991,9 @@ def drive(engine, tag: str, jit: bool, fork: bool = False):
     """Step ``engine`` until it is idle: graphed, the first step with a full
     batch is also held bit-equal to eager (``graph_step_check``); with
     ``fork``, a live sequence is forked as soon as a slot is free for the
-    child (``fork_and_check``).  Returns the host ms of each step that
-    neither prefills nor captures, the step check and the fork's record."""
+    child (``fork_and_check``), and a fork that never found a slot fails.
+    Returns the host ms of each step that neither prefills nor captures,
+    and the step check."""
     step_ms, step_check, forked = [], None, None
     alive = True
     while alive:
@@ -981,7 +1011,35 @@ def drive(engine, tag: str, jit: bool, fork: bool = False):
         if fork and forked is None and engine.live and engine.pool.occupancy()["free_slots"]:
             forked = fork_and_check(engine)
         check(engine.clock < 10_000, f"{tag} serving did not finish")
-    return step_ms, step_check, forked
+    check(not fork or forked is not None, f"{tag} no slot was ever free for the fork")
+    return step_ms, step_check
+
+
+def check_served(engine, tag: str, jit: bool, launches: dict, n_requests: int, n_new: int,
+                 step_check, forked: bool = False) -> list:
+    """The checks every serve phase makes once ``drive`` returns: every
+    request done with ``n_new`` ids in the vocab and none rejected or
+    cancelled, one paged-attention launch a layer a step, the fork's block
+    copies (``forked``), and a full batch decoded through a graph (with
+    ``jit``).  Returns the done requests by rid."""
+    cfg = engine.cfg
+    done = sorted(engine.done, key=lambda r: r.rid)
+    check(len(done) == n_requests and not engine.rejected and not engine.cancelled,
+          f"{tag} served {len(done)} of {n_requests} (rejected {len(engine.rejected)})")
+    vocab = pad_vocab(cfg)
+    for r in done:
+        check(len(r.out) == n_new and all(0 <= t < vocab for t in r.out),
+              f"{tag} request {r.rid}: {len(r.out)} ids")
+    check(launches["paged_attention"] == cfg.n_layers * engine.steps and engine.steps > 0,
+          f"{tag} paged_attention launches {launches['paged_attention']} != "
+          f"{cfg.n_layers} x {engine.steps} steps")
+    if forked:
+        check(launches["block_copy"] > 0,
+              f"{tag} the fork launched {launches['block_copy']} block copies")
+    if jit:
+        check(step_check is not None and engine.graphs.captures > 0,
+              f"{tag} never decoded a full batch through a graph")
+    return done
 
 
 def granite_engine(jit: bool):
@@ -1024,22 +1082,10 @@ def phase_granite_serve() -> dict:
         tag = "[granite " + ("graph" if jit else "eager") + "]"
         engine = granite_engine(jit)
         kernels.reset_launches()
-        step_ms, step_check, _ = drive(engine, tag, jit)
+        step_ms, step_check = drive(engine, tag, jit)
         launches = dict(kernels.launches)
         cfg = engine.cfg
-        done = sorted(engine.done, key=lambda r: r.rid)
-        check(len(done) == GRANITE_REQUESTS and not engine.rejected,
-              f"{tag} served {len(done)} of {GRANITE_REQUESTS}")
-        vocab = pad_vocab(cfg)
-        for r in done:
-            check(len(r.out) == GRANITE_NEW and all(0 <= t < vocab for t in r.out),
-                  f"{tag} request {r.rid}: {len(r.out)} ids")
-        check(launches["paged_attention"] == cfg.n_layers * engine.steps and engine.steps > 0,
-              f"{tag} paged_attention launches {launches['paged_attention']} != "
-              f"{cfg.n_layers} x {engine.steps} steps")
-        if jit:
-            check(step_check is not None and engine.graphs.captures > 0,
-                  f"{tag} never decoded a full batch through a graph")
+        done = check_served(engine, tag, jit, launches, GRANITE_REQUESTS, GRANITE_NEW, step_check)
         key = "graph" if jit else "eager"
         res[key] = {"ids": {r.rid: list(r.out) for r in done}, "steps": engine.steps,
                     "mean_decode_step_ms": statistics.mean(step_ms),
@@ -1136,26 +1182,13 @@ def phase_moe_serve() -> dict:
             MOE._route = counted
         kernels.reset_launches()
         try:
-            step_ms, step_check, fork = drive(engine, tag, jit, fork=True)
+            step_ms, step_check = drive(engine, tag, jit, fork=True)
         finally:
             MOE._route = route
             del engine._prefill
         launches = dict(kernels.launches)
-        done = sorted(engine.done, key=lambda r: r.rid)
-        check(len(done) == MOE_REQUESTS and not engine.rejected and not engine.cancelled,
-              f"{tag} served {len(done)} of {MOE_REQUESTS} (rejected {len(engine.rejected)})")
-        vocab = pad_vocab(cfg)
-        for r in done:
-            check(len(r.out) == MOE_NEW and all(0 <= t < vocab for t in r.out),
-                  f"{tag} request {r.rid}: {len(r.out)} ids")
-        check(launches["paged_attention"] == cfg.n_layers * engine.steps and engine.steps > 0,
-              f"{tag} paged_attention launches {launches['paged_attention']} != "
-              f"{cfg.n_layers} x {engine.steps} steps")
-        check(fork is not None and launches["block_copy"] > 0,
-              f"{tag} the fork launched {launches['block_copy']} block copies")
-        if jit:
-            check(step_check is not None and engine.graphs.captures > 0,
-                  f"{tag} never decoded a full batch through a graph")
+        done = check_served(engine, tag, jit, launches, MOE_REQUESTS, MOE_NEW, step_check,
+                            forked=True)
         key = "graph" if jit else "eager"
         res[key] = {"ids": {r.rid: list(r.out) for r in done}, "steps": engine.steps,
                     "mean_decode_step_ms": statistics.mean(step_ms),
@@ -1192,6 +1225,129 @@ def phase_moe_serve() -> dict:
     log(f"[moe] ids equal eager and graphed; decode step eager "
         f"{res['eager']['mean_decode_step_ms']:.2f} ms, graphed "
         f"{res['graph']['mean_decode_step_ms']:.2f} ms (floor {res['floor_ms']:.3f} ms)")
+    return res
+
+
+# -- phase 4d: the vlm family on the serving main path and in eval/prefill -----
+
+def vlm_config():
+    """qwen2_vl_72b at its full width, cut to ``VLM_LAYERS`` layers."""
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size,
+           cfg.rope, cfg.mrope_sections) == VLM_FULL, f"{VLM_ARCH} is not at full width")
+    return cfg
+
+
+def vlm_params(cfg, seed: int = VLM_SEED):
+    t0 = time.perf_counter()
+    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[vlm] {VLM_ARCH} at full width, reduced to {cfg.n_layers} of 80 layers (the only cut: "
+        f"all 80 take 145 GB in bf16): {count_params(params) / 1e9:.3f} B params ({cfg.dtype}; "
+        f"the config's own count {cfg.n_params() / 1e9:.3f} B) in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def vlm_engine(jit: bool, n_requests: int = VLM_REQUESTS, max_new: int = VLM_NEW,
+               seed: int = VLM_SEED, params=None) -> ServeEngine:
+    """qwen2_vl_72b at its full width and ``VLM_LAYERS`` layers on the card:
+    ``params`` (or random bf16 weights from a seeded generator), the main
+    path's pool shape with 8 KV heads of 128, and ``n_requests`` submitted
+    requests of 64-512 seeded prompt tokens and ``max_new`` new tokens each.
+    The engine gives every token (B, S, 3) M-RoPE positions.
+    ``phase_vlm`` drives it; ``scripts/torch_decode_profile.py --arch
+    qwen2_vl_72b`` profiles the same serve."""
+    cfg = vlm_config()
+    model = LM(cfg)
+    if params is None:
+        params = vlm_params(cfg, seed)
+    pool_cfg = KVPoolConfig(
+        num_blocks=NUM_BLOCKS, block_size=BLOCK, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        n_layers=cfg.n_layers, max_seqs=MAX_SEQS, max_blocks_per_seq=MAX_BLOCKS,
+        blocks_per_arena=64, dtype=cfg.kv_cache_dtype,
+    )
+    engine = ServeEngine(model, params, pool_cfg, device="cuda", jit=jit)
+    log(f"[vlm] K+V pool {2 * engine.pool.k.numel() * engine.pool.k.element_size() / 1e9:.2f} GB")
+    rng = np.random.default_rng(seed)
+    for rid in range(n_requests):
+        n = int(rng.integers(64, 513))
+        engine.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                              max_new=max_new))
+    return engine
+
+
+def phase_vlm() -> dict:
+    """qwen2_vl_72b at full width and ``VLM_LAYERS`` layers, one set of
+    seeded weights for both parts, freed when the phase ends.
+
+    (a) The serve eagerly and through the decode step's CUDA graphs, with a
+    fork part-way, the launch counts zeroed just before each and read just
+    after: every decode step's attention runs the paged kernel at a group
+    of 8 x 128, on (B, 1, 3) positions.  The ids must be equal between the
+    two, one graphed step at batch 8 bit-equal to eager, and paged launches
+    layers x steps.  Each prompt's prefill is timed on its own.
+
+    (b) ``phase_flash_forward`` on the same weights: eval and prefill at 4 x
+    2048 tokens from ``make_batch`` (256 patch embeddings spliced over the
+    first positions, (B, S, 3) positions), through the flash kernel's
+    ``wgmma`` path at 64 query heads over 8 against the chunked path."""
+    cfg = vlm_config()
+    params = vlm_params(cfg)
+    res = {}
+    try:
+        for jit in (False, True):
+            tag = "[vlm " + ("graph" if jit else "eager") + "]"
+            engine = vlm_engine(jit, params=params)
+            prefill, prefill_ms = engine._prefill, []
+
+            def timed_prefill(req):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return prefill(req)
+                finally:
+                    torch.cuda.synchronize()
+                    prefill_ms.append((time.perf_counter() - t0) * 1e3)
+
+            engine._prefill = timed_prefill
+            kernels.reset_launches()
+            step_ms, step_check = drive(engine, tag, jit, fork=True)
+            launches = dict(kernels.launches)
+            done = check_served(engine, tag, jit, launches, VLM_REQUESTS, VLM_NEW, step_check,
+                                forked=True)
+            key = "graph" if jit else "eager"
+            res[key] = {"ids": {r.rid: list(r.out) for r in done}, "steps": engine.steps,
+                        "mean_decode_step_ms": statistics.mean(step_ms),
+                        "decode_steps_timed": len(step_ms),
+                        "mean_prefill_ms": statistics.mean(prefill_ms),
+                        "mean_prompt_tokens": statistics.mean(len(r.prompt) for r in done),
+                        "paged_launches": launches["paged_attention"],
+                        "block_copy_launches": launches["block_copy"],
+                        "captures": engine.graphs.captures if jit else 0}
+            log(f"{tag} {VLM_REQUESTS} requests x {VLM_NEW} ids in {engine.steps} steps: mean "
+                f"decode step {res[key]['mean_decode_step_ms']:.2f} ms over {len(step_ms)} steps "
+                f"(host clock incl. sync; steps that prefill or capture left out); mean prefill "
+                f"{res[key]['mean_prefill_ms']:.2f} ms per prompt of "
+                f"{res[key]['mean_prompt_tokens']:.0f} tokens on average; "
+                f"{launches['paged_attention']} paged_attention launches at a group of "
+                f"{cfg.n_heads // cfg.n_kv_heads} x {cfg.hd}, {launches['block_copy']} block_copy"
+                + (f"; {engine.graphs.captures} captures" if jit else ""))
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        check(res["graph"]["ids"] == res["eager"]["ids"], "vlm: graphed ids differ from eager")
+        check(res["graph"]["steps"] == res["eager"]["steps"], "vlm: the graph changed the schedule")
+        weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+        res["floor_ms"] = weight_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"[vlm] ids equal eager and graphed; decode step eager "
+            f"{res['eager']['mean_decode_step_ms']:.2f} ms, graphed "
+            f"{res['graph']['mean_decode_step_ms']:.2f} ms (floor {res['floor_ms']:.3f} ms: the "
+            f"{weight_bytes / 1e9:.2f} GB of weights read once at 3.35 TB/s)")
+        res["forward"] = phase_flash_forward(VLM_ARCH, params, n_layers=cfg.n_layers)
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1341,7 +1497,8 @@ def _first_layers(cfg, params, n):
     return dataclasses.replace(cfg, n_layers=n), dict(params, layers=layers)
 
 
-def phase_flash_forward(arch: str, params, dtype: str = "bfloat16") -> dict:
+def phase_flash_forward(arch: str, params, dtype: str = "bfloat16",
+                        n_layers: int = None) -> dict:
     """The full-width weights of ``arch`` evaluated (``build_eval_step``)
     and prefilled (``prefill_logits``) at 4 x 2048 tokens through the flash
     kernel (``attn_impl="pallas"``), each forward with the launch counts
@@ -1359,16 +1516,27 @@ def phase_flash_forward(arch: str, params, dtype: str = "bfloat16") -> dict:
     of their scale; and the logits after 4 layers and at full depth are
     reported beside the spread of the two plain paths (naive against
     chunked).  In f32 the first layer's logits are held to
-    ``LOGITS_TOL_F32`` of their scale."""
+    ``LOGITS_TOL_F32`` of their scale.  ``n_layers`` cuts the config to the
+    depth of ``params``.  The batches are ``synth_batch``'s, or for a vision
+    config ``make_batch``'s (patch embeddings over the first 256 positions,
+    M-RoPE positions (B, S, 3))."""
     cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     path = "wgmma" if dtype == "bfloat16" else "tf32x3"
     logits_tol = LOGITS_TOL if dtype == "bfloat16" else LOGITS_TOL_F32
     tag = f"[flash-path {arch}" + ("" if dtype == "bfloat16" else f" {dtype}") + "]"
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=FLASH_MAIN["Sq"],
-                      batch_per_shard=FLASH_MAIN["B"])
-    batch = {k: torch.from_numpy(v).cuda() for k, v in synth_batch(data, 0, 0).items()}
-    prompts = {"tokens": torch.from_numpy(synth_batch(data, 1, 0)["tokens"]).cuda(),
-               "positions": batch["positions"]}
+    B, S = FLASH_MAIN["B"], FLASH_MAIN["Sq"]
+    if cfg.frontend == "vision":
+        batch = make_batch(cfg, RunShape("eval", S, B, "train"), seed=0)
+        prompts = make_batch(cfg, RunShape("prefill", S, B, "prefill"), seed=1)
+        check(tuple(batch["patch_embeds"].shape) == (B, 256, cfg.d_model)
+              and tuple(batch["positions"].shape) == (B, S, 3), "vlm batch layout")
+    else:
+        data = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_per_shard=B)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in synth_batch(data, 0, 0).items()}
+        prompts = {"tokens": torch.from_numpy(synth_batch(data, 1, 0)["tokens"]).cuda(),
+                   "positions": batch["positions"]}
     res = {"launches": {}, "prefill": {}}
     loss = {}
 
@@ -1920,8 +2088,7 @@ def phase_times() -> dict:
     times.update(bulk_op_times())
     times.update(flash_times())
     times.update(paged_fp8_times())
-    times.update(paged_mqa_times())
-    times.update(paged_moe_times())
+    times.update(paged_group_times())
     times.update(decay_times())
     # after every timing: the profiler slows the host's launches once it has run
     per_call = device_launches(lambda: pa_ops._launch(qg, kp, vp, tbl, lens_t, scale))
@@ -1962,10 +2129,12 @@ def op_ms(flops: float, dtype) -> float:
 
 def flash_times() -> dict:
     """The flash kernel at its main shape (4 x 32 heads x 2048 x 64, causal)
-    in bf16 (the main path's type) and f32 (``"flash_attention:f32"``), and
-    at mistral_nemo_12b's (q 4 x 32 heads x 2048 x 128 against k, v of 8
+    in bf16 (the main path's type) and f32 (``"flash_attention:f32"``), at
+    mistral_nemo_12b's (q 4 x 32 heads x 2048 x 128 against k, v of 8
     heads, causal) in bf16 (``"flash_attention:d128"``) and f32
-    (``"flash_attention:f32_d128"``).  The bound counts q, k, v read once and
+    (``"flash_attention:f32_d128"``), and at qwen2_vl_72b's (q 4 x 64 heads
+    x 2048 x 128 against k, v of 8 heads, causal) in bf16
+    (``"flash_attention:vlm"``).  The bound counts q, k, v read once and
     the output written once, each by its own size, and the visible pairs'
     operations (``op_ms``).  The library call is
     ``scaled_dot_product_attention(is_causal=True)`` (``enable_gqa`` where
@@ -1975,7 +2144,8 @@ def flash_times() -> dict:
     for m, dtype, key in ((FLASH_MAIN, torch.bfloat16, "flash_attention"),
                           (FLASH_MAIN, torch.float32, "flash_attention:f32"),
                           (FLASH_D128, torch.bfloat16, "flash_attention:d128"),
-                          (FLASH_D128, torch.float32, "flash_attention:f32_d128")):
+                          (FLASH_D128, torch.float32, "flash_attention:f32_d128"),
+                          (FLASH_VLM, torch.bfloat16, "flash_attention:vlm")):
         q, k, v = flash_inputs(gen, m["B"], m["Hq"], m["Hkv"], m["Sq"], m["Sk"], m["D"], dtype)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         gqa = {"enable_gqa": True} if m["Hkv"] < m["Hq"] else {}
@@ -1996,56 +2166,40 @@ def flash_times() -> dict:
     return times
 
 
-def paged_mqa_times() -> dict:
-    """Paged attention at granite_34b's decode shape: 8 sequences of the
-    main path's lengths, 48 query heads on one KV head of 128, bf16 pages.
-    The bound counts what the main shape's counts: each sequence's K and V
-    rows once, its table entries, the lengths, q and out."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def paged_group_times() -> dict:
+    """Paged attention at the decode shapes of the other served models, 8
+    sequences of the main path's lengths on bf16 pages: granite_34b's (48
+    query heads on one KV head of 128, ``"paged_attention:mqa48"``),
+    granite_moe_3b_a800m's (24 on 8 KV heads of 64, ``":moe"``) and
+    qwen2_vl_72b's (64 on 8 KV heads of 128, ``":vlm"``).  The bound counts
+    what the main shape's counts: each sequence's K and V rows once, its
+    table entries, the lengths, q and out."""
     lens = main_lens()
-    Hq, D = 48, 128
-    q, kp, vp, tbl, lens_t = paged_case(gen, MAX_SEQS, Hq, 1, D, lens, torch.bfloat16)
-    qg = q.reshape(MAX_SEQS, 1, Hq, D)
-    scale = D ** -0.5
-    item = q.element_size()
     pages_read = sum(-(-n // BLOCK) for n in lens)
-    nbytes = (2 * sum(lens) * D * item + 2 * q.numel() * item + pages_read * 4
-              + lens_t.numel() * 4)
-    return {"paged_attention:mqa48": {
-        "ms": time_ms(lambda: pa_ops._launch(qg, kp, vp, tbl, lens_t, scale), 50),
-        "plain_ms": time_ms(lambda: paged_attention_ref(qg, kp, vp, tbl, lens_t, scale=scale), 10),
-        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "ops_ms": 4 * Hq * D * sum(lens) / F32_FLOPS * 1e3,
-        "library_ms": None,
-        "shape": f"B={MAX_SEQS} Hq={Hq} Hkv=1 D={D} bs={BLOCK} lens={lens} bf16 (granite_34b decode)",
-    }}
-
-
-def paged_moe_times() -> dict:
-    """Paged attention at granite_moe_3b_a800m's decode shape: 8 sequences
-    of the main path's lengths, 24 query heads on 8 KV heads of 64 (a group
-    of 3), bf16 pages.  The bound counts what the main shape's counts: each
-    sequence's K and V rows once, its table entries, the lengths, q and
-    out."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    lens = main_lens()
-    Hq, Hkv, D = 24, 8, 64
-    q, kp, vp, tbl, lens_t = paged_case(gen, MAX_SEQS, Hq, Hkv, D, lens, torch.bfloat16)
-    qg = q.reshape(MAX_SEQS, Hkv, Hq // Hkv, D)
-    scale = D ** -0.5
-    item = q.element_size()
-    pages_read = sum(-(-n // BLOCK) for n in lens)
-    nbytes = (2 * sum(lens) * Hkv * D * item + 2 * q.numel() * item + pages_read * 4
-              + lens_t.numel() * 4)
-    return {"paged_attention:moe": {
-        "ms": time_ms(lambda: pa_ops._launch(qg, kp, vp, tbl, lens_t, scale), 50),
-        "plain_ms": time_ms(lambda: paged_attention_ref(qg, kp, vp, tbl, lens_t, scale=scale), 10),
-        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "ops_ms": 4 * Hq * D * sum(lens) / F32_FLOPS * 1e3,
-        "library_ms": None,
-        "shape": f"B={MAX_SEQS} Hq={Hq} Hkv={Hkv} D={D} bs={BLOCK} lens={lens} bf16 "
-                 f"(granite_moe_3b_a800m decode)",
-    }}
+    times = {}
+    for key, Hq, Hkv, D, arch in (("mqa48", 48, 1, 128, "granite_34b"),
+                                  ("moe", 24, 8, 64, "granite_moe_3b_a800m"),
+                                  ("vlm", 64, 8, 128, "qwen2_vl_72b")):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q, kp, vp, tbl, lens_t = paged_case(gen, MAX_SEQS, Hq, Hkv, D, lens, torch.bfloat16)
+        qg = q.reshape(MAX_SEQS, Hkv, Hq // Hkv, D)
+        scale = D ** -0.5
+        item = q.element_size()
+        nbytes = (2 * sum(lens) * Hkv * D * item + 2 * q.numel() * item + pages_read * 4
+                  + lens_t.numel() * 4)
+        times[f"paged_attention:{key}"] = {
+            "ms": time_ms(lambda: pa_ops._launch(qg, kp, vp, tbl, lens_t, scale), 50),
+            "plain_ms": time_ms(lambda: paged_attention_ref(qg, kp, vp, tbl, lens_t, scale=scale),
+                                10),
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": 4 * Hq * D * sum(lens) / F32_FLOPS * 1e3,
+            "library_ms": None,
+            "shape": f"B={MAX_SEQS} Hq={Hq} Hkv={Hkv} D={D} bs={BLOCK} lens={lens} bf16 "
+                     f"({arch} decode)",
+        }
+        del q, kp, vp
+    torch.cuda.empty_cache()
+    return times
 
 
 def paged_fp8_times() -> dict:
@@ -2216,6 +2370,7 @@ def main() -> None:
             f"graphed+maint {serve_maint[key]}")
     granite = phase_granite_serve()
     moe = phase_moe_serve()
+    vlm = phase_vlm()
     phase_small_vs_cpu()
     phase_smoke_flash_vs_cpu()
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2240,14 +2395,20 @@ def main() -> None:
     times = phase_times()
     log(f"[times] paged_attention:moe launches on the graphed MoE serve: "
         f"{moe['graph']['paged_launches']}")
+    log(f"[times] paged_attention:vlm launches on the graphed vlm serve: "
+        f"{vlm['graph']['paged_launches']}; flash_attention:vlm launches in its eval and "
+        f"prefill: {vlm['forward']['launches_total']}")
     launches = {"paged_attention": (serve_maint["launches"]["paged_attention"]
                                     + granite["graph"]["paged_launches"]
-                                    + moe["graph"]["paged_launches"]),
+                                    + moe["graph"]["paged_launches"]
+                                    + vlm["graph"]["paged_launches"]),
                 "block_copy": (serve_maint["launches"]["block_copy"]
-                               + moe["graph"]["block_copy_launches"]),
+                               + moe["graph"]["block_copy_launches"]
+                               + vlm["graph"]["block_copy_launches"]),
                 "bulk_op": bitmap["launches"]["bulk_op"],
                 "flash_attention": (flash["launches_total"] + gqa["launches_total"]
-                                    + flash32["launches_total"]),
+                                    + flash32["launches_total"]
+                                    + vlm["forward"]["launches_total"]),
                 "decay_attention": sum(r["launches"] for r in state.values()),
                 "decay_attention:vector_tc_f32": state32["rwkv6_7b"]["launches"],
                 "decay_attention:scalar_tc_f32": state32["zamba2_7b"]["launches"]}

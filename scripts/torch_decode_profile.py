@@ -21,6 +21,10 @@ sort, positions), dispatch (the index add into the capacity buffer), the
 expert products, combine (the gather and the gate-weighted sum), and the
 whole block with its aux loss.
 
+``--arch qwen2_vl_72b`` serves the full-width vlm model cut to 16 of its 80
+layers the same way, built as ``chip_smoke.py``'s vlm phase builds it
+(``vlm_engine``; (B, 1, 3) M-RoPE positions in every decode step).
+
 ``--arch rwkv6_7b`` or ``zamba2_7b`` drives the state path of
 ``chip_smoke.py``'s ``phase_state_model`` (the same seeded weights, inert
 leaves set): 8 prompts of 1024 tokens through ``decode_step`` (and
@@ -55,8 +59,8 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402  (puts src on sys.path)
-from chip_smoke import (MAX_SEQS, MOE_ARCH, STATE_BATCH, STATE_PROMPT,  # noqa: E402
-                        full_width_engine, moe_engine)
+from chip_smoke import (MAX_SEQS, MOE_ARCH, STATE_BATCH, STATE_PROMPT, VLM_ARCH,  # noqa: E402
+                        full_width_engine, moe_engine, vlm_engine)
 from repro_torch.graphs import decode_step_jit  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.transformer import layer_params  # noqa: E402
@@ -181,7 +185,7 @@ def moe_pieces(params, cfg, reps: int = 20) -> dict:
 
 def engine_windows(args) -> dict:
     windows = {}
-    make = moe_engine if args.arch == MOE_ARCH else (
+    make = {MOE_ARCH: moe_engine, VLM_ARCH: vlm_engine}.get(args.arch) or (
         lambda jit, n_requests, max_new, seed: full_width_engine(n_requests, max_new, seed, jit=jit))
     for jit in (False, True):
         engine = make(jit=jit, n_requests=MAX_SEQS, max_new=2 * args.steps + 8, seed=args.seed)
@@ -245,7 +249,7 @@ def state_windows(args) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm_1_6b",
-                    choices=("stablelm_1_6b", MOE_ARCH) + STATE_ARCHS)
+                    choices=("stablelm_1_6b", MOE_ARCH, VLM_ARCH) + STATE_ARCHS)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=None,
                     help="weights' seed (default: chip_smoke.py's for the arch)")
@@ -259,7 +263,7 @@ def main() -> None:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     if args.seed is None:
-        args.seed = chip_smoke.MOE_SEED if args.arch == MOE_ARCH else 0
+        args.seed = {MOE_ARCH: chip_smoke.MOE_SEED, VLM_ARCH: chip_smoke.VLM_SEED}.get(args.arch, 0)
     windows = state_windows(args) if args.arch in STATE_ARCHS else engine_windows(args)
     out = ROOT / args.out
     out.mkdir(parents=True, exist_ok=True)

@@ -54,19 +54,21 @@ def apply_rope(
         return torch.cat([rot, x[..., rd:]], dim=-1)
 
     if cfg.rope == "mrope":
-        # positions (B, S, 3): (t, h, w); channel sections per stream.
+        # positions (B, S, 3): (t, h, w); channel sections per stream.  The
+        # reference reads any last axis as the streams; a 2-D array there
+        # gives every token the first row's first three positions (ROADMAP.md,
+        # fault 6), so it raises here.
+        if positions.dim() != 3 or positions.shape[-1] != 3:
+            raise ValueError(f"mrope takes (B, S, 3) positions, got {tuple(positions.shape)}")
         st, sh, sw = cfg.mrope_sections
-        assert (st + sh + sw) * 2 == hd, (cfg.mrope_sections, hd)
+        if (st + sh + sw) * 2 != hd:
+            raise ValueError(f"mrope sections {cfg.mrope_sections} do not cover head width {hd}")
         inv = _inv_freq(hd, cfg.rope_theta, positions.device)
-        ang_all = positions[..., None, :].float() * inv[None, None, :, None]
-        # pick stream per channel section: [0:st]->t, [st:st+sh]->h, rest->w
-        sec = torch.cat([
-            torch.zeros(st, dtype=torch.long),
-            torch.ones(sh, dtype=torch.long),
-            torch.full((sw,), 2, dtype=torch.long),
-        ]).to(positions.device)
-        idx = sec[None, None, :, None].expand(*ang_all.shape[:-1], 1)
-        ang = torch.gather(ang_all, -1, idx)[..., 0]           # (B,S,hd/2)
+        # stream per channel pair: [0:st] -> t, [st:st+sh] -> h, the rest -> w
+        # (built on the device: a CUDA graph captures no host copy)
+        pair = torch.arange(hd // 2, device=positions.device)
+        sec = (pair >= st).long() + (pair >= st + sh).long()
+        ang = positions.float()[..., sec] * inv                # (B,S,hd/2)
         cos, sin = torch.cos(ang), torch.sin(ang)
         return _rot_half_pairs(x, cos[:, :, None, :], sin[:, :, None, :])
 

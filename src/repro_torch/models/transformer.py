@@ -1,4 +1,4 @@
-"""Model assembly: the dense, moe, ssm (RWKV6) and hybrid (Zamba2) families.
+"""Model assembly: the dense, moe, vlm, ssm (RWKV6) and hybrid (Zamba2) families.
 
 One :class:`LM` object per config exposes plain functions over a params dict
 (stacked leading "layers" axis, the reference's paths):
@@ -17,9 +17,11 @@ reference's ``jax.checkpoint`` of the scan body (in the hybrid family, of
 the Mamba body only, as there).  Caches are written in place: K/V rows, and
 the recurrent states of the ssm and hybrid families.  The moe family is the
 dense one with its MLP replaced by routed experts (``models/moe.py``), whose
-load-balance loss each layer returns.  The vlm and encdec families are later
-slices of the port (ROADMAP.md, 'Modules to port', items 4 and 5), and raise
-here.
+load-balance loss each layer returns.  The vlm family (Qwen2-VL) is the
+dense one with M-RoPE positions (B, S, 3) and precomputed patch embeddings
+written over the first positions of the token stream.  The encdec family is
+a later slice of the port (ROADMAP.md, 'Modules to port', item 5), and
+raises here.
 """
 from __future__ import annotations
 
@@ -38,7 +40,6 @@ from repro_torch.models.attention import apply_attention, attn_defs
 from repro_torch.models.params import ParamDef, init_params, map_defs
 
 _LATER_FAMILIES = {
-    "vlm": "item 4 (vlm)",
     "encdec": "item 5 (encdec)",
 }
 
@@ -193,7 +194,18 @@ class LM:
 
     # -- forward helpers --------------------------------------------------------
     def _embed_inputs(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Token embeddings, with a vision config's ``patch_embeds`` (B, n,
+        d) cast to the model dtype and written over the first n positions.
+        Patches longer than the token stream raise, as the reference's
+        ``dynamic_update_slice`` does."""
         x = L.embed_tokens(params["embed"], batch["tokens"], self.dtype)
+        if self.cfg.frontend == "vision" and "patch_embeds" in batch:
+            pe = batch["patch_embeds"]
+            B, S, d = x.shape
+            if pe.dim() != 3 or pe.shape[0] != B or pe.shape[2] != d or pe.shape[1] > S:
+                raise ValueError(f"patch_embeds {tuple(pe.shape)} do not fit in the token "
+                                 f"embeddings {tuple(x.shape)}")
+            x = torch.cat([pe.to(self.dtype), x[:, pe.shape[1]:]], dim=1)
         return x, batch["positions"]
 
     def _run_decoder_stack(self, params, x, pos, caches, cache_len):
@@ -309,7 +321,7 @@ class LM:
         self, batch_size: int, max_len: int, recent_size: int = 256, *,
         device="cuda",
     ) -> Dict:
-        """Dense family: the split cache, ``main`` (read-only store) and
+        """Dense, moe and vlm families: the split cache, ``main`` (read-only store) and
         ``recent`` (the ring new tokens land in), each ``(L, B, len, KV,
         hd)``.  ssm: the stacked RWKV states.  hybrid: the stacked Mamba
         states and one split cache per application of the shared block.

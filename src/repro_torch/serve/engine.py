@@ -27,6 +27,10 @@ trips, rate-limited; its moves go through the block-copy kernel and never
 change generation.
 
 The host logic is the reference engine's, line for line, so schedules match.
+One departure: an ``mrope`` config (the vlm family) gets (1, S, 3) positions
+in prefill and (B, 1, 3) in decode, t = h = w = the token's index, the
+layout of the reference's own model tests; the reference engine passes its
+2-D positions there too, which its M-RoPE misreads (ROADMAP.md, fault 6).
 The model runs on ``device`` (default ``"cuda"``; without a card the caller
 must ask for ``"cpu"``).  With ``jit=True`` (the default, as the
 reference's) the decode step on the card replays a CUDA graph per batch
@@ -320,6 +324,8 @@ class ServeEngine:
         toks = torch.tensor([[int(t) for t in ctx]], dtype=torch.long, device=self.device)
         S = toks.shape[1]
         pos = torch.arange(S, dtype=torch.long, device=self.device)[None]
+        if cfg.rope == "mrope":             # text tokens: t = h = w = index
+            pos = pos[..., None].expand(1, S, 3)
         cache = self.model.init_cache(1, S, recent_size=S, device=self.device)
         batch = {"tokens": toks, "positions": pos}
         logits, cache = self.model.decode_step(self.params, batch, cache)
@@ -428,6 +434,8 @@ class ServeEngine:
         lens_full = self.pool.seq_lens()
         tokens = np.array([[self.live[s].out[-1]] for s in slots], np.int64)
         positions = np.array([[lens_full[s] - 1] for s in slots], np.int64)
+        if cfg.rope == "mrope":
+            positions = np.repeat(positions[..., None], 3, axis=-1)
 
         # graphed, these are the graph's own outputs: consumed below, before
         # the next replay

@@ -34,7 +34,7 @@ def paged_decode_step(
     params,
     cfg: ModelConfig,
     tokens: torch.Tensor,        # (B, 1)
-    positions: torch.Tensor,     # (B, 1)
+    positions: torch.Tensor,     # (B, 1), or (B, 1, 3) for an mrope config
     k_pool: torch.Tensor,        # (L, nb, bs, KV, hd)
     v_pool: torch.Tensor,
     block_tables: torch.Tensor,  # (B, max_blocks) int32
@@ -42,9 +42,11 @@ def paged_decode_step(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (logits (B, V), new_k (L, B, KV, hd), new_v (L, B, KV, hd)).
 
-    The caller scatters new_k/new_v into pool blocks.  Attention masks to
-    ``seq_lens``, which already counts the current token; its K/V is merged
-    analytically with the attention over the pool.
+    ``positions`` rotate q and the new k as ``apply_rope`` does: (B, 1),
+    or (B, 1, 3) (t, h, w) for an ``mrope`` config, which raises on 2-D
+    positions.  The caller scatters new_k/new_v into pool blocks.
+    Attention masks to ``seq_lens``, which already counts the current
+    token; its K/V is merged analytically with the attention over the pool.
     """
     x = L.embed_tokens(params["embed"], tokens, torch_dtype(cfg.dtype))   # (B, 1, d)
 
@@ -115,7 +117,7 @@ def paged_decode_step_jit(
     params,
     cfg: ModelConfig,
     tokens: np.ndarray,          # (B, 1) host arrays, as paged_decode_step's
-    positions: np.ndarray,
+    positions: np.ndarray,       # (B, 1), or (B, 1, 3) for an mrope config
     k_pool: torch.Tensor,
     v_pool: torch.Tensor,
     block_tables: np.ndarray,
@@ -127,8 +129,8 @@ def paged_decode_step_jit(
     reference's ``paged_decode_step_jit``, which compiles the step once per
     (batch, pool) shape.
 
-    One graph per (B, block-table width, the pools' storage, shape and
-    dtype, the params dict) in ``graphs``
+    One graph per (config, B, block-table width, the pools' storage, shape
+    and dtype, the params dict) in ``graphs``
     (``repro_torch.graphs.graph_cache(model)``), retired once its pools are
     freed.
     The four host arrays are written into pinned staging and copied into the
@@ -146,8 +148,7 @@ def paged_decode_step_jit(
     if graphs is None or k_pool.device.type != "cuda":
         t = [torch.from_numpy(a).to(k_pool.device) for a in host]
         return paged_decode_step(params, cfg, t[0], t[1], k_pool, v_pool, t[2], t[3])
-    key = ("paged_decode_step", cfg, id(params), k_pool.data_ptr(), v_pool.data_ptr(),
-           k_pool.shape, k_pool.dtype, tokens.shape[0], block_tables.shape[1])
+    key = graph_key(params, cfg, k_pool, v_pool, tokens, block_tables)
 
     def make(pool):
         inputs = HostInputs(host, k_pool.device)
@@ -159,3 +160,12 @@ def paged_decode_step_jit(
     step = graphs.get(key, make)
     step.inputs.load(host)
     return step.replay()
+
+
+def graph_key(params, cfg: ModelConfig, k_pool, v_pool, tokens, block_tables) -> tuple:
+    """The key of a step's graph in its ``GraphCache``: the config (so a vlm
+    graph, whose positions are (B, 1, 3), and a dense one never share a
+    capture), the params dict, the pools' storage, shape and dtype, B and
+    the block-table width."""
+    return ("paged_decode_step", cfg, id(params), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_pool.shape, k_pool.dtype, tokens.shape[0], block_tables.shape[1])

@@ -211,14 +211,12 @@ def test_paged_attention_kernel_short_rows_order_the_stream(cuda, dtype):
         _check_paged(out, lse, q, kp, vp, tbl, lens, TOL[dtype])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "fp8"], ids=str)
-def test_paged_attention_kernel_at_granite_moe_decode_shape(cuda, dtype):
-    """granite_moe_3b_a800m's decode call: q (8, 24, 64) on 8 KV heads (a
-    group of 3), 16-token pages, lengths 64-1024; f32, bf16, and fp8 pages
-    with bf16 q; the LSE too."""
-    rng = np.random.default_rng(23)
-    B, Hkv, group, D, bs, maxb = 8, 8, 3, 64, 16, 64
+def _paged_decode_shape(dtype, Hkv, group, D, seed):
+    """A decode call of 8 sequences on ``Hkv`` KV heads of ``D`` (a group of
+    ``group``), 16-token pages, lengths 64-1024; fp8 pages take bf16 q.
+    Checked against the plain version, the LSE too."""
+    rng = np.random.default_rng(seed)
+    B, bs, maxb = 8, 16, 64
     nb = B * maxb
     lens = rng.integers(64, 1025, size=B).astype(np.int32)
     tbl = np.full((B, maxb), -1, np.int32)
@@ -236,6 +234,22 @@ def test_paged_attention_kernel_at_granite_moe_decode_shape(cuda, dtype):
     out, lse = pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
     torch.cuda.synchronize()
     _check_paged(out, lse, q, kp, vp, tbl, lens, TOL.get(dtype, 2e-2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "fp8"], ids=str)
+def test_paged_attention_kernel_at_granite_moe_decode_shape(cuda, dtype):
+    """granite_moe_3b_a800m's decode call: q (8, 24, 64) on 8 KV heads (a
+    group of 3); f32, bf16, and fp8 pages with bf16 q; the LSE too."""
+    _paged_decode_shape(dtype, Hkv=8, group=3, D=64, seed=23)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "fp8"], ids=str)
+def test_paged_attention_kernel_at_qwen2_vl_decode_shape(cuda, dtype):
+    """qwen2_vl_72b's decode call: q (8, 64, 128) on 8 KV heads (a group of
+    8 x 128); f32, bf16, and fp8 pages with bf16 q; the LSE too."""
+    _paged_decode_shape(dtype, Hkv=8, group=8, D=128, seed=24)
 
 
 @pytest.mark.cuda
@@ -427,6 +441,17 @@ def _flash_check(q, k, v, causal):
 def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D, causal, dtype):
     _flash_check(*_flash_inputs(3, B, Hq, Hkv, Sq, Sk, D, dtype), causal)
     assert fl_ops.last_path == _expected_path(D, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S", [(1, 1000), (2, 2048)])
+def test_flash_attention_kernel_at_qwen2_vl_heads(cuda, B, S, causal):
+    """qwen2_vl_72b's attention: q of 64 heads over k/v of 8 (a group of
+    8), D = 128, bf16, on the ``wgmma`` path."""
+    before = kernels.launches["flash_attention:wgmma"]
+    _flash_check(*_flash_inputs(5, B, 64, 8, S, S, 128, torch.bfloat16), causal)
+    assert fl_ops.last_path == "wgmma" and kernels.launches["flash_attention:wgmma"] == before + 1
 
 
 @pytest.mark.cuda
@@ -1261,3 +1286,88 @@ def test_moe_paged_decode_step_does_not_sync_the_host(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(out[0]).all())
+
+
+# -- the vlm family's decode step as a CUDA graph -------------------------------
+
+def _vlm_smoke(dtype, seed=0):
+    cfg = dataclasses.replace(get_config("qwen2_vl_72b").smoke(), dtype=dtype,
+                              kv_cache_dtype=dtype)
+    model = LM(cfg, remat=None)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    return model, params
+
+
+def _pos3(pos):
+    """(B, 1) host positions -> (B, 1, 3), t = h = w, as the engine's."""
+    return np.repeat(pos[..., None], 3, axis=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_vlm_paged_decode_step_graph_is_bit_equal_to_eager(cuda, B, dtype):
+    """The M-RoPE step at (B, 1, 3) positions, captured once: each replay on
+    new inputs gives eager's logits, new_k and new_v bit for bit."""
+    model, params = _vlm_smoke(dtype)
+    cfg = model.cfg
+    kp, vp = _paged_pools(cfg, 1)
+    graphs = GraphCache()
+    for seed in range(3):
+        toks, pos, tbl, lens = _decode_inputs(cfg, B, seed)
+        host = (toks, _pos3(pos), tbl, lens)
+        got = [t.clone() for t in paged_decode_step_jit(params, cfg, *host[:2], kp, vp,
+                                                        *host[2:], graphs=graphs)]
+        want = _eager_step(params, cfg, kp, vp, *host)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert graphs.captures == 1
+
+
+@pytest.mark.cuda
+def test_vlm_graph_replays_new_positions_with_a_new_rotation(cuda):
+    """A replay with the same tokens, table and lengths but each stream's
+    position moved: the first layer's new K (rotated) changes and its V
+    does not, and the whole step equals eager's at the new positions.  Each
+    stream is read: moving t alone changes K too."""
+    model, params = _vlm_smoke("bfloat16")
+    cfg = model.cfg
+    kp, vp = _paged_pools(cfg, 1)
+    graphs = GraphCache()
+    toks, pos, tbl, lens = _decode_inputs(cfg, 8, 4)
+    base = _pos3(pos)
+    outs = []
+    for shift in ((0, 0, 0), (5, 5, 5), (5, 0, 0)):
+        host = (toks, base + np.asarray(shift, np.int64), tbl, lens)
+        got = [t.clone() for t in paged_decode_step_jit(params, cfg, *host[:2], kp, vp,
+                                                        *host[2:], graphs=graphs)]
+        want = _eager_step(params, cfg, kp, vp, *host)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        outs.append(got)
+    assert graphs.captures == 1
+    for moved in outs[1:]:
+        assert not torch.equal(moved[1][0], outs[0][1][0])
+        assert torch.equal(moved[2][0], outs[0][2][0])
+    assert not torch.equal(outs[1][1][0], outs[2][1][0])
+
+
+@pytest.mark.cuda
+def test_vlm_and_dense_graphs_in_one_cache_never_share_a_capture(cuda):
+    """A vlm and a dense model of the same shapes (3 layers, 2 KV heads of
+    32) decode through one ``GraphCache`` on pools of one shape: two
+    captures, each step bit-equal to its own eager step."""
+    vlm, vlm_params = _vlm_smoke("bfloat16")
+    cfg_d = dataclasses.replace(get_config("mistral_nemo_12b").smoke(), dtype="bfloat16",
+                                kv_cache_dtype="bfloat16")
+    dense = LM(cfg_d, remat=None)
+    dense_params = dense.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    kp, vp = _paged_pools(vlm.cfg, 1)
+    graphs = GraphCache()
+    toks, pos, tbl, lens = _decode_inputs(vlm.cfg, 3, 6)
+    for model, params, p in ((vlm, vlm_params, _pos3(pos)), (dense, dense_params, pos),
+                             (vlm, vlm_params, _pos3(pos))):
+        got = [t.clone() for t in paged_decode_step_jit(params, model.cfg, toks, p, kp, vp,
+                                                        tbl, lens, graphs=graphs)]
+        want = _eager_step(params, model.cfg, kp, vp, toks, p, tbl, lens)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert graphs.captures == 2
