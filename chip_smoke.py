@@ -33,6 +33,15 @@ before each and read just after:
   evaluated and prefilled at 4 x 2048 tokens with 256 patch embeddings
   spliced in, through the flash kernel's ``wgmma`` path at 64 query heads
   over 8, held against the chunked path;
+* seamless_m4t_medium unreduced (12 encoder and 12 decoder layers, d
+  1024, 16 heads of 64): evaluated and prefilled at 4 x 2048 tokens over
+  2048 encoder frames through the flash kernel's ``wgmma`` path (the
+  bidirectional encoder, the causal decoder and its cross-attention: 36
+  launches a forward) against the chunked path; decoded over 8 x 1024
+  seeded frames, a 16-token prompt and 64 greedy steps on the split cache,
+  the cross-attention of each step through the kernel at one query against
+  the 1024 frames, held against ``prefill_logits`` at one decoder layer;
+  and trained 5 steps (chunked attention, full remat);
 * the full-width stablelm_1_6b trained for 20 steps by
   ``repro_torch.launch.train --full`` (chunked attention, full remat,
   AdamW, checkpointed), then evaluated and prefilled at 4 x 2048 tokens
@@ -113,12 +122,12 @@ from repro_torch.models.params import count_params  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.inputs import make_batch  # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
 from repro_torch.robustness import check_kv_pool  # noqa: E402
 from repro_torch.graphs import decode_step_jit  # noqa: E402
 from repro_torch.serve.engine import MaintenanceConfig, Request, ServeEngine  # noqa: E402
 from repro_torch.serve.paged_runner import paged_decode_step, paged_decode_step_jit  # noqa: E402
-from repro_torch.train.step import build_eval_step  # noqa: E402
+from repro_torch.train.step import build_eval_step, build_train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.tree import leaves, tree_map  # noqa: E402
 
@@ -181,6 +190,20 @@ VLM_FULL = (8192, 64, 8, 128, 29568, 152064, "mrope", (16, 24, 24))
 VLM_REQUESTS, VLM_NEW = 10, 16
 # its flash shape at 4 x 2048 tokens: 64 query heads over 8 KV heads of 128
 FLASH_VLM = dict(B=4, Hq=64, Hkv=8, Sq=2048, Sk=2048, D=128, causal=True)
+# seamless_m4t_medium unreduced: encoder and decoder layers, d, query heads,
+# KV heads, head width, d_ff, vocab, activation, norm, rope; its weights' seed
+ENCDEC_ARCH, ENCDEC_SEED = "seamless_m4t_medium", 12
+ENCDEC_FULL = (12, 12, 1024, 16, 16, 64, 4096, 256206, "gelu", "layernorm", "none")
+# its decode: 8 sequences over 1024 seeded encoder frames each, a 16-token
+# prompt on a recent ring of 16, then 64 greedy steps (a flush each 16)
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_RING, ENCDEC_NEW = 8, 1024, 16, 16, 64
+# its flash shapes: the encoder's and the cross-attention prefill's (4 x 2048
+# tokens), and the cross-attention of a decode step (one query against the
+# 1024 frames), all non-causal
+FLASH_ENC = dict(B=4, Hq=16, Hkv=16, Sq=2048, Sk=2048, D=64, causal=False)
+FLASH_XDEC = dict(B=ENCDEC_BATCH, Hq=16, Hkv=16, Sq=1, Sk=ENCDEC_FRAMES, D=64, causal=False)
+# and its train steps (make_batch batches of 8 x 128 tokens over 128 frames)
+ENCDEC_TRAIN_STEPS = 5
 # the GQA forward's model, its full width (layers, d, heads, KV heads, head
 # width, d_ff, vocab) and its weights' seed
 GQA_ARCH, GQA_SEED = "mistral_nemo_12b", 5
@@ -457,6 +480,13 @@ FLASH_CASES = [
     # qwen2_vl_72b's forward (64 query heads over 8), causal and full
     (4, 64, 8, 2048, 2048, 128, True, torch.bfloat16),
     (2, 64, 8, 1024, 1024, 128, False, torch.bfloat16),
+    # seamless_m4t_medium's: the encoder and cross-attention prefill, and a
+    # decode step's cross-attention (one query against 1024 frames), both
+    # non-causal, in bf16 and f32
+    (4, 16, 16, 2048, 2048, 64, False, torch.bfloat16),
+    (4, 16, 16, 2048, 2048, 64, False, torch.float32),
+    (8, 16, 16, 1, 1024, 64, False, torch.bfloat16),
+    (8, 16, 16, 1, 1024, 64, False, torch.float32),
 ]
 
 
@@ -1351,6 +1381,199 @@ def phase_vlm() -> dict:
     return res
 
 
+# -- phase 4e: the encdec family at full width ----------------------------------
+
+def encdec_decode(model, params, enc, tokens):
+    """``decode_step`` as tests/test_split_cache.py drives the family: the
+    encoder once over ``enc`` (B, Se, d), each decoder layer's cross K/V of
+    its output written into the cache, the prompt ``tokens`` (B, P) through
+    one step on the recent ring, then ``ENCDEC_NEW`` greedy one-token steps,
+    the ring flushed whenever it is full.  The launch counts are zeroed just
+    before the encoder and read after it and after the last step.  Returns
+    the fed tokens (B, P + NEW), the last logits, the flushes, the
+    encoder's and the steps' launches, and the host ms of the encoder, the
+    prompt and each one-token step (each with ``synchronize``)."""
+    B, P = tokens.shape
+    cache = model.init_cache(B, P + ENCDEC_NEW, enc_len=enc.shape[1], recent_size=ENCDEC_RING,
+                             device="cuda")
+    ms, fed, flushes = {"steps": []}, [tokens], 0
+
+    def step(tok, pos):
+        nonlocal cache, flushes
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, {"tokens": tok, "positions": pos}, cache)
+        if cache["len_rec"] == ENCDEC_RING:
+            cache = model.flush_cache(cache)
+            flushes += 1
+        torch.cuda.synchronize()
+        return logits, 1e3 * (time.perf_counter() - t0)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        enc_out = model._run_encoder(params, enc)
+        ck, cv = cache["layers"]["cross"]
+        for li in range(model.cfg.n_layers):
+            ck[li], cv[li] = model._encoder_kv(
+                {k: t[li] for k, t in params["decoder"]["xattn"].items()}, enc_out)
+        torch.cuda.synchronize()
+        ms["encoder"] = 1e3 * (time.perf_counter() - t0)
+        enc_launches = dict(kernels.launches)
+        logits, ms["prompt"] = step(tokens, torch.arange(P, device="cuda").expand(B, P))
+        for t in range(ENCDEC_NEW):
+            fed.append(logits.argmax(-1)[:, None])
+            logits, dt = step(fed[-1], torch.full((B, 1), P + t, device="cuda"))
+            ms["steps"].append(dt)
+    step_launches = {k: v - enc_launches[k] for k, v in kernels.launches.items()}
+    return torch.cat(fed, 1), logits, flushes, enc_launches, step_launches, ms
+
+
+def phase_encdec() -> dict:
+    """seamless_m4t_medium unreduced (12 encoder and 12 decoder layers, d
+    1024, 16 heads of 64, vocab 256206 padded to 258048), random bf16
+    weights from a seeded generator, freed when the phase ends.
+
+    (a) ``phase_flash_forward``: eval and ``prefill_logits`` at 4 x 2048
+    tokens over 2048 frames from ``make_batch``, through the flash kernel
+    (12 encoder, 12 causal decoder and 12 cross-attention launches a
+    forward, each on the ``wgmma`` path) against the chunked path; and the
+    encoder alone after its first layer, flash against chunked, within
+    ``LOGITS_TOL`` of its scale.
+
+    (b) ``encdec_decode`` over 8 sequences of 1024 seeded frames (numpy
+    normal x 0.02, as tests/test_split_cache.py makes them), a 16-token
+    prompt and 64 greedy steps through the flash kernel: the encoder's 12
+    launches at 8 x 1024, then 12 a decode step (cross-attention, one
+    query against the 1024 frames; the self-attention runs over the split
+    cache, no kernel).  The last logits against ``prefill_logits`` over the
+    same tokens at one decoder layer, within ``LOGITS_TOL`` of their scale
+    (the split cache and the flash kernel round bf16 in different places),
+    and the same with the weights cast to f32 (the kernel's ``tf32x3``
+    path) within ``LOGITS_TOL_F32``; fault 4 makes the full-depth gap
+    chaotic: printed only.
+
+    (c) ``ENCDEC_TRAIN_STEPS`` steps of ``build_train_step`` (chunked
+    attention, remat full, AdamW) on ``make_batch`` batches of 8 x 128
+    tokens over 128 frames: every loss finite."""
+    cfg = get_config(ENCDEC_ARCH)
+    check((cfg.enc_layers, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.d_ff, cfg.vocab_size, cfg.activation, cfg.norm, cfg.rope) == ENCDEC_FULL,
+          f"{ENCDEC_ARCH} is not at full width")
+    t0 = time.perf_counter()
+    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(ENCDEC_SEED), device="cuda")
+    torch.cuda.synchronize()
+    weight_gb = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+    log(f"[encdec] {ENCDEC_ARCH} unreduced ({cfg.enc_layers} encoder + {cfg.n_layers} decoder "
+        f"layers): {count_params(params) / 1e9:.3f} B params, {weight_gb:.2f} GB ({cfg.dtype}; "
+        f"the vocab padded to {pad_vocab(cfg)}; the config's own count "
+        f"{cfg.n_params() / 1e9:.3f} B) in {time.perf_counter() - t0:.1f} s")
+    res = {"weight_gb": weight_gb}
+    try:
+        res["forward"] = phase_flash_forward(ENCDEC_ARCH, params)
+        cfg1, params1 = _first_layers(cfg, params, 1)
+        enc = make_batch(cfg, RunShape("prefill", 2048, 4, "prefill"), seed=1)["enc_embeds"]
+        with torch.no_grad():
+            e = {impl: LM(cfg1, attn_impl=impl)._run_encoder(params1, enc).float()
+                 for impl in ("pallas", "chunked")}
+        err, scale = (e["pallas"] - e["chunked"]).abs().max().item(), e["chunked"].abs().max().item()
+        log(f"[encdec] encoder output after its first layer (4 x 2048 frames): flash vs chunked "
+            f"max abs diff {err:.4f} of scale {scale:.3f} (tol {LOGITS_TOL:g} of scale)")
+        check(err < LOGITS_TOL * scale, "encdec first encoder layer: flash vs chunked over tolerance")
+        res["encoder_layer1"] = {"err": err, "scale": scale}
+
+        rng = np.random.default_rng(ENCDEC_SEED)
+        frames = rng.normal(size=(ENCDEC_BATCH, ENCDEC_FRAMES, cfg.d_model)) * 0.02
+        frames = torch.from_numpy(frames.astype(np.float32)).to("cuda", torch.bfloat16)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (ENCDEC_BATCH, ENCDEC_PROMPT)))
+        prompt = prompt.cuda()
+        res["decode"] = {}
+        for depth, dtype in ((1, "bfloat16"), (1, "float32"), (cfg.n_layers, "bfloat16")):
+            cfg_d, params_d = _first_layers(cfg, params, depth, encoder=False)
+            if dtype == "float32":
+                cfg_d = dataclasses.replace(cfg_d, dtype=dtype, kv_cache_dtype=dtype)
+                params_d = tree_map(lambda t: t.float(), params_d)
+            path = "wgmma" if dtype == "bfloat16" else "tf32x3"
+            model = LM(cfg_d, attn_impl="pallas")
+            fed, logits, flushes, enc_l, step_l, ms = encdec_decode(model, params_d, frames, prompt)
+            n_steps = ENCDEC_NEW + 1
+            check(flushes >= 2, f"encdec decode at {depth} layers: {flushes} flushes")
+            check(enc_l["flash_attention"] == enc_l[f"flash_attention:{path}"] == cfg.enc_layers,
+                  f"encdec encoder: {enc_l['flash_attention']} flash launches "
+                  f"({enc_l[f'flash_attention:{path}']} {path}), not {cfg.enc_layers}")
+            check(step_l["flash_attention"] == step_l[f"flash_attention:{path}"] == depth * n_steps,
+                  f"encdec decode: {step_l['flash_attention']} flash launches "
+                  f"({step_l[f'flash_attention:{path}']} {path}) in {n_steps} steps, not {depth} "
+                  f"a step")
+            check(bool(torch.isfinite(logits).all()), "encdec decode logits not finite")
+            with torch.no_grad():
+                full = model.prefill_logits(params_d, {
+                    "tokens": fed, "enc_embeds": frames,
+                    "positions": torch.arange(fed.shape[1], device="cuda").expand(fed.shape)})
+            gap, scale = (logits.float() - full.float()).abs().max().item(), full.float().abs().max().item()
+            tol = None if depth > 1 else LOGITS_TOL if dtype == "bfloat16" else LOGITS_TOL_F32
+            r = res["decode"][depth, dtype] = {
+                "gap": gap, "scale": scale, "tol": tol, "flushes": flushes, "ms": ms,
+                "enc_launches": enc_l["flash_attention"],
+                "step_launches": step_l["flash_attention"],
+                "argmax_equal": int((logits.argmax(-1) == full.argmax(-1)).sum())}
+            log(f"[encdec decode] {depth} decoder layer(s), {dtype}, {ENCDEC_BATCH} sequences over "
+                f"{ENCDEC_FRAMES} frames: encoder {ms['encoder']:.1f} ms ({enc_l['flash_attention']}"
+                f" flash launches), prompt of {ENCDEC_PROMPT} {ms['prompt']:.1f} ms, mean decode "
+                f"step {statistics.mean(ms['steps']):.2f} ms over {ENCDEC_NEW} steps (host clock "
+                f"incl. sync, eager), {flushes} flushes, {step_l['flash_attention']} flash launches "
+                f"in {n_steps} steps (all {path}); last logits vs prefill_logits over the same "
+                f"{fed.shape[1]} tokens: max abs diff {gap:.3e} of scale {scale:.3f}, argmax equal "
+                f"{r['argmax_equal']}/{ENCDEC_BATCH}"
+                + (f" (tol {tol:g} of scale)" if tol else " (reported only)"))
+            check(tol is None or gap < tol * scale,
+                  f"encdec decode at one decoder layer ({dtype}): last logits vs prefill over "
+                  f"tolerance")
+            del params_d, model
+            torch.cuda.empty_cache()
+
+        model = LM(cfg, attn_impl="chunked", remat="full")
+        step_fn = build_train_step(model, AdamWConfig(lr=3e-3, warmup_steps=2,
+                                                      total_steps=ENCDEC_TRAIN_STEPS))
+        opt_state = init_opt_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        losses, step_ms = [], []
+        for i in range(ENCDEC_TRAIN_STEPS):
+            batch = make_batch(cfg, RunShape("train", 128, 8, "train"), seed=i)
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            losses.append(float(metrics["loss"]))
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            check(math.isfinite(losses[-1]) and math.isfinite(float(metrics["grad_norm"])),
+                  f"encdec train step {i}: loss {losses[-1]}")
+        check(kernels.launches["flash_attention"] == 0, "encdec training launched flash")
+        res["train"] = {"losses": losses, "step_ms": step_ms,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        fw = res["forward"]
+        d = res["decode"][cfg.n_layers, "bfloat16"]
+        log(f"[encdec train] {ENCDEC_TRAIN_STEPS} steps (8 x 128 tokens over 128 frames, bf16, "
+            f"chunked attention, remat full, AdamW): losses {' '.join(f'{x:.4f}' for x in losses)}; "
+            f"step ms {' '.join(f'{x:.1f}' for x in step_ms)} (host clock incl. the loss's "
+            f"sync; step 0 includes warm-up); peak {res['train']['peak_gb']:.1f} GB")
+        log(f"[encdec] summary: eval {fw['eval_pallas_ms']:.1f} ms flash / "
+            f"{fw['eval_chunked_ms']:.1f} chunked, prefill {fw['prefill_pallas_ms']:.1f} / "
+            f"{fw['prefill_chunked_ms']:.1f} at 4 x 2048; encoder {d['ms']['encoder']:.1f} ms at "
+            f"{ENCDEC_BATCH} x {ENCDEC_FRAMES}; prompt {d['ms']['prompt']:.1f} ms; decode step "
+            f"{statistics.mean(d['ms']['steps']):.2f} ms; train step "
+            f"{statistics.mean(step_ms[1:]):.1f} ms (steps 1-{ENCDEC_TRAIN_STEPS - 1}); "
+            f"flash launches: {fw['launches_total']} in eval + prefill, {d['enc_launches']} "
+            f"encoder + {d['step_launches']} decode, all on wgmma")
+        res["enc_launches"], res["step_launches"] = d["enc_launches"], d["step_launches"]
+        res["launches_total"] = fw["launches_total"] + d["enc_launches"] + d["step_launches"]
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 def phase_small_vs_cpu() -> None:
@@ -1491,10 +1714,23 @@ def _forward(model, what, params, arg):
     return y, ms, kernels.launches["flash_attention"]
 
 
-def _first_layers(cfg, params, n):
-    """The model of the first ``n`` layers of ``params`` (views, no copy)."""
-    layers = {k: {kk: t[:n] for kk, t in v.items()} for k, v in params["layers"].items()}
-    return dataclasses.replace(cfg, n_layers=n), dict(params, layers=layers)
+def _first_layers(cfg, params, n, encoder: bool = True):
+    """The model of the first ``n`` layers of ``params`` (views, no copy); in
+    the encdec family the first ``n`` decoder layers and, with ``encoder``,
+    the first ``n`` encoder layers."""
+    cut = {"layers", "decoder"} | ({"encoder"} if encoder else set())
+    params = dict(params, **{g: tree_map(lambda t: t[:n], params[g]) for g in cut & set(params)})
+    cfg = dataclasses.replace(cfg, n_layers=n)
+    if cfg.is_encdec and encoder:
+        cfg = dataclasses.replace(cfg, enc_layers=n)
+    return cfg, params
+
+
+def flash_per_forward(cfg) -> int:
+    """Flash launches in one forward with ``attn_impl="pallas"``: one a
+    layer, and in the encdec family one an encoder layer and two (self and
+    cross) a decoder layer."""
+    return cfg.enc_layers + 2 * cfg.n_layers if cfg.is_encdec else cfg.n_layers
 
 
 def phase_flash_forward(arch: str, params, dtype: str = "bfloat16",
@@ -1519,7 +1755,9 @@ def phase_flash_forward(arch: str, params, dtype: str = "bfloat16",
     ``LOGITS_TOL_F32`` of their scale.  ``n_layers`` cuts the config to the
     depth of ``params``.  The batches are ``synth_batch``'s, or for a vision
     config ``make_batch``'s (patch embeddings over the first 256 positions,
-    M-RoPE positions (B, S, 3))."""
+    M-RoPE positions (B, S, 3)), and for an encdec config ``make_batch``'s
+    (frame embeddings (B, S, d); a depth cut cuts the encoder and the
+    decoder alike)."""
     cfg = dataclasses.replace(get_config(arch), dtype=dtype)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -1527,11 +1765,15 @@ def phase_flash_forward(arch: str, params, dtype: str = "bfloat16",
     logits_tol = LOGITS_TOL if dtype == "bfloat16" else LOGITS_TOL_F32
     tag = f"[flash-path {arch}" + ("" if dtype == "bfloat16" else f" {dtype}") + "]"
     B, S = FLASH_MAIN["B"], FLASH_MAIN["Sq"]
-    if cfg.frontend == "vision":
+    if cfg.frontend == "vision" or cfg.is_encdec:
         batch = make_batch(cfg, RunShape("eval", S, B, "train"), seed=0)
         prompts = make_batch(cfg, RunShape("prefill", S, B, "prefill"), seed=1)
-        check(tuple(batch["patch_embeds"].shape) == (B, 256, cfg.d_model)
-              and tuple(batch["positions"].shape) == (B, S, 3), "vlm batch layout")
+        if cfg.is_encdec:
+            check(tuple(batch["enc_embeds"].shape) == tuple(prompts["enc_embeds"].shape)
+                  == (B, S, cfg.d_model), "encdec batch layout")
+        else:
+            check(tuple(batch["patch_embeds"].shape) == (B, 256, cfg.d_model)
+                  and tuple(batch["positions"].shape) == (B, S, 3), "vlm batch layout")
     else:
         data = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_per_shard=B)
         batch = {k: torch.from_numpy(v).cuda() for k, v in synth_batch(data, 0, 0).items()}
@@ -1548,7 +1790,7 @@ def phase_flash_forward(arch: str, params, dtype: str = "bfloat16",
 
     for impl in ("pallas", "chunked"):
         y, res[f"eval_{impl}_ms"], n = _forward(LM(cfg, attn_impl=impl), "eval", params, batch)
-        launched("eval", impl, n, cfg.n_layers)
+        launched("eval", impl, n, flash_per_forward(cfg))
         res["launches"][f"eval_{impl}"] = n
         loss[impl] = float(y)
     res["eval_loss"] = {**loss, "rel_diff": abs(loss["pallas"] - loss["chunked"]) / abs(loss["chunked"])}
@@ -1557,7 +1799,7 @@ def phase_flash_forward(arch: str, params, dtype: str = "bfloat16",
         z = {}
         for impl in ("pallas", "chunked", "naive"):
             y, ms, n = _forward(LM(cfg_d, attn_impl=impl), "prefill", params_d, prompts)
-            launched(f"prefill, {depth} layers", impl, n, depth)
+            launched(f"prefill, {depth} layers", impl, n, flash_per_forward(cfg_d))
             check(tuple(y.shape) == (FLASH_MAIN["B"], pad_vocab(cfg)), f"prefill logits {tuple(y.shape)}")
             z[impl] = y.float()
             if depth == cfg.n_layers:
@@ -1572,7 +1814,7 @@ def phase_flash_forward(arch: str, params, dtype: str = "bfloat16",
     el, pf = res["eval_loss"], res["prefill"]
     log(f"{tag} eval loss at 4 x 2048 ({cfg.n_layers} layers): flash {el['pallas']:.5f}, "
         f"chunked {el['chunked']:.5f} (rel diff {el['rel_diff']:.2e}, tol {EVAL_LOSS_RTOL:g}); "
-        f"{cfg.n_layers} flash launches per forward, all on the {path} path")
+        f"{flash_per_forward(cfg)} flash launches per forward, all on the {path} path")
     for depth, r in pf.items():
         log(f"{tag} prefill logits after {depth} layer(s): flash vs chunked max abs diff "
             f"{r['flash_vs_chunked']:.4f}, naive vs chunked {r['naive_vs_chunked']:.4f}, of scale "
@@ -2132,33 +2374,40 @@ def flash_times() -> dict:
     in bf16 (the main path's type) and f32 (``"flash_attention:f32"``), at
     mistral_nemo_12b's (q 4 x 32 heads x 2048 x 128 against k, v of 8
     heads, causal) in bf16 (``"flash_attention:d128"``) and f32
-    (``"flash_attention:f32_d128"``), and at qwen2_vl_72b's (q 4 x 64 heads
+    (``"flash_attention:f32_d128"``), at qwen2_vl_72b's (q 4 x 64 heads
     x 2048 x 128 against k, v of 8 heads, causal) in bf16
-    (``"flash_attention:vlm"``).  The bound counts q, k, v read once and
+    (``"flash_attention:vlm"``), and at seamless_m4t_medium's, non-causal in
+    bf16: its encoder's and cross-attention prefill's (4 x 16 heads x 2048 x
+    64, ``"flash_attention:encdec"``) and a decode step's cross-attention (q
+    8 x 16 heads x 1 x 64 against k, v of 8 x 16 x 1024 x 64,
+    ``"flash_attention:xdec"``).  The bound counts q, k, v read once and
     the output written once, each by its own size, and the visible pairs'
     operations (``op_ms``).  The library call is
-    ``scaled_dot_product_attention(is_causal=True)`` (``enable_gqa`` where
-    Hkv < Hq), a yardstick the port never calls."""
+    ``scaled_dot_product_attention`` with the same mask (``enable_gqa``
+    where Hkv < Hq), a yardstick the port never calls."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     times = {}
     for m, dtype, key in ((FLASH_MAIN, torch.bfloat16, "flash_attention"),
                           (FLASH_MAIN, torch.float32, "flash_attention:f32"),
                           (FLASH_D128, torch.bfloat16, "flash_attention:d128"),
                           (FLASH_D128, torch.float32, "flash_attention:f32_d128"),
-                          (FLASH_VLM, torch.bfloat16, "flash_attention:vlm")):
+                          (FLASH_VLM, torch.bfloat16, "flash_attention:vlm"),
+                          (FLASH_ENC, torch.bfloat16, "flash_attention:encdec"),
+                          (FLASH_XDEC, torch.bfloat16, "flash_attention:xdec")):
         q, k, v = flash_inputs(gen, m["B"], m["Hq"], m["Hkv"], m["Sq"], m["Sk"], m["D"], dtype)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         gqa = {"enable_gqa": True} if m["Hkv"] < m["Hq"] else {}
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        causal = m["causal"]
         times[key] = {
-            "ms": time_ms(lambda: fl_ops._launch(q, k, v, True, m["D"] ** -0.5), 20),
-            "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True), 5),
-            "library_ms": time_ms(lambda: sdpa(q, k, v, is_causal=True, **gqa), 20),
+            "ms": time_ms(lambda: fl_ops._launch(q, k, v, causal, m["D"] ** -0.5), 20),
+            "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=causal), 5),
+            "library_ms": time_ms(lambda: sdpa(q, k, v, is_causal=causal, **gqa), 20),
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "ops_ms": op_ms(flash_flops(m["B"], m["Hq"], m["Sq"], m["Sk"], m["D"], True), dtype),
+            "ops_ms": op_ms(flash_flops(m["B"], m["Hq"], m["Sq"], m["Sk"], m["D"], causal), dtype),
             "shape": f"q ({m['B']}, {m['Hq']}, {m['Sq']}, {m['D']}), k/v ({m['B']}, {m['Hkv']}, "
-                     f"{m['Sk']}, {m['D']}) causal {str(dtype).split('.')[-1]}, "
-                     f"{fl_ops.last_path} path",
+                     f"{m['Sk']}, {m['D']}) {'causal' if causal else 'full'} "
+                     f"{str(dtype).split('.')[-1]}, {fl_ops.last_path} path",
         }
         check(fl_ops.last_path == flash_path(m["D"], dtype), f"{key}: took the {fl_ops.last_path} path")
         del q, k, v
@@ -2371,6 +2620,7 @@ def main() -> None:
     granite = phase_granite_serve()
     moe = phase_moe_serve()
     vlm = phase_vlm()
+    encdec = phase_encdec()
     phase_small_vs_cpu()
     phase_smoke_flash_vs_cpu()
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2398,6 +2648,10 @@ def main() -> None:
     log(f"[times] paged_attention:vlm launches on the graphed vlm serve: "
         f"{vlm['graph']['paged_launches']}; flash_attention:vlm launches in its eval and "
         f"prefill: {vlm['forward']['launches_total']}")
+    log(f"[times] flash_attention:encdec launches in seamless_m4t_medium's eval and prefill "
+        f"and its decode's encoder: {encdec['forward']['launches_total']} + "
+        f"{encdec['enc_launches']}; flash_attention:xdec launches in its decode steps: "
+        f"{encdec['step_launches']}")
     launches = {"paged_attention": (serve_maint["launches"]["paged_attention"]
                                     + granite["graph"]["paged_launches"]
                                     + moe["graph"]["paged_launches"]
@@ -2408,7 +2662,8 @@ def main() -> None:
                 "bulk_op": bitmap["launches"]["bulk_op"],
                 "flash_attention": (flash["launches_total"] + gqa["launches_total"]
                                     + flash32["launches_total"]
-                                    + vlm["forward"]["launches_total"]),
+                                    + vlm["forward"]["launches_total"]
+                                    + encdec["launches_total"]),
                 "decay_attention": sum(r["launches"] for r in state.values()),
                 "decay_attention:vector_tc_f32": state32["rwkv6_7b"]["launches"],
                 "decay_attention:scalar_tc_f32": state32["zamba2_7b"]["launches"]}

@@ -7,8 +7,13 @@
                 hand-written Hopper kernel on CUDA tensors, its plain version
                 on the CPU.  Forward only, as in the reference, and with the
                 reference's semantics: it is given neither ``kv_len`` nor
-                ``q_offset``, so it is exact only where Sq == Sk == kv_len
-                (the no-cache forward of ``train_loss`` and ``prefill_logits``).
+                ``q_offset``, so it is exact only where Sk == kv_len and, if
+                causal, Sq == Sk (the no-cache forward of ``train_loss`` and
+                ``prefill_logits``, and cross-attention at any Sq).
+
+Cross-attention (the encdec family) takes its K/V as given through
+``kv_override``: only q is projected, the call is never causal, and the
+cache is returned untouched.
 
 Decode mode consumes an explicit KV cache: either a dense ``(k, v)`` pair
 ``(B, S_max, KV, hd)`` or the split ``{"main", "recent"}`` cache, each with
@@ -192,16 +197,27 @@ def apply_attention(
     causal: bool = True,
     cache=None,
     cache_len=None,                     # tokens already cached (int)
+    kv_override=None,                   # cross-attention: (k, v) (B, Sk, KV, hd)
 ):
     B, S, d = x.shape
     hd = cfg.hd
     scale = 1.0 / math.sqrt(hd)
 
     q = apply_rope(cfg, project(x, p["wq"]), positions)
-    k = apply_rope(cfg, project(x, p["wk"]), positions)
-    v = project(x, p["wv"])
+    if kv_override is None:
+        k = apply_rope(cfg, project(x, p["wk"]), positions)
+        v = project(x, p["wv"])
 
-    if cache is None:
+    if kv_override is not None:
+        # keys at or past kv_len are masked; the pallas path is not told, as
+        # in the reference (the cross cache is exactly the encoder's length)
+        k, v = kv_override
+        out = _inner_attention(
+            q, k, v, impl=impl, causal=False,
+            kv_len=cache_len if cache_len is not None else k.shape[1], scale=scale,
+        )
+        new_cache = cache
+    elif cache is None:
         out = _inner_attention(
             q, k, v, impl=impl, causal=causal, kv_len=S, scale=scale
         )

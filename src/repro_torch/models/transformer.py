@@ -1,4 +1,5 @@
-"""Model assembly: the dense, moe, vlm, ssm (RWKV6) and hybrid (Zamba2) families.
+"""Model assembly: the dense, moe, vlm, ssm (RWKV6), hybrid (Zamba2) and encdec
+(SeamlessM4T) families.
 
 One :class:`LM` object per config exposes plain functions over a params dict
 (stacked leading "layers" axis, the reference's paths):
@@ -8,27 +9,37 @@ One :class:`LM` object per config exposes plain functions over a params dict
                                        + the MoE aux loss)
   * ``prefill_logits(params, batch)`` (last-position logits)
   * ``decode_step(params, batch, cache) -> (logits, cache)``
-  * ``init_cache(batch, max_len, device=...)`` / ``flush_cache(cache)``
+  * ``init_cache(batch, max_len, enc_len=0, device=...)`` / ``flush_cache(cache)``
 
-The layer stack is a Python loop over the stacked weights; with
+The layer stack is a Python loop over the stacked weights.  With
 ``remat="full"`` each layer of a forward that autograd records is
 recomputed in the backward pass (``torch.utils.checkpoint``), the
 reference's ``jax.checkpoint`` of the scan body (in the hybrid family, of
-the Mamba body only, as there).  Caches are written in place: K/V rows, and
-the recurrent states of the ssm and hybrid families.  The moe family is the
-dense one with its MLP replaced by routed experts (``models/moe.py``), whose
-load-balance loss each layer returns.  The vlm family (Qwen2-VL) is the
-dense one with M-RoPE positions (B, S, 3) and precomputed patch embeddings
-written over the first positions of the token stream.  The encdec family is
-a later slice of the port (ROADMAP.md, 'Modules to port', item 5), and
-raises here.
+the Mamba body only, as there); with ``remat="dots"`` the same layers save
+the outputs of their matrix products that have no batch dimension and
+recompute the rest (the reference's ``checkpoint_dots_with_no_batch_dims``).
+Caches are written in place: K/V rows, and the recurrent states of the ssm
+and hybrid families.  The moe family is the dense one with its MLP replaced
+by routed experts (``models/moe.py``), whose load-balance loss each layer
+returns.  The vlm family (Qwen2-VL) is the dense one with M-RoPE positions
+(B, S, 3) and precomputed patch embeddings written over the first positions
+of the token stream.  The encdec family (SeamlessM4T) runs a bidirectional
+encoder over precomputed frame embeddings (``batch["enc_embeds"]``), then a
+causal decoder whose layers add cross-attention to the encoder output; in
+decode the encoder's per-layer K/V sit in the cache's ``"cross"`` entry and
+only the ``"self"`` split cache grows.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
@@ -36,12 +47,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R6
-from repro_torch.models.attention import apply_attention, attn_defs
+from repro_torch.models.attention import apply_attention, attn_defs, project
 from repro_torch.models.params import ParamDef, init_params, map_defs
-
-_LATER_FAMILIES = {
-    "encdec": "item 5 (encdec)",
-}
 
 
 def stack_defs(defs: Any, n: int) -> Any:
@@ -71,6 +78,36 @@ def cross_entropy(
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+# ---------------------------------------------------------------------------
+# rematerialization
+# ---------------------------------------------------------------------------
+
+_aten = torch.ops.aten
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the output of a matrix product with no batch dimension (``mm``,
+    ``addmm``, or a ``bmm`` one of whose operands is broadcast over its
+    batch, which is what ``x @ w`` becomes where ATen does not fold x into
+    one ``mm``); recompute everything else, the attention's and the
+    experts' batched products included."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and 0 in (args[0].stride(0), args[1].stride(0))):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: Optional[str], *args):
+    """``fn(*args)``, under ``policy``'s rematerialization where autograd
+    records it."""
+    if policy is None or not torch.is_grad_enabled():
+        return fn(*args)
+    if policy == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy))
 
 
 # ---------------------------------------------------------------------------
@@ -125,17 +162,7 @@ class LM:
         family = "moe" if cfg.n_experts else cfg.family
         if cfg.is_encdec:
             family = "encdec"
-        if family in _LATER_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the {family} family is not ported yet "
-                f"(ROADMAP.md, 'Modules to port', {_LATER_FAMILIES[family]})"
-            )
-        if remat == "dots":
-            raise NotImplementedError(
-                "remat='dots' (save only the matmul outputs) is not ported yet "
-                "(ROADMAP.md); use remat='full' or None"
-            )
-        if remat not in (None, "none", "full"):
+        if remat not in (None, "none", "full", "dots"):
             raise ValueError(remat)
         self.cfg = cfg
         self.family = family
@@ -168,11 +195,27 @@ class LM:
 
     def param_defs(self) -> Dict:
         cfg = self.cfg
-        defs = {
-            "embed": L.embed_defs(cfg),
-            "final_ln": L.norm_defs(cfg),
-            "layers": stack_defs(self._layer_defs(), cfg.n_layers),
-        }
+        defs = {"embed": L.embed_defs(cfg), "final_ln": L.norm_defs(cfg)}
+        if self.family == "encdec":
+            enc_layer = {
+                "ln1": L.norm_defs(cfg),
+                "attn": attn_defs(cfg),
+                "ln2": L.norm_defs(cfg),
+                "mlp": L.mlp_defs(cfg),
+            }
+            dec_layer = {
+                "ln1": L.norm_defs(cfg),
+                "attn": attn_defs(cfg),
+                "lnx": L.norm_defs(cfg),
+                "xattn": attn_defs(cfg),
+                "ln2": L.norm_defs(cfg),
+                "mlp": L.mlp_defs(cfg),
+            }
+            defs["encoder"] = stack_defs(enc_layer, cfg.enc_layers)
+            defs["enc_ln"] = L.norm_defs(cfg)
+            defs["decoder"] = stack_defs(dec_layer, cfg.n_layers)
+            return defs
+        defs["layers"] = stack_defs(self._layer_defs(), cfg.n_layers)
         if self.family == "hybrid":
             defs["shared_attn"] = {
                 "ln": L.norm_defs(cfg),
@@ -208,26 +251,34 @@ class LM:
             x = torch.cat([pe.to(self.dtype), x[:, pe.shape[1]:]], dim=1)
         return x, batch["positions"]
 
-    def _run_decoder_stack(self, params, x, pos, caches, cache_len):
+    def _run_decoder_stack(self, params, x, pos, caches, cache_len, enc_out=None,
+                           enc_len=None):
         """Layer loop; returns (x, caches, aux) with the caches updated in
         place.  aux is the MoE layers' load-balance loss summed in f32 in
-        layer order (None for the other families)."""
+        layer order (None for the other families).  The encdec family's
+        decoder attends to ``enc_out`` (no cache) or to the cache's
+        ``"cross"`` K/V, of ``enc_len`` tokens."""
         cfg = self.cfg
-        remat = self.remat == "full" and caches is None and torch.is_grad_enabled()
+        remat = self.remat if caches is None else None
+        if self.family == "encdec":
+            for li in range(cfg.n_layers):
+                cache = None if caches is None else layer_params(caches, li)
+                x = _remat(self._decoder_layer, remat, layer_params(params["decoder"], li), x,
+                           pos, enc_out, enc_len, cache, cache_len)
+            return x, caches, None
         aux = None
         for li in range(cfg.n_layers):
             lp = layer_params(params["layers"], li)
             a = None
-            if remat:
-                x, a = checkpoint(self._layer, lp, x, pos, use_reentrant=False)
+            if caches is None:
+                x, a = _remat(self._layer, remat, lp, x, pos)
             elif self.family == "ssm":
-                x = _rwkv_block(lp, cfg, x, None if caches is None else layer_params(caches, li))
+                x = _rwkv_block(lp, cfg, x, layer_params(caches, li))
             elif self.family == "hybrid":
-                st = None if caches is None else layer_params(caches["mamba"], li)
-                x = _mamba_block(lp, cfg, x, st)
+                x = _mamba_block(lp, cfg, x, layer_params(caches["mamba"], li))
             else:
-                cache = None if caches is None else layer_params(caches, li)
-                x, _, a = _dense_block(lp, cfg, self.attn_impl, x, pos, cache, cache_len)
+                x, _, a = _dense_block(lp, cfg, self.attn_impl, x, pos,
+                                       layer_params(caches, li), cache_len)
             if a is not None:
                 aux = a if aux is None else aux + a
             if self.family == "hybrid" and (li + 1) % cfg.attn_every == 0:
@@ -251,13 +302,65 @@ class LM:
         x, _, aux = _dense_block(lp, self.cfg, self.attn_impl, x, pos, None, None)
         return x, aux
 
+    def _decoder_layer(self, lp, x, pos, enc_out, enc_len, cache=None, cache_len=None):
+        """One encdec decoder layer: causal self-attention (into the
+        ``"self"`` split cache where there is one), cross-attention over the
+        cache's ``"cross"`` K/V or, without a cache, over ``enc_out``'s, and
+        the MLP."""
+        cfg, impl = self.cfg, self.attn_impl
+        h = L.apply_norm(lp["ln1"], x)
+        a, _ = apply_attention(lp["attn"], cfg, h, pos, impl=impl, causal=True,
+                               cache=None if cache is None else cache["self"],
+                               cache_len=cache_len)
+        x = x + a
+        h = L.apply_norm(lp["lnx"], x)
+        kv = self._encoder_kv(lp["xattn"], enc_out) if cache is None else cache["cross"]
+        a, _ = apply_attention(lp["xattn"], cfg, h, pos, impl=impl, kv_override=kv,
+                               cache_len=enc_len)
+        x = x + a
+        h = L.apply_norm(lp["ln2"], x)
+        return x + L.apply_mlp(lp["mlp"], h)
+
+    def _encoder_kv(self, attn_params, enc_out):
+        """The cross-attention K/V of ``enc_out`` (B, Se, d): (B, Se, KV, hd) each."""
+        return project(enc_out, attn_params["wk"]), project(enc_out, attn_params["wv"])
+
+    def _encoder_layer(self, lp, x, pos):
+        h = L.apply_norm(lp["ln1"], x)
+        a, _ = apply_attention(lp["attn"], self.cfg, h, pos, impl=self.attn_impl,
+                               causal=False)
+        x = x + a
+        h = L.apply_norm(lp["ln2"], x)
+        return x + L.apply_mlp(lp["mlp"], h)
+
+    def _run_encoder(self, params, enc_embeds):
+        """The bidirectional encoder over ``enc_embeds`` (B, Se, d), cast to
+        the model dtype, at positions 0..Se-1; ends with ``enc_ln``."""
+        x = enc_embeds.to(self.dtype)
+        B, Se = x.shape[:2]
+        pos = torch.arange(Se, device=x.device).expand(B, Se)
+        for li in range(self.cfg.enc_layers):
+            x = _remat(self._encoder_layer, self.remat,
+                       layer_params(params["encoder"], li), x, pos)
+        return L.apply_norm(params["enc_ln"], x)
+
+    def _backbone(self, params, batch):
+        """Embeddings and the decoder stack without a cache (after the
+        encoder in the encdec family): (x, aux)."""
+        x, pos = self._embed_inputs(params, batch)
+        enc_out = enc_len = None
+        if self.family == "encdec":
+            enc_out = self._run_encoder(params, batch["enc_embeds"])
+            enc_len = enc_out.shape[1]
+        x, _, aux = self._run_decoder_stack(params, x, pos, None, None, enc_out, enc_len)
+        return x, aux
+
     # -- public entry points ------------------------------------------------------
     def train_loss(self, params, batch) -> torch.Tensor:
         """Teacher-forced cross entropy over the padded vocab, averaged over
         ``batch["loss_mask"]`` where given; in the moe family plus 0.01 x the
         load-balance loss averaged over the layers."""
-        x, pos = self._embed_inputs(params, batch)
-        x, _, aux = self._run_decoder_stack(params, x, pos, None, None)
+        x, aux = self._backbone(params, batch)
         x = L.apply_norm(params["final_ln"], x)
         logits = L.logits_from(params["embed"], x)
         loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
@@ -266,8 +369,7 @@ class LM:
         return loss
 
     def prefill_logits(self, params, batch) -> torch.Tensor:
-        x, pos = self._embed_inputs(params, batch)
-        x, _, _ = self._run_decoder_stack(params, x, pos, None, None)
+        x, _ = self._backbone(params, batch)
         x = L.apply_norm(params["final_ln"], x[:, -1:])
         return L.logits_from(params["embed"], x)[:, 0]
 
@@ -278,7 +380,8 @@ class LM:
         x, pos = self._embed_inputs(params, batch)
         split = "len_rec" in cache
         cache_len = (cache["len"], cache["len_rec"]) if split else cache["len"]
-        x, _, _ = self._run_decoder_stack(params, x, pos, cache["layers"], cache_len)
+        x, _, _ = self._run_decoder_stack(params, x, pos, cache["layers"], cache_len,
+                                          enc_len=cache.get("enc_len"))
         x = L.apply_norm(params["final_ln"], x[:, -1:])
         logits = L.logits_from(params["embed"], x)[:, 0]
         new_cache = dict(cache)
@@ -318,25 +421,28 @@ class LM:
 
     # -- caches ---------------------------------------------------------------------
     def init_cache(
-        self, batch_size: int, max_len: int, recent_size: int = 256, *,
+        self, batch_size: int, max_len: int, enc_len: int = 0, recent_size: int = 256, *,
         device="cuda",
     ) -> Dict:
         """Dense, moe and vlm families: the split cache, ``main`` (read-only store) and
         ``recent`` (the ring new tokens land in), each ``(L, B, len, KV,
         hd)``.  ssm: the stacked RWKV states.  hybrid: the stacked Mamba
         states and one split cache per application of the shared block.
-        Lengths are ints."""
+        encdec: the split cache under ``"self"`` and the decoder layers'
+        cross-attention K/V of ``enc_len`` encoder tokens under ``"cross"``
+        (zeros: the caller fills them from ``_run_encoder`` and
+        ``_encoder_kv``, as the reference's tests do).  Lengths are ints."""
         cfg = self.cfg
         device = resolve_device(device)
         kv_dt = torch_dtype(cfg.kv_cache_dtype)
 
-        def split_kv(n_stack):
-            def zeros(length):
-                shape = (n_stack, batch_size, length, cfg.n_kv_heads, cfg.hd)
-                return torch.zeros(shape, dtype=kv_dt, device=device)
+        def kv(n_stack, length):
+            shape = (n_stack, batch_size, length, cfg.n_kv_heads, cfg.hd)
+            return (torch.zeros(shape, dtype=kv_dt, device=device),
+                    torch.zeros(shape, dtype=kv_dt, device=device))
 
-            return {"main": (zeros(max_len), zeros(max_len)),
-                    "recent": (zeros(recent_size), zeros(recent_size))}
+        def split_kv(n_stack):
+            return {"main": kv(n_stack, max_len), "recent": kv(n_stack, recent_size)}
 
         def stacked(state):
             """One state per layer: the given (meta) state's leaves, stacked."""
@@ -355,4 +461,7 @@ class LM:
                 "len": 0,
                 "len_rec": 0,
             }
+        if self.family == "encdec":
+            return {"layers": {"self": split_kv(cfg.n_layers), "cross": kv(cfg.n_layers, enc_len)},
+                    "len": 0, "len_rec": 0, "enc_len": enc_len}
         return {"layers": split_kv(cfg.n_layers), "len": 0, "len_rec": 0}

@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.configs.base import RunShape  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels.decay_attention import ops as dc_ops  # noqa: E402
 from repro_torch.kernels.decay_attention.ref import (  # noqa: E402
@@ -27,11 +29,13 @@ from repro_torch.kernels.pud_bulk import ops as pud_ops  # noqa: E402
 from repro_torch.kernels.pud_bulk.ref import block_copy_ref, bulk_op_ref  # noqa: E402
 from repro_torch.core.kv_pool import KVPoolConfig  # noqa: E402
 from repro_torch.graphs import GraphCache, decode_step_jit  # noqa: E402
+from repro_torch.launch.inputs import make_batch  # noqa: E402
 from repro_torch.models import linear_scan  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
 from repro_torch.serve.engine import MaintenanceConfig, Request, ServeEngine  # noqa: E402
 from repro_torch.serve.paged_runner import paged_decode_step, paged_decode_step_jit  # noqa: E402
+from repro_torch.tree import flatten, tree_map, unflatten  # noqa: E402
 
 # the reference's tolerances: 2e-5 f32 (paged and flash attention), 2e-2 bf16
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -1371,3 +1375,138 @@ def test_vlm_and_dense_graphs_in_one_cache_never_share_a_capture(cuda):
         want = _eager_step(params, model.cfg, kp, vp, toks, p, tbl, lens)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert graphs.captures == 2
+
+
+# -- the encdec family (seamless_m4t_medium) --------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Se", [2048, 1000, 1500])
+@pytest.mark.parametrize("kind", ["encoder", "cross_decode"])
+def test_flash_attention_kernel_at_encdec_shapes(cuda, kind, Se, dtype):
+    """seamless_m4t_medium's flash shapes in the model's layout, non-causal:
+    the encoder's (and the cross-attention prefill's) q/k/v (4, 16, Se, 64),
+    and a decode step's cross-attention, q (8, 16, 1, 64) against k/v
+    (8, 16, Se, 64) sliced out of a stacked (L, B, Se, H, D) cross cache,
+    at the full shape and at ragged encoder lengths; ``wgmma`` in bf16,
+    ``tf32x3`` in f32."""
+    rng = np.random.default_rng(Se)
+    B, Sq = (4, Se) if kind == "encoder" else (8, 1)
+    q = torch.from_numpy(rng.normal(size=(B, Sq, 16, 64)).astype(np.float32)).cuda().to(dtype)
+    kv = torch.from_numpy(rng.normal(size=(2, 3, B, Se, 16, 64)).astype(np.float32)).cuda()
+    k, v = kv.to(dtype)[:, 1]
+    out = _flash_check(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), False)
+    assert out.transpose(1, 2).is_contiguous()
+    assert fl_ops.last_path == _expected_path(64, dtype)
+
+
+def _encdec_smoke():
+    """The smoke seamless_m4t_medium (f32, head width 32), its weights drawn
+    on the CPU from a seeded generator, and 2 sequences' 6-token prompts
+    over 10 frames."""
+    cfg = get_config("seamless_m4t_medium").smoke()
+    tree = LM(cfg).init(torch.Generator().manual_seed(3), device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 6), generator=gen)
+    enc = torch.randn(2, 10, cfg.d_model, generator=gen) * 0.02
+    return cfg, tree, tokens, enc
+
+
+def _encdec_greedy(model, params, tokens, enc, new=10):
+    """The prompt, then ``new`` greedy steps over the split cache with the
+    cross cache filled from the encoder, on a recent ring as long as the
+    prompt (flushed when full): (ids, last logits)."""
+    B, P = tokens.shape
+    cache = model.init_cache(B, P + new, enc_len=enc.shape[1], recent_size=P,
+                             device=tokens.device)
+    with torch.no_grad():
+        enc_out = model._run_encoder(params, enc)
+        for li in range(model.cfg.n_layers):
+            k, v = model._encoder_kv({n: t[li] for n, t in params["decoder"]["xattn"].items()},
+                                     enc_out)
+            cache["layers"]["cross"][0][li], cache["layers"]["cross"][1][li] = k, v
+        tok, pos, ids = tokens, torch.arange(P, device=tokens.device).expand(B, P), []
+        for t in range(new):
+            logits, cache = model.decode_step(params, {"tokens": tok, "positions": pos}, cache)
+            if cache["len_rec"] == cache["layers"]["self"]["recent"][0].shape[2]:
+                cache = model.flush_cache(cache)
+            tok = logits.argmax(-1)[:, None]
+            ids.append(tok)
+            pos = torch.full((B, 1), P + t, device=tokens.device)
+    return torch.cat(ids, 1).cpu(), logits
+
+
+@pytest.mark.cuda
+def test_encdec_smoke_on_the_card_matches_cpu(cuda):
+    """The smoke encdec model through the flash kernel (``pallas``, f32:
+    ``tf32x3``) on the card against the CPU (the kernel's plain version),
+    same weights: ``prefill_logits`` within 1e-4 of their scale, with one
+    flash launch an encoder layer and two a decoder layer; greedy ids over
+    the cross cache equal."""
+    cfg, tree, tokens, enc = _encdec_smoke()
+    model = LM(cfg, attn_impl="pallas", remat=None)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.to(dev), tree)
+        batch = {"tokens": tokens.to(dev), "enc_embeds": enc.to(dev),
+                 "positions": torch.arange(6, device=dev).expand(2, 6)}
+        kernels.reset_launches()
+        with torch.no_grad():
+            logits = model.prefill_logits(params, batch)
+        want = cfg.enc_layers + 2 * cfg.n_layers if dev == "cuda" else 0
+        assert kernels.launches["flash_attention"] == kernels.launches[
+            "flash_attention:tf32x3"] == want
+        ids, _ = _encdec_greedy(model, params, tokens.to(dev), enc.to(dev))
+        out[dev] = (logits.cpu(), ids)
+    scale = max(1.0, out["cpu"][0].abs().max().item())
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() < 1e-4 * scale
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
+class _Products(TorchDispatchMode):
+    """Counts the unbatched matrix products a region runs (``mm``, ``addmm``,
+    a ``bmm`` with an operand broadcast over its batch)."""
+
+    def __init__(self):
+        super().__init__()
+        self.mm = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in ("mm", "addmm") or (name == "bmm" and 0 in (args[0].stride(0),
+                                                               args[1].stride(0))):
+            self.mm += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.cuda
+def test_encdec_remat_dots_on_the_card(cuda):
+    """``remat="dots"`` on the card at a moderate shape (seamless_m4t_medium
+    at full width cut to 2 encoder and 2 decoder layers, bf16, 4 x 512
+    tokens over 512 frames, chunked attention): gradients equal to
+    ``remat=None``'s (within 1e-6 of each leaf's largest), the backward
+    recomputing no unbatched product, and a lower peak than without remat."""
+    cfg = dataclasses.replace(get_config("seamless_m4t_medium"), n_layers=2, enc_layers=2)
+    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    batch = make_batch(cfg, RunShape("t", 512, 4, "train"), seed=0)
+    flat, tdef = flatten(params)
+    res = {}
+    for remat in (None, "dots"):
+        model = LM(cfg, attn_impl="chunked", remat=remat)
+        lv = [p.detach().requires_grad_(True) for p in flat]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        counter = _Products()
+        loss = model.train_loss(unflatten(tdef, lv), batch)
+        with counter:
+            grads = torch.autograd.grad(loss, lv)
+        torch.cuda.synchronize()
+        res[remat] = (grads, counter.mm, torch.cuda.max_memory_allocated() - base)
+        del loss
+    (g0, mm0, peak0), (g1, mm1, peak1) = res[None], res["dots"]
+    for a, b in zip(g0, g1):
+        assert (a.float() - b.float()).abs().max().item() <= 1e-6 * max(
+            a.float().abs().max().item(), 1e-3)
+    assert mm1 == mm0 > 0
+    assert peak1 < peak0, (peak1, peak0)

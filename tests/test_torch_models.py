@@ -14,8 +14,9 @@ from repro.configs.registry import get_config as ref_get_config  # noqa: E402
 from repro.models import attention as ref_attn  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
 from repro.models import rope as ref_rope  # noqa: E402
+from repro.models.params import ParamDef as RefParamDef  # noqa: E402
 from repro.models.transformer import LM as RefLM  # noqa: E402
-from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.configs.registry import get_config, lm_archs  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import rope  # noqa: E402
@@ -231,10 +232,18 @@ def test_prefill_logits_matches_reference(stablelm_pair):
     assert _scaled_err(ol, rl) < TOL
 
 
-@pytest.mark.parametrize("arch", ["seamless_m4t_medium"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        LM(get_config(arch).smoke())
+@pytest.mark.parametrize("arch", lm_archs())
+def test_every_family_builds_the_reference_tree(arch):
+    """Every model family is ported: each config's ``LM`` builds, with and
+    without remat, and its params have the reference's paths and shapes."""
+    cfg = get_config(arch).smoke()
+    for remat in (None, "full", "dots"):
+        assert LM(cfg, remat=remat).remat == remat
+    ours = jax.tree_util.tree_flatten_with_path(params_to_numpy(LM(cfg).init(0, device="cpu")))[0]
+    theirs = jax.tree_util.tree_flatten_with_path(
+        RefLM(ref_get_config(arch).smoke(), remat=None).param_defs(),
+        is_leaf=lambda d: isinstance(d, RefParamDef))[0]
+    assert [(p, a.shape) for p, a in ours] == [(p, tuple(d.shape)) for p, d in theirs]
 
 
 def test_puma_paper_config_raises_until_dram_model_is_ported():
@@ -246,6 +255,7 @@ def test_puma_paper_config_raises_until_dram_model_is_ported():
 
 
 @pytest.mark.parametrize("arch", ["stablelm_1_6b", "chatglm3_6b", "granite_moe_1b_a400m",
-                                  "zamba2_7b", "rwkv6_7b", "qwen2_vl_72b"])
+                                  "zamba2_7b", "rwkv6_7b", "qwen2_vl_72b",
+                                  "seamless_m4t_medium"])
 def test_configs_equal_reference(arch):
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(ref_get_config(arch))

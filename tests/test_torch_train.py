@@ -22,9 +22,13 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+
 from repro.ckpt import checkpoint as ref_ckpt  # noqa: E402
+from repro.configs.base import RunShape as RefRunShape  # noqa: E402
 from repro.configs.registry import get_config as ref_get_config  # noqa: E402
 from repro.data import pipeline as ref_pipe  # noqa: E402
+from repro.launch.inputs import make_batch as ref_make_batch  # noqa: E402
 from repro.models.transformer import LM as RefLM, cross_entropy as ref_ce  # noqa: E402
 from repro.optim import adamw as ref_opt  # noqa: E402
 from repro.optim import compression as ref_comp  # noqa: E402
@@ -135,9 +139,108 @@ def test_grads_match_reference_value_and_grad(pair, remat):
     assert all(not p.requires_grad for p in leaves(params))   # grads did not leak into params
 
 
-def test_remat_dots_is_queued():
-    with pytest.raises(NotImplementedError, match="dots"):
-        LM(get_config("stablelm_1_6b").smoke(), remat="dots")
+# -- remat="dots" ----------------------------------------------------------------
+
+REMAT_ARCHS = ["stablelm_1_6b", "granite_moe_1b_a400m", "zamba2_7b", "rwkv6_7b",
+               "seamless_m4t_medium"]
+
+
+class _Products(TorchDispatchMode):
+    """Counts the matrix products a region runs: ``"mm"`` those with no
+    batch dimension (``mm``, ``addmm``, a ``bmm`` with an operand broadcast
+    over its batch), ``"bmm"`` the batched ones."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = {"mm": 0, "bmm": 0}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in ("mm", "addmm"):
+            self.n["mm"] += 1
+        elif name == "bmm":
+            self.n["mm" if 0 in (args[0].stride(0), args[1].stride(0)) else "bmm"] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _remat_pair(arch, remat):
+    """(reference LM(remat=...), its key-0 params, port LM(remat=...), bridged
+    params, a 16-token train batch of ``launch/inputs.py`` for both)."""
+    ref = RefLM(ref_get_config(arch).smoke(), attn_impl="naive", remat=remat)
+    ref_params = ref.init(jax.random.key(0))
+    model = LM(get_config(arch).smoke(), attn_impl="naive", remat=remat)
+    params = params_from_numpy(model, jax.tree.map(np.asarray, ref_params), device="cpu")
+    jb = ref_make_batch(ref.cfg, RefRunShape("t", 16, 2, "train"), 1)
+    tb = {k: torch.from_numpy(np.array(v, np.float32 if k in ("enc_embeds", "loss_mask")
+                                       else np.int64)) for k, v in jb.items()}
+    return ref, ref_params, model, params, jb, tb
+
+
+def _grads_and_products(model, params, batch):
+    """The train loss's gradients, and the products the forward and the
+    backward each ran."""
+    flat, tdef = flatten(params)
+    lv = [p.detach().requires_grad_(True) for p in flat]
+    fwd, bwd = _Products(), _Products()
+    with torch.enable_grad():
+        with fwd:
+            loss = model.train_loss(unflatten(tdef, lv), batch)
+        with bwd:
+            grads = torch.autograd.grad(loss, lv)
+    return grads, fwd.n, bwd.n
+
+
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+def test_remat_dots_and_full_grads_equal_no_remat(arch):
+    """Recomputing in the backward pass changes no gradient: bit-equal to
+    ``remat=None`` on the CPU, for every family's remat body."""
+    *_, model, params, _, tb = _remat_pair(arch, None)
+    base, _, _ = _grads_and_products(model, params, tb)
+    for remat in ("dots", "full"):
+        grads, _, _ = _grads_and_products(LM(model.cfg, attn_impl="naive", remat=remat),
+                                          params, tb)
+        assert all(torch.equal(a, b) for a, b in zip(base, grads)), remat
+
+
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+def test_remat_dots_recomputes_no_unbatched_product(arch):
+    """A dispatch-mode count of the backward pass: under ``"dots"`` it runs
+    as many unbatched products as without remat (every projection's output
+    was saved, none recomputed) and more batched ones (attention scores,
+    expert products and the like are recomputed); under ``"full"`` it also
+    recomputes the layers' unbatched products.  The forward is the same
+    under all three."""
+    *_, model, params, _, tb = _remat_pair(arch, None)
+    runs = {remat: _grads_and_products(LM(model.cfg, attn_impl="naive", remat=remat), params, tb)
+            for remat in (None, "dots", "full")}
+    (_, fwd, bwd), (_, fwd_d, bwd_d), (_, fwd_f, bwd_f) = runs[None], runs["dots"], runs["full"]
+    assert fwd == fwd_d == fwd_f and fwd["mm"] > 0 and fwd["bmm"] > 0
+    assert bwd_d["mm"] == bwd["mm"] and bwd_d["bmm"] > bwd["bmm"]
+    assert bwd_f["mm"] > bwd["mm"] and bwd_f["bmm"] == bwd_d["bmm"]
+
+
+@pytest.mark.parametrize("arch", REMAT_ARCHS[:-1])
+def test_remat_dots_grads_match_reference(arch):
+    """``LM(remat="dots")`` in both packages: the loss within 2e-5 and every
+    leaf within 1e-3 of the reference gradient's largest (the encdec family
+    is held in float64, tests/test_torch_encdec.py::test_grads_match_reference)."""
+    ref, ref_params, model, params, jb, tb = _remat_pair(arch, "dots")
+    ref_loss, ref_grads = jax.value_and_grad(ref.train_loss)(ref_params, jb)
+    loss, grads = value_and_grad(model.train_loss, params, tb)
+    assert abs(float(loss) - float(ref_loss)) < 2e-5 * max(1.0, abs(float(ref_loss)))
+    ref_leaves = jax.tree_util.tree_flatten_with_path(ref_grads)[0]
+    assert len(leaves(grads)) == len(ref_leaves)
+    for (path, g_ref), g in zip(ref_leaves, leaves(grads)):
+        g_ref = np.asarray(g_ref)
+        assert _err(_np(g), g_ref) <= 1e-3 * max(np.abs(g_ref).max(), 1e-3), path
+
+
+def test_remat_takes_none_full_or_dots():
+    cfg = get_config("stablelm_1_6b").smoke()
+    assert [LM(cfg, remat=r).remat for r in (None, "none", "full", "dots")] == [
+        None, None, "full", "dots"]
+    with pytest.raises(ValueError):
+        LM(cfg, remat="offload")
 
 
 # -- optimizer -------------------------------------------------------------------------

@@ -130,14 +130,17 @@ def test_make_batch_rounds_embeddings_through_float32():
 
 # -- the model ------------------------------------------------------------------
 
-def test_vlm_builds_the_dense_tree_and_encdec_still_raises(pair):
+def test_vlm_builds_the_dense_tree_and_encdec_its_own(pair):
+    """The vlm family takes the dense tree; the encdec family (ported since)
+    builds an encoder and a cross-attending decoder in its place."""
     _, ref_params, model, params = pair
     assert model.family == "vlm" and set(params["layers"]) == {"ln1", "attn", "ln2", "mlp"}
     dense = LM(get_config("stablelm_1_6b").smoke())
     assert set(params["layers"]) == set(dense.param_defs()["layers"])
     assert set(ref_params) == set(params) and set(ref_params["layers"]) == set(params["layers"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        LM(get_config("seamless_m4t_medium").smoke())
+    encdec = LM(get_config("seamless_m4t_medium").smoke())
+    assert encdec.family == "encdec" and set(encdec.param_defs()) == {
+        "embed", "final_ln", "encoder", "enc_ln", "decoder"}
 
 
 def test_bridge_carries_the_vlm_tree_as_it_is(pair):
