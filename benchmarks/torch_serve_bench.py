@@ -18,10 +18,20 @@ Wall-clock times go to stdout only::
 from __future__ import annotations
 
 import argparse
-import json
 import sys
 import time
+from pathlib import Path
 from typing import Dict, Tuple
+
+_HERE = Path(__file__).resolve().parent
+for _p in (_HERE, _HERE.parent / "src"):
+    if str(_p) not in sys.path:
+        sys.path.append(str(_p))
+
+import torch_records  # noqa: E402
+
+#: no field of these records comes from the host's clock
+WALL_CLOCK: Dict[str, Tuple[str, ...]] = {}
 
 
 def make_engine(scenario, device="cuda"):
@@ -82,9 +92,16 @@ def bench(smoke: bool = False, device="cuda") -> Tuple[Dict, Dict[str, float]]:
 def differing(results: Dict, reference: Dict) -> list:
     """Keys whose records differ from the reference's (``config`` and the
     scenario records; the reference's ``determinism`` entry is its gate's)."""
-    keys = sorted(k for k in results if k.startswith("scenario/")) + ["config"]
-    return [k for k in keys if json.dumps(results[k], sort_keys=True)
-            != json.dumps(reference.get(k), sort_keys=True)]
+    return torch_records.differing(results, reference, WALL_CLOCK, skip=("determinism",))
+
+
+def run(emit, smoke: bool = False, device="cuda") -> Dict:
+    """``benchmarks/torch_run.py`` hook: emit the reference's CSV rows (wall
+    us, SimCost tokens/s)."""
+    results, walls = bench(smoke=smoke, device=device)
+    for name, wall in walls.items():
+        emit(f"serve/{name}", 1e6 * wall, results[f"scenario/{name}"]["tokens_per_s"])
+    return results
 
 
 def main(argv=None) -> int:
@@ -92,9 +109,7 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--smoke", action="store_true", help="the smoke request counts")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--out", default=None, help="write the records as JSON to this path")
-    ap.add_argument("--against", default=None,
-                    help="a BENCH_serve.json of the reference to compare the records with")
+    torch_records.add_flags(ap)
     args = ap.parse_args(argv)
     results, walls = bench(smoke=args.smoke, device=args.device)
     for name, wall in walls.items():
@@ -103,19 +118,9 @@ def main(argv=None) -> int:
               f"tok/s(SimCost)={rec['tokens_per_s']:>10.1f} "
               f"p50/p99={rec['p50_complete_steps']}/{rec['p99_complete_steps']} "
               f"contig={rec['contiguity']:.3f} wall={wall:.2f}s on {args.device}")
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write(json.dumps(results, indent=1, sort_keys=True))
-        print(f"[torch_serve_bench] wrote {args.out}")
-    if args.against:
-        with open(args.against) as f:
-            bad = differing(results, json.load(f))
-        print(f"[torch_serve_bench] against {args.against}: "
-              + (f"differ in {bad}" if bad else "every record equal"))
-        return 1 if bad else 0
-    return 0
+    return torch_records.finish("torch_serve_bench", results, args, WALL_CLOCK,
+                                skip=("determinism",))
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1] / "src"))
     sys.exit(main())

@@ -65,7 +65,11 @@ before each and read just after:
   ``scalar_tc_f32``) against the plain chunked math.
 
 It also runs the PUD host model (the quickstart's allocator table and the
-paper's Figure 2, modelled DRAM times), holds the card's generated ids,
+paper's Figure 2, modelled DRAM times) and the GEMV offload model
+(``trace/gemv.py``: the full-width stablelm_1_6b layer 0 placed with the
+four allocators, its partitioned products on the card bit-equal to whole
+ones; the trace and chaos runners' smoke records on the card equal to the
+CPU's; the kernel-bench rows), holds the card's generated ids,
 training losses and f32 flash forwards against the CPU at smoke size, and
 times each kernel beside its bound.  Any failed check raises, so the script exits non-zero without
 its last line; that line is ``{"ok": true, "device": {...}}``.  Without a
@@ -208,6 +212,10 @@ ENCDEC_TRAIN_STEPS = 5
 # width, d_ff, vocab) and its weights' seed
 GQA_ARCH, GQA_SEED = "mistral_nemo_12b", 5
 GQA_FULL = (40, 5120, 32, 8, 128, 14336, 131072)
+# the GEMV offload phase: the model whose full-width layer-0 matrices are
+# placed and multiplied, the memory's seed, and the integer-valued data's
+GEMV_ARCH, GEMV_MEM_SEED, GEMV_SEED = "stablelm_1_6b", 3, 7
+GEMV_REPS = 20
 # whole-model bf16 tolerances, flash path against chunked on the same weights:
 # the two differ in where attention rounds (flash rounds P to bf16 before
 # P.V), which bf16 layers carry to the loss and the logits
@@ -791,6 +799,102 @@ def phase_pud_host() -> None:
         speedups = [row[b] for b in bench.SIZES_BITS]
         check(all(s >= 1.0 for s in speedups) and speedups[-1] > 2.0,
               f"Figure 2 {op}: {speedups}")
+
+
+# -- phase 3d: the GEMV offload model and the evaluation runners ---------------
+
+def phase_gemv() -> dict:
+    """(a) The full-width layer 0 of ``GEMV_ARCH`` (``trace/gemv.py``'s seven
+    decode matrices, weights and accumulators 411 MB) placed with each of
+    the four allocators on the modelled 8 GB memory, and each matrix's
+    partitioned ``gemv_execute`` on the card held bit-equal to one whole
+    ``torch.mv`` on the card and to the CPU's result (integer-valued f32:
+    every sum is exact); each allocator's in-PUD row share, and the
+    partitioned calls' time against the whole products' and the byte bound.
+    ``lm_head`` is left out: it and its accumulator (2 x 822 MB) do not fit
+    PUMA's 512 huge pages.  (b) The trace and chaos runners at smoke size
+    on the card, their records equal to the CPU's outside the wall-clock
+    fields, the trace records also to the committed ``BENCH_trace.json``.
+    (c) The kernel-bench rows on the card, each kernel within its tolerance
+    of its plain version."""
+    from repro_torch.core import pud
+    from repro_torch.core.allocators import HUGE_PAGE, PhysicalMemory
+    from repro_torch.core.dram import AddressMap
+    from repro_torch.trace import gemv
+
+    shapes = {n: s for n, s in gemv.weight_shapes(get_config(GEMV_ARCH)).items()
+              if n.startswith("L0/")}
+    w_bytes = sum(o * i * gemv.ITEMSIZE for o, i in shapes.values())
+    # weights and accumulators, in whole huge pages: the PUD pool's size
+    n_huge = -(-2 * w_bytes // HUGE_PAGE)
+    rng = np.random.default_rng(GEMV_SEED)
+    ws = {n: rng.integers(-8, 8, size=s).astype(np.float32) for n, s in shapes.items()}
+    xs = {n: rng.integers(-8, 8, size=(s[1],)).astype(np.float32) for n, s in shapes.items()}
+    wc = {n: torch.from_numpy(w).cuda() for n, w in ws.items()}
+    xc = {n: torch.from_numpy(x).cuda() for n, x in xs.items()}
+    whole = {n: torch.mv(wc[n], xc[n]) for n in shapes}
+    io_bytes = sum(o * i * 4 + i * 4 + o * 4 for o, i in shapes.values())
+    res = {"bound_ms": io_bytes / HBM_BYTES_PER_S * 1e3, "n_huge": n_huge, "share": {},
+           "ms": {}}
+    res["mv_ms"] = time_ms(lambda: [torch.mv(wc[n], xc[n]) for n in shapes], GEMV_REPS)
+    log(f"[gemv] {GEMV_ARCH} layer 0 at full width: {len(shapes)} matrices, "
+        f"{w_bytes / 1e6:.1f} MB f32 weights (+ accumulators), PUMA pool {n_huge} of 512 huge "
+        f"pages; lm_head left out (it and its accumulator, 2 x "
+        f"{get_config(GEMV_ARCH).vocab_size * get_config(GEMV_ARCH).d_model * 4 / 1e6:.0f} MB, "
+        f"do not fit the modelled memory's 512 huge pages)")
+    for al in gemv.ALLOCATORS:
+        amap = AddressMap()
+        placement = gemv.build_placement(shapes, al, PhysicalMemory(amap, seed=GEMV_MEM_SEED),
+                                         prealloc_huge=n_huge)
+        rows = rows_pud = 0
+        for n in shapes:
+            plan = pud.plan_rows("mac", list(placement[n]), amap)
+            rows, rows_pud = rows + plan.n_rows, rows_pud + sum(plan.in_pud)
+            y = gemv.gemv_execute(wc[n], xc[n], *placement[n], amap)
+            check(y.device == wc[n].device and torch.equal(y, whole[n]),
+                  f"[gemv] {al} {n}: the partitioned product on the card differs from torch.mv")
+            y_cpu = gemv.gemv_execute(ws[n], xs[n], *placement[n], amap)
+            check(np.array_equal(y.cpu().numpy(), y_cpu),
+                  f"[gemv] {al} {n}: the card's partitioned product differs from the CPU's")
+        res["share"][al] = rows_pud / rows
+        res["ms"][al] = time_ms(lambda: [gemv.gemv_execute(wc[n], xc[n], *placement[n], amap)
+                                         for n in shapes], GEMV_REPS)
+        log(f"[gemv] {al:<14} in-PUD rows {rows_pud}/{rows} ({res['share'][al]:.4f}); "
+            f"partitioned {res['ms'][al]:.4f} ms, whole torch.mv {res['mv_ms']:.4f} ms, "
+            f"bound {res['bound_ms']:.4f} ms (bytes); bit-equal on the card and to the CPU")
+    check(res["share"]["malloc"] == 0.0 and res["share"]["posix_memalign"] == 0.0,
+          f"[gemv] base-page placements offload rows: {res['share']}")
+
+    trace_bench = load_script("benchmarks/torch_trace_bench.py")
+    chaos_bench = load_script("benchmarks/torch_chaos_bench.py")
+    records = trace_bench.torch_records
+    card, _ = trace_bench.bench(smoke=True, device="cuda")
+    host, _ = trace_bench.bench(smoke=True, device="cpu")
+    check(records.differing(card, host, trace_bench.WALL_CLOCK) == [],
+          "[gemv] trace records on the card differ from the CPU's")
+    committed = json.loads((ROOT / "BENCH_trace.json").read_text())
+    bad = records.differing(card, committed, trace_bench.WALL_CLOCK, skip=("determinism",))
+    check(bad == [], f"[gemv] trace records differ from BENCH_trace.json in {bad}")
+    card = chaos_bench.bench(smoke=True, device="cuda")
+    host = chaos_bench.bench(smoke=True, device="cpu")
+    bad = records.differing(card, host, chaos_bench.WALL_CLOCK)
+    check(bad == [], f"[gemv] chaos records on the card differ from the CPU's in {bad}")
+    chaos_bench.check(card)
+    log("[gemv] torch_trace_bench and torch_chaos_bench at smoke size: the card's records "
+        "equal the CPU's; the trace records equal BENCH_trace.json")
+
+    kernel_bench = load_script("benchmarks/torch_kernel_bench.py")
+    rows = {}
+
+    def emit(name, us, derived):
+        rows[name] = derived
+        log(f"[gemv] kernel bench {name},{us:.1f},{derived}")
+
+    kernel_bench.run(emit, device="cuda")
+    kernel_bench.check(rows)
+    del wc, xc, whole
+    torch.cuda.empty_cache()
+    return res
 
 
 def block_copy_case():
@@ -2602,6 +2706,7 @@ def main() -> None:
     errs = phase_kernels()
     bitmap = phase_bitmap()
     phase_pud_host()
+    phase_gemv()
     serve_eager = phase_serve(jit=False)
     serve = phase_serve()
     serve_maint = phase_serve(MAINTENANCE)

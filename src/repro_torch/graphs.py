@@ -21,7 +21,8 @@ dict, a pool or a cache gets a new capture and never replays a stale one.
 A captured step holds the params strongly and the pools and caches weakly:
 once an engine's pool or a cache is freed, the steps that read it are
 retired at the next capture, so engines that come and go over one model do
-not keep their pools alive.  Capture or replay errors raise; nothing falls
+not keep their pools alive.  When that retires every step, the memory pool
+goes with their graphs and the next capture starts a new one.  Capture or replay errors raise; nothing falls
 back to the eager step.  CPUs have no graphs: the callers run their step
 eagerly on CPU tensors.
 
@@ -134,7 +135,10 @@ class GraphCache:
         step = self.steps.get(key)
         if step is None or not step.alive():
             self.steps = {k: s for k, s in self.steps.items() if s.alive()}
-            if self.pool is None:
+            if not self.steps:
+                # the graphs just retired were the pool's last users, and
+                # PyTorch releases a pool with its last graph: capture into
+                # a new one
                 self.pool = torch.cuda.graph_pool_handle()
             t0 = time.perf_counter()
             step = make(self.pool)

@@ -9,15 +9,21 @@
   through :mod:`repro_torch.core.pud` + :mod:`repro_torch.core.controller`
   bit-exactly, independent of the live engine.
 
-:mod:`repro_torch.trace.serve_trace` glues the recorder onto the fixed-seed
-serving scenarios.  Both are numpy host code, the reference's with imports
-re-pointed; the reference's GEMV offload model (``trace/gemv.py``) is not
-ported yet (ROADMAP.md).
+:mod:`repro_torch.trace.gemv` is the Tracegen-style GEMV/MoE offload
+model: it places every decode weight matrix with each of the four
+allocators, prices the decode matvec stream as PUD ``mac`` ops, and
+computes the partitioned product ``W @ x`` with ``torch.mv`` on the
+weight's device.  :mod:`repro_torch.trace.serve_trace` glues the recorder
+onto the fixed-seed serving scenarios.  The recorder, replay and the
+offload model's pricing are numpy host code, the reference's with imports
+re-pointed.
 """
+from repro_torch.trace import gemv
 from repro_torch.trace.record import SCHEMA_VERSION, TraceRecorder, TraceSchemaError
 from repro_torch.trace.replay import ReplayResult, parse_trace, replay_trace
 
 __all__ = [
+    "gemv",
     "SCHEMA_VERSION",
     "TraceRecorder",
     "TraceSchemaError",

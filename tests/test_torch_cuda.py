@@ -1135,6 +1135,41 @@ def test_paged_decode_step_graph_recaptures_for_new_params_batch_or_pool(cuda):
 
 
 @pytest.mark.cuda
+def test_graph_cache_captures_again_once_every_step_is_retired(cuda):
+    """Engines in turn over one model, each freed before the next starts
+    (as the trace and chaos runners share their smoke model): the next
+    capture retires every step, and PyTorch releases the cache's memory
+    pool with their graphs, so the cache captures into a new pool (into the
+    released one, PyTorch's allocator failed an internal assert).  Every
+    engine's ids equal an eager engine's."""
+    import gc
+
+    model, params = _dense_smoke("float32")
+    cfg = model.cfg
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(0, cfg.vocab_size, 10).tolist(), 6) for _ in range(4)]
+    captures = 0
+    for num_blocks in (8, 16, 8):
+        pool_cfg = KVPoolConfig(
+            num_blocks=num_blocks, block_size=4, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+            n_layers=cfg.n_layers, max_seqs=2, max_blocks_per_seq=8, blocks_per_arena=8,
+            dtype="float32")
+        ids = {}
+        for jit in (True, False):
+            eng = ServeEngine(model, params, pool_cfg, device="cuda", jit=jit)
+            for rid, (prompt, n) in enumerate(reqs):
+                eng.submit(Request(rid=rid, prompt=prompt, max_new=n))
+            while eng.step():
+                pass
+            ids[jit] = {r.rid: r.out for r in eng.done}
+            del eng
+            gc.collect()
+        assert len(ids[True]) == len(reqs) and ids[True] == ids[False]
+        assert model._cuda_graphs.captures > captures
+        captures = model._cuda_graphs.captures
+
+
+@pytest.mark.cuda
 def test_graphed_engine_after_fork_and_compaction_equals_eager(cuda):
     """Two engines over one model and params, graphed (the default) and
     eager, with watermark compaction and a fork part-way: the same ids and
@@ -1510,3 +1545,79 @@ def test_encdec_remat_dots_on_the_card(cuda):
             a.float().abs().max().item(), 1e-3)
     assert mm1 == mm0 > 0
     assert peak1 < peak0, (peak1, peak0)
+
+
+# -- the GEMV offload model and the evaluation runners on the card ------------
+
+def _gemv_placements(shapes, seed=3, prealloc_huge=32):
+    from repro_torch.core.allocators import PhysicalMemory
+    from repro_torch.core.dram import AddressMap
+    from repro_torch.trace import gemv
+
+    out = {}
+    for al in gemv.ALLOCATORS:
+        amap = AddressMap()
+        out[al] = (amap, gemv.build_placement(shapes, al, PhysicalMemory(amap, seed=seed),
+                                              prealloc_huge=prealloc_huge))
+    return out
+
+
+def _gemv_check(shapes, placements, seed):
+    """Every matrix's partitioned product on the card bit-equal to one whole
+    ``torch.mv`` on the card and to the CPU's partitioned product."""
+    from repro_torch.trace import gemv
+
+    rng = np.random.default_rng(seed)
+    for name, (n_out, d_in) in shapes.items():
+        w = rng.integers(-8, 8, size=(n_out, d_in)).astype(np.float32)
+        x = rng.integers(-8, 8, size=(d_in,)).astype(np.float32)
+        wc, xc = torch.from_numpy(w).cuda(), torch.from_numpy(x).cuda()
+        for al, (amap, placement) in placements.items():
+            y = gemv.gemv_execute(wc, xc, *placement[name], amap)
+            assert y.is_cuda and y.dtype == torch.float32
+            assert torch.equal(y, torch.mv(wc, xc)), (al, name)
+            assert np.array_equal(y.cpu().numpy(),
+                                  gemv.gemv_execute(w, x, *placement[name], amap)), (al, name)
+
+
+@pytest.mark.cuda
+def test_gemv_execute_on_the_card_is_bit_exact_at_smoke_shapes(cuda):
+    from repro_torch.trace import gemv
+
+    shapes = gemv.weight_shapes(get_config("stablelm_1_6b").smoke())
+    picked = {n: shapes[n] for n in ("L0/attn/wq", "L1/mlp/w_out", "lm_head")}
+    _gemv_check(picked, _gemv_placements(shapes), seed=7)
+
+
+@pytest.mark.cuda
+def test_gemv_execute_on_the_card_is_bit_exact_at_one_full_width_matrix(cuda):
+    """Full-width stablelm_1_6b's ``w_out`` (2048 x 5632, 46 MB f32) placed
+    alone with each allocator, PUMA's pool holding it and its accumulator."""
+    from repro_torch.core.allocators import HUGE_PAGE
+
+    shapes = {"L0/mlp/w_out": (2048, 5632)}
+    n_huge = -(-2 * 2048 * 5632 * 4 // HUGE_PAGE)
+    _gemv_check(shapes, _gemv_placements(shapes, prealloc_huge=n_huge), seed=8)
+
+
+def _load_bench(name):
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "benchmarks" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["torch_trace_bench", "torch_chaos_bench"])
+def test_gemv_runner_records_on_the_card_equal_the_cpu(cuda, name):
+    bench, records = _load_bench(name), _load_bench("torch_records")
+
+    def records_on(device):
+        out = bench.bench(smoke=True, device=device)
+        return out[0] if isinstance(out, tuple) else out
+
+    assert records.differing(records_on("cuda"), records_on("cpu"), bench.WALL_CLOCK) == []

@@ -18,7 +18,10 @@ SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
            ROOT / "scripts" / "decay_precision.py", ROOT / "examples" / "torch_serve_paged.py",
            ROOT / "src" / "repro_torch" / "launch" / "serve.py",
            ROOT / "scripts" / "torch_decode_profile.py", ROOT / "scripts" / "flash_precision.py",
-           ROOT / "scripts" / "mma_rate.py"]
+           ROOT / "scripts" / "mma_rate.py", ROOT / "examples" / "torch_train_lm.py",
+           *(ROOT / "benchmarks" / f"torch_{name}.py" for name in (
+               "records", "translate_bench", "channel_bench", "chaos_bench", "churn_bench",
+               "trace_bench", "kv_pool_bench", "alloc_fraction", "kernel_bench", "run"))]
 
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
