@@ -17,9 +17,10 @@ engine recovers:
   move real bytes on a modelled physical memory (verified bit-exact), and
   ``recovery``, the fraction of churn-lost executable fraction won back.
 * ``pool/serving_trace`` — a serving-engine-shaped trace on
-  :class:`~repro_torch.core.kv_pool.PagedKVPool` (its buffers on the CPU:
-  this runner is host code), with watermark ``compact()`` passes stamped
-  and verified bit-exact through the block tables with ``torch.equal``.
+  :class:`~repro_torch.core.kv_pool.PagedKVPool` (its buffers on
+  ``--device``, the card by default), with watermark ``compact()`` passes
+  stamped and verified bit-exact through the block tables with
+  ``torch.equal``; its records are the same on either device.
 * ``journal/crash_replay`` — the compaction arm's journal truncated
   mid-history and replayed twice.
 
@@ -28,7 +29,7 @@ and every curve are functions of the seed.  ``gate`` is the reference's
 acceptance gate.  Nothing is written unless ``--out`` is given::
 
     PYTHONPATH=src python benchmarks/torch_churn_bench.py --smoke \
-        [--out PATH] [--against BENCH_churn.json]
+        [--device cpu] [--out PATH] [--against BENCH_churn.json]
 """
 from __future__ import annotations
 
@@ -351,7 +352,7 @@ def _crash_replay(journal, pa_live) -> Dict:
 # serving-engine-shaped tile-pool trace
 # ---------------------------------------------------------------------------
 
-def _pool_trace(cycles: int, sample_every: int) -> Dict:
+def _pool_trace(cycles: int, sample_every: int, device="cuda") -> Dict:
     """Admission/extend/release trace shaped like the serving engine
     (request geometry from the config registry), with watermark
     ``PagedKVPool.compact()`` passes verified bit-exact through the
@@ -373,7 +374,7 @@ def _pool_trace(cycles: int, sample_every: int) -> Dict:
         dtype="float32",
     )
     journal = Journal()
-    kv = PagedKVPool(cfg, journal=journal, device="cpu")
+    kv = PagedKVPool(cfg, journal=journal, device=device)
     rng = random.Random(CHURN_SEED)
     # slot -> tokens still to decode before release
     remaining: Dict[int, int] = {}
@@ -416,7 +417,8 @@ def _pool_trace(cycles: int, sample_every: int) -> Dict:
             tags: Dict[int, torch.Tensor] = {}
             for slot, (h, _) in kv._seqs.items():
                 tg = torch.tensor(
-                    [slot * 1024 + i for i in range(len(h.tiles))], dtype=torch.float32
+                    [slot * 1024 + i for i in range(len(h.tiles))], dtype=torch.float32,
+                    device=kv.k.device,
                 )
                 tags[slot] = tg
                 kv.k[0, torch.as_tensor(h.tiles), 0, 0, 0] = tg
@@ -441,7 +443,7 @@ def _pool_trace(cycles: int, sample_every: int) -> Dict:
                 "total_ns": round(rep.total_ns, 1),
             })
     seconds = time.perf_counter() - t0
-    kv2 = replay_kv_pool(journal, cfg, device="cpu")
+    kv2 = replay_kv_pool(journal, cfg, device=device)
     replay_ok = kv_pool_digest(kv) == kv_pool_digest(kv2)
     return {
         "n": cycles,
@@ -456,7 +458,7 @@ def _pool_trace(cycles: int, sample_every: int) -> Dict:
 
 # ---------------------------------------------------------------------------
 
-def bench(smoke: bool = False) -> Dict:
+def bench(smoke: bool = False, device="cuda") -> Dict:
     cycles = 10_000 if smoke else 100_000
     base_cycles = 3_000 if smoke else 20_000
     pool_cycles = 8_000 if smoke else 100_000
@@ -491,7 +493,7 @@ def bench(smoke: bool = False) -> Dict:
 
     results["journal/crash_replay"] = _crash_replay(journal, pa_live)
     results["pool/serving_trace"] = _pool_trace(
-        pool_cycles, pool_cycles // samples
+        pool_cycles, pool_cycles // samples, device
     )
     results["config"] = {
         "seed": CHURN_SEED,
@@ -530,9 +532,10 @@ def gate(results: Dict) -> None:
               len(comp["compactions"]), len(pt["compactions"])))
 
 
-def run(emit: Callable[[str, float, float], None], smoke: bool = False) -> Dict:
+def run(emit: Callable[[str, float, float], None], smoke: bool = False,
+        device="cuda") -> Dict:
     """``benchmarks/torch_run.py`` hook: emit CSV rows."""
-    results = bench(smoke=smoke)
+    results = bench(smoke=smoke, device=device)
     for name, rec in results.items():
         if name == "config":
             continue
@@ -547,9 +550,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--smoke", action="store_true", help="fast CI mode")
+    ap.add_argument("--device", default="cuda", help="the serving trace's pool device")
     torch_records.add_flags(ap)
     args = ap.parse_args(argv)
-    results = run(lambda n, us, d: print(f"{n},{us:.1f},{d}"), smoke=args.smoke)
+    results = run(lambda n, us, d: print(f"{n},{us:.1f},{d}"), smoke=args.smoke,
+                  device=args.device)
     gate(results)
     return torch_records.finish("torch_churn_bench", results, args, WALL_CLOCK)
 

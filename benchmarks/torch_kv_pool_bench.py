@@ -1,13 +1,15 @@
 """KV-pool placement policy vs block-table contiguity (the '% executable in
 PUD' analogue) under serving churn, plus the modelled DMA-descriptor
 reduction: the reference's ``benchmarks/kv_pool_bench.py`` on
-``repro_torch``'s ``PagedKVPool``.  The study reads only the pool's host
-bookkeeping, so the pool's buffers stay on the CPU::
+``repro_torch``'s ``PagedKVPool``, whose buffers live on ``--device`` (the
+card by default; the study reads only the pool's host bookkeeping, so its
+rows are the same on either device)::
 
-    PYTHONPATH=src python benchmarks/torch_kv_pool_bench.py
+    PYTHONPATH=src python benchmarks/torch_kv_pool_bench.py [--device cpu]
 """
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -22,11 +24,11 @@ if str(_SRC) not in sys.path:
 from repro_torch.core.kv_pool import KVPoolConfig, PagedKVPool  # noqa: E402
 
 
-def _churn(policy: str, steps: int = 400, seed: int = 0) -> Dict[str, float]:
+def _churn(policy: str, steps: int = 400, seed: int = 0, device="cuda") -> Dict[str, float]:
     cfg = KVPoolConfig(
         num_blocks=1024, blocks_per_arena=64, max_seqs=64, policy=policy
     )
-    p = PagedKVPool(cfg, device="cpu")
+    p = PagedKVPool(cfg, device=device)
     rng = np.random.default_rng(seed)
     live = []
     for _ in range(steps):
@@ -40,11 +42,11 @@ def _churn(policy: str, steps: int = 400, seed: int = 0) -> Dict[str, float]:
     return p.contiguity_report()
 
 
-def run(emit: Callable[[str, float, float], None]) -> Dict:
+def run(emit: Callable[[str, float, float], None], device="cuda") -> Dict:
     out = {}
     for policy in ["puma", "first_fit", "random"]:
         t0 = time.perf_counter()
-        reps = [_churn(policy, seed=s) for s in range(3)]
+        reps = [_churn(policy, seed=s, device=device) for s in range(3)]
         us = (time.perf_counter() - t0) * 1e6 / 3
         frac = float(np.mean([r["mean_contiguous_fraction"] for r in reps]))
         desc = float(np.mean([r["descriptors_per_tile"] for r in reps]))
@@ -55,4 +57,8 @@ def run(emit: Callable[[str, float, float], None]) -> Dict:
 
 
 if __name__ == "__main__":
-    run(lambda name, us, derived: print(f"{name},{us:.1f},{derived}"))
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--device", default="cuda", help="the pool's device")
+    run(lambda name, us, derived: print(f"{name},{us:.1f},{derived}"),
+        device=ap.parse_args().device)

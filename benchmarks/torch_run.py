@@ -103,7 +103,7 @@ def main(argv=None) -> None:
     ap.add_argument("--dir", default=DEFAULT_DIR,
                     help="where the record files and the summary are written")
     ap.add_argument("--device", default="cuda",
-                    help="device of the kernel, chaos, serve and trace runners")
+                    help="device of the kernel, chaos, serve, trace, kv_pool and churn runners")
     args = ap.parse_args(argv)
     os.makedirs(args.dir, exist_ok=True)
 
@@ -139,7 +139,7 @@ def main(argv=None) -> None:
         modules = {
             "alloc_fraction": lambda: torch_alloc_fraction.run(emit),
             "microbench": lambda: torch_microbench.run(emit),
-            "kv_pool": lambda: torch_kv_pool_bench.run(emit),
+            "kv_pool": lambda: torch_kv_pool_bench.run(emit, device=device),
             "kernel": lambda: torch_kernel_bench.run(emit, device=device),
             "translate": lambda: write(torch_translate_bench.run(emit, smoke=smoke),
                                        out("translate")),
@@ -147,7 +147,8 @@ def main(argv=None) -> None:
                                       out("channels")),
             "chaos": lambda: write(torch_chaos_bench.run(emit, smoke=smoke, device=device),
                                    out("faults")),
-            "churn": lambda: write(torch_churn_bench.run(emit, smoke=smoke), out("churn")),
+            "churn": lambda: write(torch_churn_bench.run(emit, smoke=smoke, device=device),
+                                   out("churn")),
             "serve": lambda: write(torch_serve_bench.run(emit, smoke=smoke, device=device),
                                    out("serve")),
             "trace": lambda: write(torch_trace_bench.run(emit, smoke=smoke, device=device),

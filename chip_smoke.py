@@ -48,6 +48,16 @@ before each and read just after:
   through the flash-attention kernel (``attn_impl="pallas"``), held against
   the chunked path on the same weights, in bf16 and then cast to f32 (the
   kernel's ``tf32x3`` path);
+* distribution on a one-rank NCCL process group and a (1, 1) ("data",
+  "model") mesh (phase ``[dist]``): the unreduced granite_moe_1b_a400m's
+  MoE layer through its sharded path, and one train step with its params,
+  moments and batch as DTensors, each against the same without the mesh;
+  ``compressed_psum`` over NCCL;
+* ``launch.train``'s trainer over the completed pipeline batches (phase
+  ``[train-families]``): seamless_m4t_medium unreduced and qwen2_vl_72b at
+  its full width cut to 2 of 80 layers, 5 steps each, then one more step
+  split into forward, backward and AdamW with CUDA events and the memory
+  after each;
 * the full-width mistral_nemo_12b (GQA 32/8, head width 128; random
   weights from a seeded generator) evaluated and prefilled the same way,
   every flash launch on the kernel's ``wgmma`` path at D = 128;
@@ -83,6 +93,7 @@ import gc
 import importlib.util
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -122,18 +133,18 @@ from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import rwkv6 as R6  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.layers import pad_vocab  # noqa: E402
-from repro_torch.models.params import count_params  # noqa: E402
-from repro_torch.models.transformer import LM  # noqa: E402
+from repro_torch.models.params import count_params, spec_tree  # noqa: E402
+from repro_torch.models.transformer import LM, layer_params  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.launch.inputs import make_batch  # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
+from repro_torch.launch.inputs import batch_shardings, complete_batch, make_batch  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_opt_state  # noqa: E402
 from repro_torch.robustness import check_kv_pool  # noqa: E402
 from repro_torch.graphs import decode_step_jit  # noqa: E402
 from repro_torch.serve.engine import MaintenanceConfig, Request, ServeEngine  # noqa: E402
 from repro_torch.serve.paged_runner import paged_decode_step, paged_decode_step_jit  # noqa: E402
-from repro_torch.train.step import build_eval_step, build_train_step  # noqa: E402
+from repro_torch.train.step import build_eval_step, build_train_step, value_and_grad  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
-from repro_torch.tree import leaves, tree_map  # noqa: E402
+from repro_torch.tree import flatten, leaves, tree_map, unflatten  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
@@ -208,6 +219,23 @@ FLASH_ENC = dict(B=4, Hq=16, Hkv=16, Sq=2048, Sk=2048, D=64, causal=False)
 FLASH_XDEC = dict(B=ENCDEC_BATCH, Hq=16, Hkv=16, Sq=1, Sk=ENCDEC_FRAMES, D=64, causal=False)
 # and its train steps (make_batch batches of 8 x 128 tokens over 128 frames)
 ENCDEC_TRAIN_STEPS = 5
+# the [dist] phase: granite_moe_1b_a400m unreduced (layers, d, query heads,
+# KV heads, head width, expert d_ff, vocab, experts, experts a token) on a
+# one-rank NCCL mesh (1, 1) ("data", "model"), its weights' seed; the train
+# step's loss within DIST_LOSS_RTOL of the step without the mesh
+DIST_ARCH, DIST_SEED = "granite_moe_1b_a400m", 15
+DIST_FULL = (24, 1024, 16, 8, 64, 512, 49155, 32, 8)
+DIST_LOSS_RTOL = 1e-5
+# the [train-families] phase: launch.train's trainer on the vlm and encdec
+# families at full width (seamless_m4t_medium unreduced, qwen2_vl_72b cut to
+# 2 of its 80 layers: its two 152064 x 8192 tables alone hold 2.49 B
+# params), seq 128 x batch 8, remat full, 5 steps; the weights' seeds; the
+# forms of the step split after it (the functional step of the [encdec]
+# phase, and the trainer's donated one; the cut qwen2_vl_72b's functional
+# step would hold a second 34 GB of moments)
+TRAIN_FAMILIES = (("seamless_m4t_medium", None, 13, (False, True)),
+                  ("qwen2_vl_72b", 2, 14, (True,)))
+TRAIN_FAMILY_STEPS = 5
 # the GQA forward's model, its full width (layers, d, heads, KV heads, head
 # width, d_ff, vocab) and its weights' seed
 GQA_ARCH, GQA_SEED = "mistral_nemo_12b", 5
@@ -1985,6 +2013,305 @@ def phase_small_train_vs_cpu(ckpt_root: str) -> dict:
     return {"card": losses["cuda"], "cpu": losses["cpu"], "rel": rel}
 
 
+# -- phase 5d: distribution on a one-rank NCCL mesh at full width --------------
+
+def step_close(g_mesh, g, p_mesh, p, lr: float, wd: float) -> dict:
+    """tests/test_torch_dist.py's rule for one step under a mesh against one
+    without: each gradient within 1e-3 of its leaf's largest; the params
+    after the step within 1e-3 of their leaf's largest where the gradient is
+    resolved (at least 1e-3 of its leaf's largest), within 2 lr (1 + wd)
+    elsewhere (AdamW's first step moves an element by about lr whatever its
+    gradient's size).  Returns the worst of each, relative."""
+    worst = {"grad": 0.0, "param_resolved": 0.0, "param_abs": 0.0}
+    for gm, gl, pm, pl in zip(leaves(g_mesh), leaves(g), leaves(p_mesh), leaves(p), strict=True):
+        gm, gl, pm, pl = (t.full_tensor() if hasattr(t, "full_tensor") else t
+                          for t in (gm, gl, pm, pl))
+        gl, gm, pl, pm = gl.float(), gm.float(), pl.float(), pm.float()
+        g_max = max(gl.abs().max().item(), 1e-3)
+        worst["grad"] = max(worst["grad"], (gm - gl).abs().max().item() / g_max)
+        diff = (pm - pl).abs()
+        resolved = gl.abs() >= 1e-3 * g_max
+        if resolved.any():
+            worst["param_resolved"] = max(worst["param_resolved"], diff[resolved].max().item()
+                                          / max(pl.abs().max().item(), 1e-3))
+        worst["param_abs"] = max(worst["param_abs"], diff.max().item())
+    check(worst["grad"] <= 1e-3 and worst["param_resolved"] <= 1e-3
+          and worst["param_abs"] <= 2 * lr * (1 + wd), f"mesh step vs no mesh: {worst}")
+    return worst
+
+
+def timed_step(step_fn, params, batch, reps: int) -> list:
+    """Host ms of ``reps`` steps of ``step_fn`` from the same params and a
+    fresh optimizer state (the step is functional), each synchronised."""
+    out = []
+    for _ in range(reps):
+        opt = init_opt_state(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def phase_dist() -> dict:
+    """The port's distribution on DTensor at full width on one card: a
+    one-rank NCCL process group (rendezvous file under ``build/``, no
+    network) and a (1, 1) ("data", "model") mesh.  granite_moe_1b_a400m
+    unreduced, seeded bf16 weights: (a) layer 0's MoE layer through its
+    sharded path (shard_map, FSDP gather, the "model" psum) against the
+    local path on the same 8 x 128 tokens; (b) one train step (chunked
+    attention, remat full, AdamW) on launch.train's completed batch of 8 x
+    128 tokens with the params, moments and batch as DTensors, against the
+    same step without the mesh, from the same weights: the loss within
+    DIST_LOSS_RTOL, gradients and params by ``step_close``; the collectives
+    of one step counted by ``CommDebugMode``; (c) ``compressed_psum`` over
+    NCCL within 1/100 of the input's largest value.  The group is destroyed
+    when the phase ends, whether its checks pass or not."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    rdv = ROOT / "build" / f"dist_rdv_{os.getpid()}"
+    rdv.parent.mkdir(exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0, world_size=1)
+    try:
+        return _dist_checks(make_mesh_compat((1, 1), ("data", "model"), "cuda"))
+    finally:
+        dist.destroy_process_group()
+        rdv.unlink(missing_ok=True)
+
+
+def _dist_checks(mesh) -> dict:
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.dist import sharding as shd
+    from repro_torch.optim.compression import compressed_psum
+
+    cfg = get_config(DIST_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+           cfg.vocab_size, cfg.n_experts, cfg.experts_per_tok) == DIST_FULL,
+          f"{DIST_ARCH} is not unreduced")
+    model = LM(cfg, attn_impl="chunked", remat="full")
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+    params = model.init(gen, device="cuda")
+    res = {"params_b": count_params(params) / 1e9}
+    log(f"[dist] {DIST_ARCH} unreduced: {res['params_b']:.3f} B params ({cfg.dtype}); mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on NCCL, world size 1")
+    try:
+        # (a) the MoE layer
+        lp = layer_params(params["layers"], 0)["moe"]
+        x = torch.randn(8, 128, cfg.d_model, generator=gen, device="cuda").to(model.dtype)
+        with torch.no_grad():
+            out_l, aux_l = MOE.apply_moe(lp, cfg, x)
+            specs = spec_tree(MOE.moe_defs(cfg))
+            with shd.use_mesh(mesh), shd.spmd():
+                lp_m = shd.device_put(lp, shd.shardings_for(specs, lp, mesh))
+                x_m = distribute_tensor(x, mesh, shd.placements_for(shd.P("data"), mesh))
+                out_m, aux_m = MOE.apply_moe(lp_m, cfg, x_m)
+                out_m, aux_m = out_m.full_tensor(), aux_m.full_tensor()
+        err = (out_m.float() - out_l.float()).abs().max().item()
+        scale = out_l.float().abs().max().item()
+        res["moe"] = {"bit_equal": bool(torch.equal(out_m, out_l) and torch.equal(aux_m, aux_l)),
+                      "max_abs_err": err, "aux_err": abs(aux_m.item() - aux_l.item())}
+        log(f"[dist] layer 0's MoE layer (8 x 128 tokens, {cfg.n_experts} experts, top-"
+            f"{cfg.experts_per_tok}) under the mesh vs local: bit-equal {res['moe']['bit_equal']}, "
+            f"max abs diff {err:.3e} of scale {scale:.3f}, aux diff {res['moe']['aux_err']:.3e} "
+            f"(tol 1e-5 of max(1, scale))")
+        check(err <= 1e-5 * max(1.0, scale) and res["moe"]["aux_err"] <= 1e-5,
+              "the MoE layer under the mesh differs from the local path")
+
+        # (b) one train step with the mesh and without
+        data = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, batch_per_shard=8)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in complete_batch(
+            cfg, data.seed, synth_batch(data, 0, 0), 0, 0).items()}
+        ocfg = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10)
+        step_fn = build_train_step(model, ocfg)
+        loss_l, grads_l = value_and_grad(model.train_loss, params, batch)
+        after_l, _, _ = step_fn(params, init_opt_state(params), batch)
+        ms_l = timed_step(step_fn, params, batch, 3)
+        del grads_l
+        with shd.use_mesh(mesh):
+            params_m = shd.device_put(params, shd.shardings_for(model.param_specs(), params, mesh))
+            batch_m = shd.device_put(batch, batch_shardings(batch, mesh))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with shd.spmd():
+                loss_m, grads_m = value_and_grad(model.train_loss, params_m, batch_m)
+            with CommDebugMode() as comm:
+                after_m, _, metrics = step_fn(params_m, init_opt_state(params_m), batch_m)
+            ms_m = timed_step(step_fn, params_m, batch_m, 3)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+        check(all(isinstance(t, DTensor) for t in leaves(after_m)), "mesh step left plain tensors")
+        loss_l, loss_m = loss_l.item(), loss_m.full_tensor().item()
+        rel = abs(loss_m - loss_l) / abs(loss_l)
+        check(math.isfinite(loss_m) and rel <= DIST_LOSS_RTOL,
+              f"mesh loss {loss_m} vs {loss_l} without (relative {rel:.2e})")
+        _, grads_l = value_and_grad(model.train_loss, params, batch)
+        worst = step_close(grads_m, grads_l, after_m, after_l, ocfg.lr, ocfg.weight_decay)
+        counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
+        res["step"] = {"loss": loss_l, "loss_mesh": loss_m, "rel": rel, "worst": worst,
+                       "ms": ms_l, "ms_mesh": ms_m, "peak_gb": peak,
+                       "collectives": comm.get_total_counts(), "by_op": counts}
+        log(f"[dist] train step (8 x 128 tokens, chunked attention, remat full, AdamW): loss "
+            f"{loss_m:.6f} under the mesh vs {loss_l:.6f} without (relative {rel:.2e}, tol "
+            f"{DIST_LOSS_RTOL:g}); gradients within {worst['grad']:.2e} of each leaf's largest, "
+            f"params after the step within {worst['param_resolved']:.2e} where resolved and "
+            f"{worst['param_abs']:.2e} abs anywhere")
+        log(f"[dist] step ms: {' '.join(f'{t:.1f}' for t in ms_l)} without the mesh, "
+            f"{' '.join(f'{t:.1f}' for t in ms_m)} with it (host clock, synchronised; the "
+            f"first step of each warmed up before); collectives in one mesh step "
+            f"(CommDebugMode): {res['step']['collectives']} {counts}; peak {peak:.1f} GB over "
+            f"the mesh part (both copies of the weights held)")
+        del grads_m, grads_l, after_m, after_l, params_m
+
+        # (c) compressed_psum over NCCL
+        xs = torch.randn(8, 128, generator=gen, device="cuda")
+        with shd.use_mesh(mesh):
+            ys = compressed_psum(xs, "data")
+        perr, bound = (ys - xs).abs().max().item(), xs.abs().max().item() / 100
+        res["compressed_psum"] = {"err": perr, "bound": bound}
+        log(f"[dist] compressed_psum over NCCL: max abs diff {perr:.3e} (bound {bound:.3e}, "
+            f"1/100 of the input's largest)")
+        check(perr < bound, "compressed_psum over NCCL is off")
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 5e: launch.train's trainer on the vlm and encdec families ----------------
+
+class _NoFinalCheckpoint(Trainer):
+    """``launch.train``'s trainer without its checkpoints: for these models
+    they would hold tens of GB (the cut qwen2_vl_72b's params and moments
+    are 42.7 GB); phase 5b writes one at full width."""
+
+    def _save(self, step, params, opt_state):
+        pass
+
+
+def split_step(model, params, opt_state, batch, ocfg, donate: bool) -> dict:
+    """One more train step split into forward, backward and AdamW, in place
+    as the trainer takes it (``donate``) or functional as ``build_train_step``
+    is by default (its new params and moments dropped): each part timed
+    with CUDA events, and ``memory_allocated`` / ``max_memory_allocated``
+    (GB, peak reset before the step) read after each; also what a cycle
+    collection frees before the step (garbage that held memory)."""
+    flat, tdef = flatten(params)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    garbage = (held - torch.cuda.memory_allocated()) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    gb = lambda: (torch.cuda.memory_allocated() / 1e9, torch.cuda.max_memory_allocated() / 1e9)
+    mem = {"start": gb()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    with torch.enable_grad():
+        xs = [p.detach().requires_grad_(True) for p in flat]
+        loss = model.train_loss(unflatten(tdef, xs), batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        mem["forward"] = gb()
+        grads = torch.autograd.grad(loss, xs)
+    ev[2].record()
+    torch.cuda.synchronize()
+    mem["backward"] = gb()
+    del xs, loss
+    new = apply_updates(params, unflatten(tdef, list(grads)), opt_state, ocfg, donate=donate)
+    ev[3].record()
+    torch.cuda.synchronize()
+    mem["adamw"] = gb()
+    del grads, new
+    ms = {name: ev[i].elapsed_time(ev[i + 1])
+          for i, name in enumerate(("forward", "backward", "adamw"))}
+    return {"ms": ms, "gb": mem, "garbage_gb": garbage}
+
+
+def phase_train_families() -> dict:
+    """``launch.train``'s path, the ``Trainer`` over the completed
+    ``synth_batch`` stream (``launch/inputs.py:complete_batch``: M-RoPE
+    positions, patch or frame embeddings), remat full, chunked attention,
+    seq 128 x batch 8, lr 3e-3, warmup 5, TRAIN_FAMILY_STEPS steps, at full
+    width: seamless_m4t_medium unreduced and qwen2_vl_72b cut in depth
+    (TRAIN_FAMILIES), seeded bf16 weights.  Each loss finite, no flash
+    launch; the mean step of steps 1-4 and tokens/s, the peak GB; then one
+    more step split by ``split_step``, functional and donated where
+    TRAIN_FAMILIES asks."""
+    res = {}
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    try:
+        for arch, depth, seed, forms in TRAIN_FAMILIES:
+            full = get_config(arch)
+            cfg = full if depth is None else dataclasses.replace(full, n_layers=depth)
+            if arch == VLM_ARCH:
+                check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size,
+                       cfg.rope, cfg.mrope_sections) == VLM_FULL, f"{arch} is not at full width")
+            else:
+                check((cfg.enc_layers, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.activation, cfg.norm, cfg.rope)
+                      == ENCDEC_FULL, f"{arch} is not unreduced")
+            res[arch] = train_family(cfg, seed, f"{ckpt_root}/{arch}", forms)
+            r = res[arch]
+            log(f"[train-families] {arch} ({cfg.n_layers} of {full.n_layers} layers"
+                f"{', encoder ' + str(cfg.enc_layers) if cfg.is_encdec else ''}; "
+                f"{r['params_b']:.3f} B params, {cfg.dtype}): {TRAIN_FAMILY_STEPS} trainer steps "
+                f"of 8 x 128 tokens, losses {' '.join(f'{x:.4f}' for x in r['losses'])}; mean "
+                f"step {r['mean_step_ms']:.1f} ms (steps 1-{TRAIN_FAMILY_STEPS - 1}, host clock "
+                f"incl. the loss's sync), {r['tokens_per_s']:.0f} tokens/s; peak "
+                f"{r['peak_gb']:.1f} GB")
+            for form, sp in r["split"].items():
+                log(f"[train-families] {arch} step split, {form} AdamW (CUDA events): forward "
+                    f"{sp['ms']['forward']:.1f} ms, backward {sp['ms']['backward']:.1f}, AdamW "
+                    f"{sp['ms']['adamw']:.1f}; GB allocated / peak: start "
+                    f"{sp['gb']['start'][0]:.2f} ({sp['garbage_gb']:.2f} freed by a cycle "
+                    f"collection first), after forward {sp['gb']['forward'][0]:.2f} / "
+                    f"{sp['gb']['forward'][1]:.2f}, after backward {sp['gb']['backward'][0]:.2f} "
+                    f"/ {sp['gb']['backward'][1]:.2f}, after AdamW {sp['gb']['adamw'][0]:.2f} / "
+                    f"{sp['gb']['adamw'][1]:.2f}")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    return res
+
+
+def train_family(cfg, seed: int, ckpt_dir: str, forms) -> dict:
+    model = LM(cfg, attn_impl="chunked", remat="full")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, batch_per_shard=8)
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=TRAIN_FAMILY_STEPS)
+    tcfg = TrainerConfig(total_steps=TRAIN_FAMILY_STEPS, ckpt_every=TRAIN_FAMILY_STEPS + 1,
+                         ckpt_dir=ckpt_dir, log_every=1000)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    trainer = _NoFinalCheckpoint(model, data, ocfg, tcfg, device="cuda", log=lambda s: None,
+                                 init_params=lambda: model.init(gen, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = trainer.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hist = out["history"]
+    check([s for s, _ in hist] == list(range(TRAIN_FAMILY_STEPS)) and out["recoveries"] == 0,
+          f"{cfg.name}: trained steps {[s for s, _ in hist]}, {out['recoveries']} recoveries")
+    for s, m in hist:
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"{cfg.name} step {s}: loss {m['loss']} grad norm {m['grad_norm']}")
+    check(kernels.launches["flash_attention"] == 0, f"{cfg.name} training launched flash")
+    step_s = [m["step_time"] for _, m in hist[1:]]
+    res = {"losses": [m["loss"] for _, m in hist], "params_b": count_params(out["params"]) / 1e9,
+           "mean_step_ms": 1e3 * statistics.mean(step_s),
+           "tokens_per_s": 128 * 8 / statistics.mean(step_s), "peak_gb": peak}
+    batch = trainer._to_device(TRAIN_FAMILY_STEPS, synth_batch(data, TRAIN_FAMILY_STEPS, 0))
+    res["split"] = {"donated" if donate else "functional":
+                    split_step(model, out["params"], out["opt"], batch, ocfg, donate)
+                    for donate in forms}
+    del out, trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # -- phase 5c: the ssm and hybrid families at full width ---------------------------
 
 def perturb_inert(model, params, seed: int) -> None:
@@ -2741,6 +3068,8 @@ def main() -> None:
         phase_small_train_vs_cpu(ckpt_root)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    phase_dist()
+    phase_train_families()
     gqa = phase_gqa_forward()
     state = {arch: phase_state_model(arch, seed) for arch, seed in (("rwkv6_7b", 3),
                                                                      ("zamba2_7b", 4))}

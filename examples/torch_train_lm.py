@@ -60,7 +60,8 @@ def main(argv=None, *, init_params=None) -> dict:
                     help="raises: the compressed train step wants an error-feedback state "
                          "the training loop never passes (the reference's fault 1, where it "
                          "retries step 0 forever); the port's trainer gives up after one "
-                         "recovery. The distributed compressed_psum is not ported yet")
+                         "recovery. The collective form, compressed_psum, is in "
+                         "repro_torch.optim.compression")
     ap.add_argument("--inject-failure", type=int, default=None,
                     help="raise at this step once, to demo recovery")
     ap.add_argument("--device", default="cuda")

@@ -13,8 +13,10 @@ Protocol (the reference's):
 * **resume** — ``latest_step`` scans for the highest complete step.
 * **GC** — ``keep`` most recent checkpoints survive.
 
-Leaves are saved whole from whatever device they live on and restored onto
-the device and dtype of the matching leaf of ``like``.  numpy has no
+Leaves are saved whole from whatever device they live on (a DTensor is
+gathered first, and only rank 0 of its process group writes) and restored
+onto the device and dtype of the matching leaf of ``like``, then, given
+``shardings``, distributed by them.  numpy has no
 bfloat16 without ``ml_dtypes``, so a bf16 leaf is stored as its uint16 bits
 with ``"bfloat16"`` in the manifest; checkpoints of float32 (and integer)
 trees read the same in this package and in the reference.
@@ -28,12 +30,16 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from repro_torch.tree import flatten, unflatten
+from repro_torch.tree import flatten, leaves as tree_leaves, unflatten
 
 
 def _to_numpy(leaf: torch.Tensor):
     """(array to save, dtype name for the manifest)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -42,14 +48,19 @@ def _to_numpy(leaf: torch.Tensor):
 
 
 def save(path: str, step: int, tree: Any, keep: int = 3) -> str:
-    """Save a tree of tensors; returns the final directory."""
+    """Save a tree of tensors; returns the final directory.  With DTensor
+    leaves every rank must call it (each leaf is gathered in turn); rank 0
+    writes."""
     final = os.path.join(path, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp, exist_ok=True)
-
     leaves, treedef = flatten(tree)
+    sharded = any(isinstance(leaf, DTensor) for leaf in leaves)
+    writer = not sharded or dist.get_rank() == 0
+    if writer:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
+
     meta = {
         "step": step,
         "complete": False,
@@ -59,18 +70,22 @@ def save(path: str, step: int, tree: Any, keep: int = 3) -> str:
     }
     for i, leaf in enumerate(leaves):
         arr, dtype = _to_numpy(leaf)
-        np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
+        if writer:
+            np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
         meta["leaves"].append({"shape": list(arr.shape), "dtype": dtype})
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(meta, f)
-    # completeness flag last, then atomic rename
-    meta["complete"] = True
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(meta, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    _gc(path, keep)
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(meta, f)
+        # completeness flag last, then atomic rename
+        meta["complete"] = True
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        _gc(path, keep)
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -101,9 +116,27 @@ def latest_step(path: str) -> Optional[int]:
     return best
 
 
-def restore(path: str, step: int, like: Any) -> Any:
+def _sharding_leaves(like: Any, shardings: Any) -> list:
+    """One sharding (or None) per leaf of ``like``, in its flatten order."""
+    if shardings is None:
+        return [None] * len(tree_leaves(like))
+    if isinstance(like, dict):
+        if set(like) != set(shardings):
+            raise ValueError(f"shardings keys {sorted(shardings)} != {sorted(like)}")
+        return [s for k in sorted(like) for s in _sharding_leaves(like[k], shardings[k])]
+    if isinstance(like, (tuple, list)):
+        if len(like) != len(shardings):
+            raise ValueError(f"{len(shardings)} shardings for {len(like)} subtrees")
+        return [s for x, sh in zip(like, shardings) for s in _sharding_leaves(x, sh)]
+    return [shardings]
+
+
+def restore(path: str, step: int, like: Any, shardings: Any = None) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors): each leaf
-    takes the device and dtype of the matching leaf of ``like``."""
+    takes the device and dtype of the matching leaf of ``like`` and, where
+    ``shardings`` (a tree of ``dist.sharding.Sharding`` shaped like
+    ``like``, ``None`` for a subtree left whole) is given, is distributed
+    by its sharding."""
     d = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         meta = json.load(f)
@@ -112,8 +145,9 @@ def restore(path: str, step: int, like: Any) -> Any:
     leaves, treedef = flatten(like)
     if len(leaves) != meta["n_leaves"]:
         raise ValueError(f"leaf count mismatch: have {len(leaves)}, ckpt {meta['n_leaves']}")
+    shard_leaves = _sharding_leaves(like, shardings)
     out = []
-    for i, (ref, info) in enumerate(zip(leaves, meta["leaves"])):
+    for i, (ref, info, sh) in enumerate(zip(leaves, meta["leaves"], shard_leaves)):
         arr = np.load(os.path.join(d, f"leaf_{i:05d}.npy"))
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"leaf {i}: shape {arr.shape} != {tuple(ref.shape)}")
@@ -121,5 +155,6 @@ def restore(path: str, step: int, like: Any) -> Any:
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        out.append(t.to(device=ref.device, dtype=ref.dtype))
+        t = t.to(device=ref.device, dtype=ref.dtype)
+        out.append(t if sh is None else distribute_tensor(t, sh.mesh, sh.placements))
     return unflatten(treedef, out)

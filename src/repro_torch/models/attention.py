@@ -24,12 +24,16 @@ tensors.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import constraint, flatten, unflatten
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.params import ParamDef
 from repro_torch.models.rope import apply_rope
@@ -41,16 +45,16 @@ def attn_defs(cfg: ModelConfig, d_model: Optional[int] = None) -> Dict:
     d = d_model or cfg.d_model
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     return {
-        "wq": ParamDef((d, H, hd)),
-        "wk": ParamDef((d, KV, hd)),
-        "wv": ParamDef((d, KV, hd)),
-        "wo": ParamDef((H, hd, d)),
+        "wq": ParamDef((d, H, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamDef((d, KV, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, KV, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((H, hd, d), ("heads", "head_dim", "embed")),
     }
 
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one matmul: x (..., d), w (d, H, k)."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    return unflatten(x @ flatten(w, 1, -1), -1, w.shape[1:])
 
 
 def _repeat_kv(k: torch.Tensor, group: int) -> torch.Tensor:
@@ -91,7 +95,7 @@ def _attention_with_lse(q, k, v, *, kv_len, kv_offset, scale, q_pos):
     group = H // KV
     Sk = k.shape[1]
     cd = q.dtype  # compute dtype (bf16 in production)
-    qg = q.reshape(B, Sq, KV, group, hd)
+    qg = unflatten(q, 2, (KV, group))
     s = torch.einsum(
         "bqkgd,bskd->bkgqs", qg.float(), k.to(cd).float()
     ) * scale                                              # (B,KV,g,Sq,Sk)
@@ -138,7 +142,7 @@ def _chunked_attention(q, k, v, *, causal, kv_len, scale, q_offset=0, block_k=51
     group = H // KV
     Sk = k.shape[1]
     dev = q.device
-    qf = q.reshape(B, Sq, KV, group, hd).float()
+    qf = unflatten(q, 2, (KV, group)).float()
     qpos = (q_offset + torch.arange(Sq, device=dev))[None, None, None, :, None]
     m = torch.full((B, KV, group, Sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, KV, group, Sq), dtype=torch.float32, device=dev)
@@ -148,8 +152,11 @@ def _chunked_attention(q, k, v, *, causal, kv_len, scale, q_offset=0, block_k=51
         vc = v[:, k0:k0 + block_k].float()
         n = kc.shape[1]
         if n < block_k:   # zero-pad the ragged last chunk, as the reference does
-            kc = torch.nn.functional.pad(kc, (0, 0, 0, 0, 0, block_k - n))
-            vc = torch.nn.functional.pad(vc, (0, 0, 0, 0, 0, block_k - n))
+            # (a concatenation: PyTorch 2.11's DTensor pads a tensor of a 2-D
+            # mesh into a malformed one-dim placement)
+            pad = torch.zeros((B, block_k - n) + tuple(kc.shape[2:]), dtype=kc.dtype,
+                              device=kc.device)
+            kc, vc = torch.cat([kc, pad], dim=1), torch.cat([vc, pad], dim=1)
         s = torch.einsum("bqkgd,bskd->bkgqs", qf, kc) * scale   # (B,KV,g,Sq,bk)
         kpos = (k0 + torch.arange(block_k, device=dev))[None, None, None, None, :]
         mask = kpos < kv_len
@@ -168,6 +175,20 @@ def _chunked_attention(q, k, v, *, causal, kv_len, scale, q_offset=0, block_k=51
 
 
 def _inner_attention(q, k, v, *, impl, causal, kv_len, scale, q_offset=0):
+    mesh = shd.get_mesh()
+    if mesh is not None and isinstance(q, DTensor):
+        # attention is independent per batch row and per KV head (with its
+        # query heads): run it on each rank's shards, the heads split only
+        # where both head counts divide (PyTorch 2.11's DTensor cannot
+        # flatten the sharded head dim its einsums need)
+        batch = shd.filter_spec(shd.logical_spec("batch"), q.shape[:1], mesh)[0]
+        heads = shd.logical_spec("heads")[0]
+        if heads is not None and shd.filter_spec(shd.P(heads), (k.shape[2],), mesh)[0] is None:
+            heads = None
+        spec = shd.filter_spec(shd.P(batch, None, heads, None), q.shape, mesh)
+        fn = functools.partial(_inner_attention, impl=impl, causal=causal, kv_len=kv_len,
+                               scale=scale, q_offset=q_offset)
+        return shd.shard_map(fn, mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec)(q, k, v)
     group = q.shape[2] // k.shape[2]
     if impl == "pallas":
         # as the reference: kv_len and q_offset are not passed on
@@ -203,10 +224,18 @@ def apply_attention(
     hd = cfg.hd
     scale = 1.0 / math.sqrt(hd)
 
-    q = apply_rope(cfg, project(x, p["wq"]), positions)
+    q = project(x, p["wq"])
+    if cache is not None and S == 1:
+        # decode: q is tiny — replicate heads so the attention contractions
+        # stay aligned with the kv_seq-sharded cache
+        q = constraint(q, "batch", "seq", None, None)
+    else:
+        q = constraint(q, "batch", "seq", "heads", None)
+    q = apply_rope(cfg, q, positions)
     if kv_override is None:
-        k = apply_rope(cfg, project(x, p["wk"]), positions)
-        v = project(x, p["wv"])
+        k = constraint(project(x, p["wk"]), "batch", "seq", "kv_heads", None)
+        v = constraint(project(x, p["wv"]), "batch", "seq", "kv_heads", None)
+        k = apply_rope(cfg, k, positions)
 
     if kv_override is not None:
         # keys at or past kv_len are masked; the pallas path is not told, as
@@ -255,6 +284,9 @@ def apply_attention(
         )
         new_cache = (ck, cv)
 
-    wo = p["wo"]
-    y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
-    return y, new_cache
+    if cache is not None and S == 1:
+        out = constraint(out, "batch", "seq", None, None)
+    else:
+        out = constraint(out, "batch", "seq", "heads", None)
+    y = flatten(out, 2, 3) @ flatten(p["wo"], 0, 1)
+    return constraint(y, "batch", "seq_res", None), new_cache

@@ -5,8 +5,10 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding as shd
 from repro_torch.models.params import ParamDef
 
 # ---------------------------------------------------------------------------
@@ -17,10 +19,10 @@ def norm_defs(cfg: ModelConfig, d: int | None = None) -> Dict:
     d = d or cfg.d_model
     if cfg.norm == "layernorm":
         return {
-            "scale": ParamDef((d,), init="ones", f32=True),
-            "bias": ParamDef((d,), init="zeros", f32=True),
+            "scale": ParamDef((d,), ("embed_tp",), init="ones", f32=True),
+            "bias": ParamDef((d,), ("embed_tp",), init="zeros", f32=True),
         }
-    return {"scale": ParamDef((d,), init="ones", f32=True)}
+    return {"scale": ParamDef((d,), ("embed_tp",), init="ones", f32=True)}
 
 
 def apply_norm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -43,15 +45,15 @@ def mlp_defs(cfg: ModelConfig) -> Dict:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.activation == "swiglu":
         return {
-            "wg": ParamDef((d, f)),
-            "wu": ParamDef((d, f)),
-            "wo": ParamDef((f, d)),
+            "wg": ParamDef((d, f), ("embed", "mlp")),
+            "wu": ParamDef((d, f), ("embed", "mlp")),
+            "wo": ParamDef((f, d), ("mlp", "embed")),
         }
     return {
-        "wu": ParamDef((d, f)),
-        "bu": ParamDef((f,), init="zeros"),
-        "wo": ParamDef((f, d)),
-        "bo": ParamDef((d,), init="zeros"),
+        "wu": ParamDef((d, f), ("embed", "mlp")),
+        "bu": ParamDef((f,), ("mlp",), init="zeros"),
+        "wo": ParamDef((f, d), ("mlp", "embed")),
+        "bo": ParamDef((d,), ("embed_tp",), init="zeros"),
     }
 
 
@@ -79,14 +81,23 @@ def pad_vocab(cfg: ModelConfig, mult: int = 2048) -> int:
 
 def embed_defs(cfg: ModelConfig) -> Dict:
     v = pad_vocab(cfg)
-    out = {"tok": ParamDef((v, cfg.d_model), init="embed", scale=0.02)}
+    out = {"tok": ParamDef((v, cfg.d_model), ("vocab", "embed"), init="embed", scale=0.02)}
     if not cfg.tie_embeddings:
-        out["head"] = ParamDef((cfg.d_model, v))
+        out["head"] = ParamDef((cfg.d_model, v), ("embed", "vocab"))
     return out
 
 
 def embed_tokens(p: Dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return p["tok"].to(dtype)[tokens]
+    mesh = shd.get_mesh()
+    if mesh is None or not isinstance(p["tok"], DTensor):
+        return p["tok"].to(dtype)[tokens]
+    # DTensor's index over a ("vocab", "embed")-sharded table, and its
+    # backward's index_put, lack sound sharding rules in PyTorch 2.11: look
+    # up locally, the table gathered whole, the tokens by batch
+    batch = shd.filter_spec(shd.logical_spec("batch"), tokens.shape, mesh)[0]
+    return shd.shard_map(lambda t, tok: t.to(dtype)[tok], mesh=mesh,
+                         in_specs=(shd.P(), shd.P(batch, None)),
+                         out_specs=shd.P(batch, None, None))(p["tok"], tokens)
 
 
 def logits_from(p: Dict, x: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constraint
 from repro_torch.models.linear_scan import chunked_decay_attention, decay_attention_step
 from repro_torch.models.params import ParamDef
 
@@ -37,17 +38,17 @@ def mamba_defs(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     d_in, H, hd, ns, conv_dim = _dims(cfg)
     return {
-        "wz": ParamDef((d, d_in)),
-        "wx": ParamDef((d, d_in)),
-        "wB": ParamDef((d, ns)),
-        "wC": ParamDef((d, ns)),
-        "wdt": ParamDef((d, H)),
-        "dt_bias": ParamDef((H,), init="zeros", f32=True),
-        "A_log": ParamDef((H,), init="zeros", f32=True),
-        "D": ParamDef((H,), init="ones"),
-        "conv_w": ParamDef((cfg.ssm_conv, conv_dim), init="embed", scale=0.5),
-        "norm": ParamDef((d_in,), init="ones", f32=True),
-        "wo": ParamDef((d_in, d)),
+        "wz": ParamDef((d, d_in), ("embed", "mlp")),
+        "wx": ParamDef((d, d_in), ("embed", "mlp")),
+        "wB": ParamDef((d, ns), ("embed", "state")),
+        "wC": ParamDef((d, ns), ("embed", "state")),
+        "wdt": ParamDef((d, H), ("embed", "heads")),
+        "dt_bias": ParamDef((H,), ("heads",), init="zeros", f32=True),
+        "A_log": ParamDef((H,), ("heads",), init="zeros", f32=True),
+        "D": ParamDef((H,), ("heads",), init="ones"),
+        "conv_w": ParamDef((cfg.ssm_conv, conv_dim), ("conv", "mlp"), init="embed", scale=0.5),
+        "norm": ParamDef((d_in,), ("mlp",), init="ones", f32=True),
+        "wo": ParamDef((d_in, d), ("mlp", "embed")),
     }
 
 
@@ -80,7 +81,7 @@ def apply_mamba(
     Cp = x @ p["wC"]
     dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"])          # (B, S, H)
 
-    xBC = torch.cat([xi, Bp, Cp], dim=-1)
+    xBC = constraint(torch.cat([xi, Bp, Cp], dim=-1), "batch", "seq", "mlp")
     conv_prev = state.conv if state is not None else None
     xBC, conv_new = _causal_conv(xBC, p["conv_w"], conv_prev)
     xi, Bp, Cp = torch.split(xBC, [d_in, ns, ns], dim=-1)
@@ -91,6 +92,12 @@ def apply_mamba(
     k = Bp[:, :, None, :].expand(B, S, H, ns)
     log_w = (-torch.exp(p["A_log"])[None, None, :] * dt)[..., None]  # (B, S, H, 1)
     log_w = log_w.expand(B, S, H, ns)                                # stride 0 over ns
+    # shard the (B, S, H, *) scan tensors over heads under a mesh (no-ops,
+    # and no copies of the stride-0 views, without one)
+    v = constraint(v, "batch", "seq", "heads", None)
+    q = constraint(q, "batch", "seq", "heads", None)
+    k = constraint(k, "batch", "seq", "heads", None)
+    log_w = constraint(log_w, "batch", "seq", "heads", None)
 
     ssd_prev = state.ssd if state is not None else None
     if S == 1 and state is not None:
@@ -106,7 +113,7 @@ def apply_mamba(
     yf = y.float()
     yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
     y = (yf * p["norm"]).to(dt_f) * F.silu(z)
-    out = y @ p["wo"]
+    out = constraint(y @ p["wo"], "batch", "seq_res", None)
 
     new_state = MambaState(conv=conv_new, ssd=ssd_new) if state is not None else None
     return out, new_state

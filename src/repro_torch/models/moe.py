@@ -1,12 +1,20 @@
 """Mixture-of-Experts block (granite-MoE style: top-k routed SwiGLU experts).
 
-The reference's single-device path: every token's top-k slots are routed
-into one global ``(E, C, d)`` capacity buffer, the experts run as three
-batched products over it, and each token gathers its k outputs back and
-sums them by gate.  Slots past an expert's capacity ``C`` are dropped (they
-scatter into a spare row that is discarded, and gather zeros).  The
-reference's ``shard_map`` path (expert-TP over a mesh) is not ported: the
-port has no mesh.
+Two execution paths, as in the reference:
+
+* **single-device** (no mesh set): every token's top-k slots are routed
+  into one global ``(E, C, d)`` capacity buffer, the experts run as three
+  batched products over it, and each token gathers its k outputs back and
+  sums them by gate.  Slots past an expert's capacity ``C`` are dropped
+  (they scatter into a spare row that is discarded, and gather zeros).
+* **distributed** (mesh set): the same math inside ``shard_map`` — every
+  rank routes its *local* tokens into a *local* capacity buffer, gathers
+  the expert weights' d dim over the FSDP axis ("data"), computes with the
+  f dim sharded over "model" (expert-TP), and all-reduces the partial
+  expert outputs over "model".  Capacity dropping is per-rank local (the
+  reference's documented deviation from global capacity; same
+  ``capacity_factor``), and so is the load-balance loss, averaged over the
+  ranks.
 
 Three points keep the routing equal to the reference's, and the step free
 of host syncs so it can be captured as a CUDA graph:
@@ -29,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding as shd
 from repro_torch.models.params import ParamDef
 
 __all__ = ["moe_defs", "capacity", "apply_moe"]
@@ -37,10 +46,10 @@ __all__ = ["moe_defs", "capacity", "apply_moe"]
 def moe_defs(cfg: ModelConfig) -> Dict:
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {
-        "router": ParamDef((d, E)),
-        "wg": ParamDef((E, d, f)),
-        "wu": ParamDef((E, d, f)),
-        "wo": ParamDef((E, f, d)),
+        "router": ParamDef((d, E), ("embed", "experts")),
+        "wg": ParamDef((E, d, f), ("experts", "embed", "mlp")),
+        "wu": ParamDef((E, d, f), ("experts", "embed", "mlp")),
+        "wo": ParamDef((E, f, d), ("experts", "mlp", "embed")),
     }
 
 
@@ -137,5 +146,68 @@ def _moe_math(
 def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux loss, f32 scalar)."""
     B, S, d = x.shape
-    out, aux = _moe_math(x.reshape(B * S, d), p["router"], p["wg"], p["wu"], p["wo"], cfg)
-    return out.reshape(B, S, d), aux
+    mesh = shd.get_mesh()
+    if mesh is None:
+        out, aux = _moe_math(x.reshape(B * S, d), p["router"], p["wg"], p["wu"], p["wo"], cfg)
+        return out.reshape(B, S, d), aux
+
+    P, filter_spec = shd.P, shd.filter_spec
+    batch_rule = shd.ACT_RULES.get("batch", "data")
+    batch_axes = batch_rule if isinstance(batch_rule, tuple) else (batch_rule,)
+    if "pod" in shd.axis_names(mesh):
+        batch_axes = ("pod",) + tuple(a for a in batch_axes if a != "pod")
+    emb_ax, mlp_ax = shd.PARAM_RULES.get("embed"), shd.PARAM_RULES.get("mlp")
+    # divisibility-aware specs (decode has S=1; small smoke meshes vary)
+    seq_entry = "model" if "model" not in batch_axes else None
+    x_spec = filter_spec(P(batch_axes, seq_entry, None), x.shape, mesh)
+    router_spec = filter_spec(P(emb_ax, None), p["router"].shape, mesh)
+    w_in_spec = filter_spec(P(None, emb_ax, mlp_ax), p["wg"].shape, mesh)
+    w_out_spec = filter_spec(P(None, mlp_ax, emb_ax), p["wo"].shape, mesh)
+
+    f_sharded = w_in_spec[2] is not None
+    if f_sharded:
+        # expert-TP partial sums over "model" are only correct when every
+        # model shard sees the SAME tokens — keep seq unsharded here.
+        x_spec = P(x_spec[0], None, None)
+    if torch.is_grad_enabled():
+        # shard_map sums the ranks' gradients along a dim that shards an
+        # input; along one that splits neither the tokens nor the expert
+        # width (the FSDP gather makes the weights whole on every rank) each
+        # rank would add the same contribution again
+        split = {a for e in (*x_spec, w_in_spec[2]) if e is not None
+                 for a in (e if isinstance(e, tuple) else (e,))}
+        idle = [a for a, n in shd.mesh_sizes(mesh).items() if n > 1 and a not in split]
+        if idle:
+            raise ValueError(f"MoE gradients over a mesh need every axis to split the work; "
+                             f"{idle} split neither {tuple(x.shape)} nor the expert width")
+
+    def local_fn(xb, router, wg, wu, wo):
+        # FSDP-gather the d dim of weights (its gradient is the
+        # reduce-scatter), cast to the compute dtype FIRST: gathering f32
+        # master weights would double the bytes on the wire
+        cd = xb.dtype
+
+        def gather(w, spec_entry, axis):
+            w = w.to(cd)
+            return w if spec_entry is None else shd.all_gather(w, spec_entry, axis)
+
+        router = gather(router, router_spec[0], 0)
+        wg = gather(wg, w_in_spec[1], 1)
+        wu = gather(wu, w_in_spec[1], 1)
+        wo = gather(wo, w_out_spec[2], 2)
+        Bl, Sl, _ = xb.shape
+        out, aux = _moe_math(xb.reshape(Bl * Sl, d), router, wg, wu, wo, cfg)
+        if f_sharded:
+            # expert-TP: wo's f dim is model-sharded -> partial sums
+            out = shd.psum(out, w_in_spec[2])
+            aux = shd.pmean(aux, w_in_spec[2])
+        for ax in batch_axes:
+            aux = shd.pmean(aux, ax)
+        if x_spec[1] == "model" and not f_sharded:
+            aux = shd.pmean(aux, "model")
+        return out.reshape(Bl, Sl, d), aux
+
+    fn = shd.shard_map(local_fn, mesh=mesh,
+                       in_specs=(x_spec, router_spec, w_in_spec, w_in_spec, w_out_spec),
+                       out_specs=(x_spec, P()))
+    return fn(x, p["router"], p["wg"], p["wu"], p["wo"])

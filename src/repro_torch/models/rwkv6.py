@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constraint
 from repro_torch.models.linear_scan import chunked_decay_attention, decay_attention_step
 from repro_torch.models.params import ParamDef
 
@@ -36,32 +37,32 @@ def time_mix_defs(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     H, hd = _heads(cfg)
     return {
-        "mu_r": ParamDef((d,), init="zeros"),
-        "mu_k": ParamDef((d,), init="zeros"),
-        "mu_v": ParamDef((d,), init="zeros"),
-        "mu_g": ParamDef((d,), init="zeros"),
-        "mu_w": ParamDef((d,), init="zeros"),
-        "wr": ParamDef((d, d)),
-        "wk": ParamDef((d, d)),
-        "wv": ParamDef((d, d)),
-        "wg": ParamDef((d, d)),
-        "w0": ParamDef((d,), init="zeros", f32=True),
-        "w_lora_a": ParamDef((d, LORA_R)),
-        "w_lora_b": ParamDef((LORA_R, d), init="zeros"),
-        "u": ParamDef((H, hd), init="zeros", f32=True),
-        "ln_scale": ParamDef((d,), init="ones", f32=True),
-        "wo": ParamDef((d, d)),
+        "mu_r": ParamDef((d,), ("embed_tp",), init="zeros"),
+        "mu_k": ParamDef((d,), ("embed_tp",), init="zeros"),
+        "mu_v": ParamDef((d,), ("embed_tp",), init="zeros"),
+        "mu_g": ParamDef((d,), ("embed_tp",), init="zeros"),
+        "mu_w": ParamDef((d,), ("embed_tp",), init="zeros"),
+        "wr": ParamDef((d, d), ("embed", "heads")),
+        "wk": ParamDef((d, d), ("embed", "heads")),
+        "wv": ParamDef((d, d), ("embed", "heads")),
+        "wg": ParamDef((d, d), ("embed", "heads")),
+        "w0": ParamDef((d,), ("embed_tp",), init="zeros", f32=True),
+        "w_lora_a": ParamDef((d, LORA_R), ("embed", None)),
+        "w_lora_b": ParamDef((LORA_R, d), (None, "embed_tp"), init="zeros"),
+        "u": ParamDef((H, hd), ("heads", None), init="zeros", f32=True),
+        "ln_scale": ParamDef((d,), ("embed_tp",), init="ones", f32=True),
+        "wo": ParamDef((d, d), ("heads", "embed")),
     }
 
 
 def channel_mix_defs(cfg: ModelConfig) -> Dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "mu_k": ParamDef((d,), init="zeros"),
-        "mu_r": ParamDef((d,), init="zeros"),
-        "wk": ParamDef((d, f)),
-        "wv": ParamDef((f, d)),
-        "wr": ParamDef((d, d)),
+        "mu_k": ParamDef((d,), ("embed_tp",), init="zeros"),
+        "mu_r": ParamDef((d,), ("embed_tp",), init="zeros"),
+        "wk": ParamDef((d, f), ("embed", "mlp")),
+        "wv": ParamDef((f, d), ("mlp", "embed")),
+        "wr": ParamDef((d, d), ("embed", "embed_tp")),
     }
 
 
@@ -91,12 +92,16 @@ def apply_time_mix(
     k = (xk @ p["wk"]).reshape(B, S, H, hd)
     v = (xv @ p["wv"]).reshape(B, S, H, hd)
     g = F.silu(xg @ p["wg"])
+    r = constraint(r, "batch", "seq", "heads", None)
+    k = constraint(k, "batch", "seq", "heads", None)
+    v = constraint(v, "batch", "seq", "heads", None)
 
     # data-dependent decay (Finch): w = exp(-exp(w0 + lora(xw)))
     lora = torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
     log_w = -torch.exp(
         torch.clamp(p["w0"][None, None] + lora.float(), -8.0, 4.0)
     ).reshape(B, S, H, hd)
+    log_w = constraint(log_w, "batch", "seq", "heads", None)
 
     wkv_prev = state.wkv if state is not None else None
     if S == 1 and state is not None:
@@ -111,7 +116,7 @@ def apply_time_mix(
     yf = y.float()
     yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
     y = (yf.reshape(B, S, d) * p["ln_scale"]).to(x.dtype) * g
-    out = y @ p["wo"]
+    out = constraint(y @ p["wo"], "batch", "seq_res", None)
 
     if state is not None:
         return out, (x[:, -1].to(state.shift_tm.dtype), wkv_new)
@@ -128,11 +133,11 @@ def apply_channel_mix(
     dx = xs - x
     xk = x + dx * p["mu_k"]
     xr = x + dx * p["mu_r"]
-    k = torch.square(F.relu(xk @ p["wk"]))
+    k = constraint(torch.square(F.relu(xk @ p["wk"])), "batch", "seq", "mlp")
     kv = k @ p["wv"]
     r = torch.sigmoid(xr @ p["wr"])
     new_shift = x[:, -1] if shift_prev is not None else None
-    return r * kv, new_shift
+    return constraint(r * kv, "batch", "seq_res", None), new_shift
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, dtype: torch.dtype, *,

@@ -5,6 +5,8 @@ One :class:`LM` object per config exposes plain functions over a params dict
 (stacked leading "layers" axis, the reference's paths):
 
   * ``init(generator, device=...) -> params``
+  * ``param_specs() -> dict[P]`` / ``cache_spec_axes()`` (the partition
+    specs of the params under ``rules``, the logical axes of each cache leaf)
   * ``train_loss(params, batch)``     (teacher-forced CE over the padded vocab
                                        + the MoE aux loss)
   * ``prefill_logits(params, batch)`` (last-position logits)
@@ -31,6 +33,7 @@ only the ``"self"`` split cache grows.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, Optional, Tuple
 
@@ -43,18 +46,19 @@ from torch.utils.checkpoint import (
 
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constraint, gather_dim, spmd
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R6
 from repro_torch.models.attention import apply_attention, attn_defs, project
-from repro_torch.models.params import ParamDef, init_params, map_defs
+from repro_torch.models.params import init_params, map_defs, spec_tree
 
 
 def stack_defs(defs: Any, n: int) -> Any:
     """Add a leading "layers" axis to every ParamDef."""
     return map_defs(
-        lambda d: ParamDef((n,) + d.shape, d.init, d.scale, d.f32), defs
+        lambda d: dataclasses.replace(d, shape=(n,) + d.shape, axes=("layers",) + d.axes), defs
     )
 
 
@@ -71,7 +75,9 @@ def layer_params(stacked: Dict, li: int) -> Dict:
 def cross_entropy(
     logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor]
 ) -> torch.Tensor:
-    logits = logits.float()
+    # a DTensor's vocab-sharded gather below leaves a masked partial sum that
+    # DTensor then fails to reduce: take the vocab whole first
+    logits = gather_dim(logits.float(), -1)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = lse - ll
@@ -157,7 +163,8 @@ def _mamba_block(lp, cfg, x, state: Optional[M2.MambaState]):
 
 class LM:
     def __init__(
-        self, cfg: ModelConfig, *, attn_impl: str = "naive", remat: Optional[str] = "full"
+        self, cfg: ModelConfig, *, attn_impl: str = "naive", remat: Optional[str] = "full",
+        rules: Optional[Dict] = None,
     ):
         family = "moe" if cfg.n_experts else cfg.family
         if cfg.is_encdec:
@@ -168,6 +175,7 @@ class LM:
         self.family = family
         self.attn_impl = attn_impl
         self.remat = None if remat == "none" else remat
+        self.rules = rules or {}
         self.dtype = torch_dtype(cfg.dtype)
 
     # -- parameter definitions ------------------------------------------------
@@ -235,6 +243,9 @@ class LM:
             self.param_defs(), dtype=self.dtype, generator=generator, device=device
         )
 
+    def param_specs(self) -> Any:
+        return spec_tree(self.param_defs(), self.rules)
+
     # -- forward helpers --------------------------------------------------------
     def _embed_inputs(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Token embeddings, with a vision config's ``patch_embeds`` (B, n,
@@ -249,7 +260,7 @@ class LM:
                 raise ValueError(f"patch_embeds {tuple(pe.shape)} do not fit in the token "
                                  f"embeddings {tuple(x.shape)}")
             x = torch.cat([pe.to(self.dtype), x[:, pe.shape[1]:]], dim=1)
-        return x, batch["positions"]
+        return constraint(x, "batch", "seq_res", None), batch["positions"]
 
     def _run_decoder_stack(self, params, x, pos, caches, cache_len, enc_out=None,
                            enc_len=None):
@@ -336,7 +347,7 @@ class LM:
     def _run_encoder(self, params, enc_embeds):
         """The bidirectional encoder over ``enc_embeds`` (B, Se, d), cast to
         the model dtype, at positions 0..Se-1; ends with ``enc_ln``."""
-        x = enc_embeds.to(self.dtype)
+        x = constraint(enc_embeds.to(self.dtype), "batch", "seq", None)
         B, Se = x.shape[:2]
         pos = torch.arange(Se, device=x.device).expand(B, Se)
         for li in range(self.cfg.enc_layers):
@@ -360,30 +371,33 @@ class LM:
         """Teacher-forced cross entropy over the padded vocab, averaged over
         ``batch["loss_mask"]`` where given; in the moe family plus 0.01 x the
         load-balance loss averaged over the layers."""
-        x, aux = self._backbone(params, batch)
-        x = L.apply_norm(params["final_ln"], x)
-        logits = L.logits_from(params["embed"], x)
-        loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
-        if aux is not None:
-            loss = loss + 0.01 * aux / self.cfg.n_layers
-        return loss
+        with spmd():
+            x, aux = self._backbone(params, batch)
+            x = L.apply_norm(params["final_ln"], x)
+            logits = constraint(L.logits_from(params["embed"], x), "batch", None, "vocab")
+            loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
+            if aux is not None:
+                loss = loss + 0.01 * aux / self.cfg.n_layers
+            return loss
 
     def prefill_logits(self, params, batch) -> torch.Tensor:
-        x, _ = self._backbone(params, batch)
-        x = L.apply_norm(params["final_ln"], x[:, -1:])
-        return L.logits_from(params["embed"], x)[:, 0]
+        with spmd():
+            x, _ = self._backbone(params, batch)
+            x = L.apply_norm(params["final_ln"], x[:, -1:])
+            return constraint(L.logits_from(params["embed"], x)[:, 0], "batch", "vocab")
 
     def decode_step(self, params, batch, cache) -> Tuple[torch.Tensor, Any]:
         """One step for every sequence over the cache (split attention caches,
         recurrent states).  The cache's tensors are written in place; the
         returned dict shares them and carries the advanced lengths."""
-        x, pos = self._embed_inputs(params, batch)
-        split = "len_rec" in cache
-        cache_len = (cache["len"], cache["len_rec"]) if split else cache["len"]
-        x, _, _ = self._run_decoder_stack(params, x, pos, cache["layers"], cache_len,
-                                          enc_len=cache.get("enc_len"))
-        x = L.apply_norm(params["final_ln"], x[:, -1:])
-        logits = L.logits_from(params["embed"], x)[:, 0]
+        with spmd():
+            x, pos = self._embed_inputs(params, batch)
+            split = "len_rec" in cache
+            cache_len = (cache["len"], cache["len_rec"]) if split else cache["len"]
+            x, _, _ = self._run_decoder_stack(params, x, pos, cache["layers"], cache_len,
+                                              enc_len=cache.get("enc_len"))
+            x = L.apply_norm(params["final_ln"], x[:, -1:])
+            logits = constraint(L.logits_from(params["embed"], x)[:, 0], "batch", "vocab")
         new_cache = dict(cache)
         S = batch["tokens"].shape[1]
         if split:
@@ -465,3 +479,32 @@ class LM:
             return {"layers": {"self": split_kv(cfg.n_layers), "cross": kv(cfg.n_layers, enc_len)},
                     "len": 0, "len_rec": 0, "enc_len": enc_len}
         return {"layers": split_kv(cfg.n_layers), "len": 0, "len_rec": 0}
+
+    def cache_spec_axes(self) -> Dict:
+        """Logical axis names per cache leaf, in ``init_cache``'s tree (a
+        length is a scalar, ``()``)."""
+        def kv_axes():
+            # kv_seq carries the "model" axis; heads stay unsharded in the
+            # cache (sharding both would double-book "model").
+            return (None, "batch", "kv_seq", None, None)
+
+        def split_axes():
+            # the recent ring is batch-sharded only: its appends must never
+            # touch a sharded dim
+            recent = (None, "batch", None, None, None)
+            return {"main": (kv_axes(), kv_axes()), "recent": (recent, recent)}
+
+        if self.family == "encdec":
+            return {"layers": {"self": split_axes(), "cross": (kv_axes(), kv_axes())},
+                    "len": (), "len_rec": (), "enc_len": ()}
+        if self.family == "ssm":
+            return {"layers": R6.RwkvState(shift_tm=(None, "batch", None),
+                                           shift_cm=(None, "batch", None),
+                                           wkv=(None, "batch", "heads", None, None)),
+                    "len": ()}
+        if self.family == "hybrid":
+            return {"layers": {"mamba": M2.MambaState(conv=(None, "batch", None, "mlp"),
+                                                      ssd=(None, "batch", "heads", None, None)),
+                               "attn": split_axes()},
+                    "len": (), "len_rec": ()}
+        return {"layers": split_axes(), "len": (), "len_rec": ()}

@@ -2,7 +2,11 @@
 schedule.  Params, grads and moments are plain trees (nested dicts of
 tensors with the reference's paths); the moments are f32, the update runs
 in f32 and is cast back to each param's dtype.  Functional like the
-reference: new tensors are returned and the inputs are left as they were."""
+reference: new tensors are returned and the inputs are left as they were;
+with ``donate=True`` (the reference's trainer donates its params and
+optimizer state to the jitted step) the same arithmetic is written into the
+given params and moments instead, a slice at a time, so a step holds no
+second copy of the state."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,8 +14,12 @@ import math
 from typing import Any, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import flatten, leaves, tree_map, unflatten
+
+#: elements of one slice of an in-place (donated) update
+DONATE_SLICE = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +42,10 @@ class OptState(NamedTuple):
 
 
 def init_opt_state(params: Any) -> OptState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """Zero f32 moments laid out as the params (a DTensor param's moments
+    are DTensors of its placements); the step counter is a plain 0-d
+    tensor."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     device = leaves(params)[0].device
     return OptState(
         mu=tree_map(zeros, params),
@@ -58,8 +69,12 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in leaves(tree)))
 
 
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def apply_updates(
-    params: Any, grads: Any, state: OptState, cfg: AdamWConfig
+    params: Any, grads: Any, state: OptState, cfg: AdamWConfig, *, donate: bool = False
 ) -> Tuple[Any, OptState, dict]:
     step = state.step + 1
     gnorm = global_norm(grads)
@@ -76,11 +91,28 @@ def apply_updates(
         delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
         return (p.float() - lr * delta).to(p.dtype), m, v
 
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    if donate:
+        # each element's arithmetic is upd's; DTensor leaves share their
+        # placements (grads are laid out as the params), so their local
+        # shards line up element for element
+        scale, lr, b1c, b2c = (_local(x) for x in (scale, lr, b1c, b2c))
+        for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu),
+                              leaves(state.nu), strict=True):
+            g = _local(g).reshape(-1)
+            p, m, v = (_local(t).view(-1) for t in (p, m, v))
+            for a in range(0, p.numel(), DONATE_SLICE):
+                s = slice(a, a + DONATE_SLICE)
+                new_p, new_m, new_v = upd(p[s], g[s], m[s], v[s])
+                m[s].copy_(new_m)
+                v[s].copy_(new_v)
+                p[s].copy_(new_p)
+        return params, OptState(state.mu, state.nu, step), metrics
+
     flat_p, tdef = flatten(params)
     out = [upd(p, g, m, v) for p, g, m, v in
            zip(flat_p, leaves(grads), leaves(state.mu), leaves(state.nu))]
     new_p = unflatten(tdef, [o[0] for o in out])
     new_m = unflatten(tdef, [o[1] for o in out])
     new_v = unflatten(tdef, [o[2] for o in out])
-    metrics = {"grad_norm": gnorm, "lr": lr}
     return new_p, OptState(new_m, new_v, step), metrics

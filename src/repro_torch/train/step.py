@@ -7,13 +7,19 @@ of ``jax.value_and_grad``: nothing accumulates in ``.grad`` across steps),
 then one AdamW update.  Gradient accumulation is a Python loop over batch
 splits; gradient compression (int8 + error feedback) is optional and, as in
 the reference, then takes and returns the error state.
+
+Under a mesh (``dist.sharding.set_mesh``) the same step runs over DTensor
+params and batches: each gradient is laid out as its param, AdamW is
+elementwise, and the metrics are gathered to plain 0-d tensors.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.dist.sharding import spmd
 from repro_torch.optim import adamw as opt
 from repro_torch.optim import compression as comp
 from repro_torch.tree import flatten, unflatten
@@ -26,7 +32,9 @@ def value_and_grad(loss_fn, params: Any, batch: Dict) -> Tuple[torch.Tensor, Any
         leaves = [p.detach().requires_grad_(True) for p in flat]
         loss = loss_fn(unflatten(tdef, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), unflatten(tdef, list(grads))
+    grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor) else g
+             for p, g in zip(flat, grads)]
+    return loss.detach(), unflatten(tdef, grads)
 
 
 def build_train_step(
@@ -35,11 +43,20 @@ def build_train_step(
     *,
     accum_steps: int = 1,
     grad_compression: bool = False,
+    donate: bool = False,
 ):
+    """``donate=True`` updates the given params and optimizer state in place
+    (``adamw.apply_updates``), as the reference's trainer donates them to
+    its jitted step."""
+
     def loss_fn(params, batch):
         return model.train_loss(params, batch)
 
     def train_step(params, opt_state, batch, err_state=None):
+        with spmd():
+            return step(params, opt_state, batch, err_state)
+
+    def step(params, opt_state, batch, err_state):
         if accum_steps == 1:
             loss, grads = value_and_grad(loss_fn, params, batch)
         else:
@@ -53,14 +70,16 @@ def build_train_step(
                 loss = loss + l / accum_steps
                 flat_g, tdef = flatten(g)
                 if grads is None:
-                    grads = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-                             for x in flat_g]
+                    grads = [torch.zeros_like(x, dtype=torch.float32) for x in flat_g]
                 grads = [a + b / accum_steps for a, b in zip(grads, flat_g)]
             grads = unflatten(tdef, grads)
         if grad_compression:
             grads, err_state = comp.compress_grads(grads, err_state)
-        params, opt_state, metrics = opt.apply_updates(params, grads, opt_state, ocfg)
+        params, opt_state, metrics = opt.apply_updates(params, grads, opt_state, ocfg,
+                                                       donate=donate)
         metrics["loss"] = loss
+        metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                   for k, v in metrics.items()}
         if grad_compression:
             return params, opt_state, err_state, metrics
         return params, opt_state, metrics

@@ -13,8 +13,16 @@
 * **straggler mitigation** — per-step wall time is tracked with an EMA;
   steps slower than ``straggler_factor`` x EMA are logged and counted.
 
-Checkpoints store whole (unsharded) tensors, so a run may resume on another
-device.
+Each pipeline batch is completed for the model's config before the step
+(``launch/inputs.py:complete_batch``: M-RoPE positions, patch and frame
+embeddings), so the vlm and encdec families train on it; the reference
+feeds them the bare batch, which they cannot take (ROADMAP.md, reference
+faults 7 and 8).
+
+Under a ``mesh`` the params are distributed by ``model.param_specs()``,
+every rank feeds the same global batch, distributed by "batch" on dim 0,
+and the optimizer state follows the params.  Checkpoints store whole
+(unsharded) tensors, so a run may resume on another device or mesh.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.data.pipeline import DataConfig, DataIterator
+from repro_torch.dist import sharding as shd
+from repro_torch.launch.inputs import batch_shardings, complete_batch
 from repro_torch.optim import adamw as opt_mod
 from repro_torch.train.step import build_train_step
 
@@ -57,9 +67,12 @@ class Trainer:
         init_params: Optional[Callable[[], Any]] = None,
         failure_hook: Optional[Callable[[int], None]] = None,
         log: Callable[[str], None] = print,
+        mesh=None,
     ):
         """``init_params`` returns fresh params (default: ``model.init(0)``
-        on ``device``); it is called on start and on every recovery."""
+        on ``device``); it is called on start and on every recovery.
+        ``mesh`` (a ``DeviceMesh``, set active by the caller) shards the
+        run."""
         self.model = model
         self.data_cfg = data_cfg
         self.opt_cfg = opt_cfg
@@ -68,10 +81,12 @@ class Trainer:
         self.init_params = init_params or (lambda: model.init(0, device=self.device))
         self.failure_hook = failure_hook
         self.log = log
+        self.mesh = mesh
         self.step_fn = build_train_step(
             model, opt_cfg,
             accum_steps=tcfg.accum_steps,
             grad_compression=tcfg.grad_compression,
+            donate=True,
         )
         self.metrics_history: list = []
         self.straggler_steps = 0
@@ -80,7 +95,12 @@ class Trainer:
     # -- state management -------------------------------------------------------
     def _fresh_state(self):
         params = self.init_params()
+        if self.mesh is not None:
+            params = shd.device_put(params, self._shardings(params))
         return params, opt_mod.init_opt_state(params)
+
+    def _shardings(self, params):
+        return shd.shardings_for(self.model.param_specs(), params, self.mesh)
 
     def _save(self, step, params, opt_state):
         ckpt.save(
@@ -95,12 +115,20 @@ class Trainer:
         if last is None:
             return 0, params, opt_state
         like = {"params": params, "opt": opt_state}
-        state = ckpt.restore(self.tcfg.ckpt_dir, last, like)
+        shardings = None
+        if self.mesh is not None:
+            ps = self._shardings(params)
+            shardings = {"params": ps, "opt": opt_mod.OptState(ps, ps, None)}
+        state = ckpt.restore(self.tcfg.ckpt_dir, last, like, shardings)
         self.log(f"[trainer] resumed from step {last}")
         return last, state["params"], state["opt"]
 
-    def _to_device(self, np_batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device) for k, v in np_batch.items()}
+    def _to_device(self, step, np_batch) -> Dict[str, torch.Tensor]:
+        np_batch = complete_batch(self.model.cfg, self.data_cfg.seed, np_batch, step, dp_rank=0)
+        batch = {k: torch.from_numpy(v).to(self.device) for k, v in np_batch.items()}
+        if self.mesh is not None:
+            batch = shd.device_put(batch, batch_shardings(batch, self.mesh))
+        return batch
 
     # -- the loop -----------------------------------------------------------------
     def run(self) -> Dict[str, Any]:
@@ -114,7 +142,7 @@ class Trainer:
                 step, np_batch = next(it)
                 if step >= self.tcfg.total_steps:
                     break
-                batch = self._to_device(np_batch)
+                batch = self._to_device(step, np_batch)
                 t0 = time.perf_counter()
                 try:
                     if self.failure_hook is not None:

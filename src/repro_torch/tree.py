@@ -23,37 +23,41 @@ def _children(node: Any):
     return None, None
 
 
+# The walkers are module functions, not recursive closures: a closure that
+# calls itself is a reference cycle, which would hold the leaves (a train
+# step's gradients, its previous params) until Python's cycle collector ran.
+
+def _walk(node, out: List[Any]):
+    kids, kind = _children(node)
+    if kids is None:
+        out.append(node)
+        return None
+    return kind, [_walk(c, out) for c in kids]
+
+
 def flatten(tree: Any) -> Tuple[List[Any], Any]:
     """``(leaves, treedef)``; :func:`unflatten` inverts it."""
     out: List[Any] = []
+    return out, _walk(tree, out)
 
-    def walk(node):
-        kids, kind = _children(node)
-        if kids is None:
-            out.append(node)
-            return None
-        return kind, [walk(c) for c in kids]
 
-    return out, walk(tree)
+def _build(d, it):
+    if d is None:
+        return next(it)
+    (typ, keys), children = d
+    vals = [_build(c, it) for c in children]
+    if typ is dict:
+        return dict(zip(keys, vals))
+    if typ is type(None):
+        return None
+    if hasattr(typ, "_fields"):
+        return typ(*vals)
+    return typ(vals)
 
 
 def unflatten(treedef: Any, leaves: List[Any]) -> Any:
     it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return next(it)
-        (typ, keys), children = d
-        vals = [build(c) for c in children]
-        if typ is dict:
-            return dict(zip(keys, vals))
-        if typ is type(None):
-            return None
-        if hasattr(typ, "_fields"):
-            return typ(*vals)
-        return typ(vals)
-
-    tree = build(treedef)
+    tree = _build(treedef, it)
     if next(it, it) is not it:
         raise ValueError("more leaves than the tree has places for")
     return tree

@@ -40,7 +40,7 @@ port = _load(ROOT / "benchmarks" / "torch_churn_bench.py")
 
 @pytest.fixture(scope="module")
 def results():
-    return port.bench(smoke=True)
+    return port.bench(smoke=True, device="cpu")
 
 
 def test_smoke_records_equal_reference_outside_wall_clock(results):
@@ -63,7 +63,7 @@ def test_wall_clock_set_is_exactly_what_the_clock_moves():
             "alloc/malloc": port._baseline_churn("malloc", MallocModel, 200, 20),
             "alloc/robust": port._robust_churn(200, 20),
             "alloc/puma_compact": port._puma_arm(400, 20, compaction=True)[0],
-            "pool/serving_trace": port._pool_trace(400, 20),
+            "pool/serving_trace": port._pool_trace(400, 20, device="cpu"),
         }
 
     runs = _helpers.fake_clock_runs(arms)

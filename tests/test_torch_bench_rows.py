@@ -47,7 +47,9 @@ def _rows(fn):
 @pytest.mark.parametrize("name", ["alloc_fraction", "kv_pool_bench"])
 def test_rows_equal_reference(name):
     ref_rows, ref_out = _rows(_load(name).run)
-    rows, out = _rows(_load(f"torch_{name}").run)
+    port = _load(f"torch_{name}")
+    rows, out = _rows(port.run if name == "alloc_fraction"
+                      else lambda emit: port.run(emit, device="cpu"))
     assert rows == ref_rows and out == ref_out and len(rows) >= 6
 
 

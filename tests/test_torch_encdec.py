@@ -42,6 +42,7 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.bridge import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.models.transformer import LM, layer_params  # noqa: E402
+from repro_torch.train import trainer as trainer_mod  # noqa: E402
 from repro_torch.train.step import value_and_grad  # noqa: E402
 from repro_torch.tree import leaves, tree_map  # noqa: E402
 
@@ -377,10 +378,24 @@ def test_reference_fault_7_synth_batch_has_no_encoder_input(pair):
         model.train_loss(params, {k: torch.from_numpy(v) for k, v in nb.items()})
 
 
-def test_launch_train_raises_rather_than_looping(tmp_path):
-    """``launch.train --arch seamless_m4t_medium``: the step fails, the
-    trainer recovers once, the same step fails again and the error
-    propagates."""
+def test_launch_train_raises_rather_than_looping(tmp_path, monkeypatch, capsys):
+    """``launch.train --arch seamless_m4t_medium`` trains: the trainer
+    completes each pipeline batch with ``enc_embeds``
+    (``launch/inputs.py:complete_batch``).  A step that fails twice still
+    raises rather than looping as the reference's trainer does: with the
+    completion's ``enc_embeds`` taken out again, the step raises
+    ``KeyError``, the trainer recovers once, the same step fails again and
+    the error propagates."""
+    out = launch_train.main(["--arch", ARCH, "--steps", "3", "--seq", "16", "--batch", "2",
+                             "--device", "cpu", "--ckpt-dir", str(tmp_path / "ok")])
+    assert [s for s, _ in out["history"]] == [0, 1, 2] and out["recoveries"] == 0
+    assert all(np.isfinite(m["loss"]) for _, m in out["history"])
+    complete = trainer_mod.complete_batch
+    monkeypatch.setattr(trainer_mod, "complete_batch", lambda *a, **kw: {
+        k: v for k, v in complete(*a, **kw).items() if k != "enc_embeds"})
+    capsys.readouterr()
     with pytest.raises(KeyError, match="enc_embeds"):
-        launch_train.main(["--arch", ARCH, "--steps", "3", "--device", "cpu",
-                           "--ckpt-dir", str(tmp_path)])
+        launch_train.main(["--arch", ARCH, "--steps", "3", "--seq", "16", "--batch", "2",
+                           "--device", "cpu", "--ckpt-dir", str(tmp_path / "bare")])
+    logs = capsys.readouterr().out
+    assert logs.count("step 0 failed (") == 1 and logs.count("step 0 failed again") == 1

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` and
-loading ``chip_smoke.py`` and the port's example and benchmark scripts pulls
-in neither JAX nor the reference package."""
+loading ``chip_smoke.py``, the port's example and benchmark scripts and the
+multi-rank test processes' module pulls in neither JAX nor the reference
+package."""
 import pathlib
 import re
 import subprocess
@@ -21,7 +22,9 @@ SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
            ROOT / "scripts" / "mma_rate.py", ROOT / "examples" / "torch_train_lm.py",
            *(ROOT / "benchmarks" / f"torch_{name}.py" for name in (
                "records", "translate_bench", "channel_bench", "chaos_bench", "churn_bench",
-               "trace_bench", "kv_pool_bench", "alloc_fraction", "kernel_bench", "run"))]
+               "trace_bench", "kv_pool_bench", "alloc_fraction", "kernel_bench", "run")),
+           ROOT / "tests" / "torch_dist_ranks.py", ROOT / "scripts" / "torch_dist_probe.py",
+           ROOT / "scripts" / "chip_smoke_memory.py"]
 
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
