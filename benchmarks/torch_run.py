@@ -13,10 +13,9 @@ record file of ``--dir`` into one summary.
   * churn           — BENCH_churn.json (``torch_churn_bench``)
   * serve           — BENCH_serve.json (``torch_serve_bench``)
   * trace           — BENCH_trace.json (``torch_trace_bench``)
-
-The reference's ``roofline`` module reads XLA's lowering and has no port
-yet (ROADMAP item 8): ``--only`` naming it raises, and a run of every module
-says on stderr that it is left out.
+  * roofline        — the roofline table (``torch_roofline_report``) over the
+                      records ``repro_torch.launch.roofline`` wrote under
+                      ``experiments/``; ``roofline/missing`` without them
 
 Prints ``name,us_per_call,derived`` CSV rows.  The record files are written
 under ``--dir`` (default ``build/bench``) and nowhere else; after the
@@ -111,12 +110,6 @@ def main(argv=None) -> None:
         return os.path.join(args.dir, f"BENCH_{name}.json")
 
     if not args.aggregate_only:
-        roofline = ("roofline: benchmarks/roofline_report.py reads XLA's lowering and has "
-                    "no port yet (ROADMAP.md, item 8)")
-        if args.only is not None and args.only in "roofline":
-            raise SystemExit(f"--only {args.only!r} selects {roofline}")
-        if args.only is None:
-            print(f"[torch_run] not run: {roofline}", file=sys.stderr)
         import torch_alloc_fraction
         import torch_channel_bench
         import torch_chaos_bench
@@ -124,6 +117,7 @@ def main(argv=None) -> None:
         import torch_kernel_bench
         import torch_kv_pool_bench
         import torch_microbench
+        import torch_roofline_report
         import torch_serve_bench
         import torch_trace_bench
         import torch_translate_bench
@@ -141,6 +135,7 @@ def main(argv=None) -> None:
             "microbench": lambda: torch_microbench.run(emit),
             "kv_pool": lambda: torch_kv_pool_bench.run(emit, device=device),
             "kernel": lambda: torch_kernel_bench.run(emit, device=device),
+            "roofline": lambda: torch_roofline_report.run(emit),
             "translate": lambda: write(torch_translate_bench.run(emit, smoke=smoke),
                                        out("translate")),
             "channels": lambda: write(torch_channel_bench.run(emit, smoke=smoke),

@@ -74,6 +74,14 @@ before each and read just after:
   4 x 2048 through the kernel's f32 tensor-core paths (``vector_tc_f32``,
   ``scalar_tc_f32``) against the plain chunked math.
 
+Phase ``[roofline]`` runs the compile-only launchers: the dry-run of three
+production cells (stablelm_1_6b train and decode, granite_moe_1b_a400m
+train) on fake 256-rank process groups over meta tensors, then one cell one
+card holds, the full-width stablelm_1_6b's train step at 8 x 128,
+predicted by the dry-run's recorder and run on the card (flops equal
+``FlopCounterMode``'s, the peak within 2x, the measured share of the
+H100's peak), and the roofline report's rows over its records.
+
 It also runs the PUD host model (the quickstart's allocator table and the
 paper's Figure 2, modelled DRAM times) and the GEMV offload model
 (``trace/gemv.py``: the full-width stablelm_1_6b layer 0 placed with the
@@ -281,6 +289,21 @@ GRAPHED_STATE = ("rwkv6_7b",)
 STATE_CHECK_DEPTH = {"rwkv6_7b": 4, "zamba2_7b": 5}
 # smoke models, card against CPU (f32): logits within 1e-4 of their scale
 SMOKE_LOGITS_TOL = 1e-4
+# the [roofline] phase: (a) the dry-run's production cells on this
+# machine's PyTorch (single pod, fake 16 x 16 ranks, 1 layer), each with the
+# argument bytes per device the CPU gives them (tests/test_torch_dryrun.py
+# holds those against the reference's); (b) one cell one card holds,
+# predicted by the dry-run's recorder on meta tensors and then run:
+# stablelm_1_6b at full width, launch.train's shape (8 x 128), remat full,
+# chunked attention, AdamW in place, no mesh, seeded; ROOFLINE_WARMUP steps,
+# then the median of ROOFLINE_REPS by CUDA events; the predicted peak within
+# ROOFLINE_PEAK_RATIO of the measured either way
+ROOFLINE_CELLS = (("stablelm_1_6b", "train_4k", 19_259_396),
+                  ("stablelm_1_6b", "decode_32k", 154_632_264),
+                  ("granite_moe_1b_a400m", "train_4k", 5_857_284))
+ROOFLINE_ARCH, ROOFLINE_SEED = "stablelm_1_6b", 16
+ROOFLINE_SHAPE = RunShape("train", 128, 8, "train")
+ROOFLINE_WARMUP, ROOFLINE_REPS, ROOFLINE_PEAK_RATIO = 2, 5, 2.0
 # watermarks of tests/test_compaction.py's maintenance scenario
 MAINTENANCE = MaintenanceConfig(free_low=0.9, frag_high=0.05, contig_low=0.999,
                                 max_moves=64, every=2)
@@ -1059,6 +1082,8 @@ def phase_serve(maintenance: MaintenanceConfig = None, jit: bool = True) -> dict
     for k, v in out.items():
         log(f"{tag} {k}: {v}")
     out["ids"] = {r.rid: list(r.out) for r in done}
+    if maintenance:
+        del engine.pool.compact   # watch_compaction's wrapper holds the pool: a cycle
     del engine, params
     torch.cuda.empty_cache()
     return out
@@ -1473,7 +1498,13 @@ def phase_vlm() -> dict:
 
             engine._prefill = timed_prefill
             kernels.reset_launches()
-            step_ms, step_check = drive(engine, tag, jit, fork=True)
+            try:
+                step_ms, step_check = drive(engine, tag, jit, fork=True)
+            finally:
+                # the wrapper holds the engine's own bound method: a cycle
+                # that would keep the engine (and the weights) until a
+                # cycle collection
+                del engine._prefill
             launches = dict(kernels.launches)
             done = check_served(engine, tag, jit, launches, VLM_REQUESTS, VLM_NEW, step_check,
                                 forked=True)
@@ -2688,6 +2719,154 @@ def phase_state_small_vs_cpu() -> dict:
     return res
 
 
+# -- phase [roofline]: the compile-only launchers -----------------------------------
+
+def roofline_cells() -> dict:
+    """(a): each of ROOFLINE_CELLS through ``dryrun.run_cell`` (its own
+    fake process group, started and destroyed), status ok and the CPU's
+    argument bytes."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for arch, shape, arg_bytes in ROOFLINE_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, False, n_layers=1)
+        pd = rec["per_device"]
+        check(rec["status"] == "ok" and pd["argument_bytes"] == arg_bytes,
+              f"[roofline] {arch} {shape}: argument bytes {pd['argument_bytes']}, the CPU's "
+              f"{arg_bytes}")
+        log(f"[roofline] {arch} {shape} on {rec['mesh']} fake ranks, 1 layer, accum "
+            f"{rec['accum_steps']}, torch {torch.__version__}: {time.perf_counter() - t0:.1f} s "
+            f"(build {rec['lower_s']} s, traced step {rec['compile_s']} s); per device "
+            + ", ".join(f"{k} {v:.6g}" for k, v in pd.items()) + "; collectives "
+            + ", ".join(f"{k} {v['count']}" for k, v in rec["collectives"].items()))
+        out[f"{arch}|{shape}"] = rec
+    return out
+
+
+def roofline_predict() -> dict:
+    """(b)'s prediction: the one-card cell traced on meta tensors."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as RL
+
+    cfg = get_config(ROOFLINE_ARCH)
+    fn, args, _ = dryrun.build_cell(cfg, ROOFLINE_SHAPE, None, attn_impl="chunked",
+                                    remat="full", accum_steps=1)
+    pd = dryrun.trace_step(fn, args, dryrun.DONATED["train"])["per_device"]
+    terms = RL.terms(pd)
+    tokens = ROOFLINE_SHAPE.global_batch * ROOFLINE_SHAPE.seq_len
+    return {"per_device": pd, "terms": terms, "bound_s": max(terms.values()),
+            "dominant": max(terms, key=terms.get),
+            "model_flops": 6 * cfg.n_active_params() * tokens}
+
+
+def roofline_rows(records: dict) -> list:
+    """(c): ``benchmarks/torch_roofline_report.py`` over ``records`` written
+    as ``experiments/torch_roofline_results.json`` in a temporary directory."""
+    report = load_script("benchmarks/torch_roofline_report.py")
+    rows, cwd = [], os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_roofline_") as d:
+        os.makedirs(f"{d}/experiments")
+        with open(f"{d}/experiments/torch_roofline_results.json", "w") as f:
+            json.dump(records, f)
+        os.chdir(d)
+        try:
+            report.run(lambda name, us, derived: rows.append((name, us, derived)))
+        finally:
+            os.chdir(cwd)
+    return rows
+
+
+def phase_roofline() -> dict:
+    """The compile-only launchers (``repro_torch.launch.dryrun``,
+    ``roofline``; no kernel on their path).  (a) ``roofline_cells``; (b) the
+    one-card cell predicted (``roofline_predict``: flops, fused bytes,
+    bytes accessed, peak bytes, the roofline terms at the H100's peaks),
+    then run on the card from seeded weights: the predicted flops equal
+    ``FlopCounterMode``'s count of the real step, the predicted argument
+    bytes the real arguments', the predicted peak within ROOFLINE_PEAK_RATIO
+    of ``max_memory_allocated`` (reset after the warm-up) less what was
+    allocated when the phase began; the step's measured share of the
+    peak, model flops / 989e12 / step s, and the bound's share, bound s /
+    step s; (c) ``roofline_rows`` over a ``roofline_cell`` record of
+    stablelm_1_6b decode_32k (256 fake ranks) and (b)'s prediction."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import roofline as RL
+
+    res = {"cells": roofline_cells()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    pred = roofline_predict()
+    ppd = pred["per_device"]
+    log(f"[roofline] predicted, {ROOFLINE_ARCH} at full width, train {ROOFLINE_SHAPE.global_batch}"
+        f" x {ROOFLINE_SHAPE.seq_len}, remat full, chunked, one card: flops {ppd['flops']:.6g}, "
+        f"fused_bytes {ppd['fused_bytes']:.6g}, bytes_accessed {ppd['bytes_accessed']:.6g}, "
+        f"argument_bytes {ppd['argument_bytes']}, peak_bytes {ppd['peak_bytes']}; at "
+        f"{RL.CARD}: compute {pred['terms']['compute_s'] * 1e3:.4f} ms, memory "
+        f"{pred['terms']['memory_s'] * 1e3:.4f} ms, bound {pred['bound_s'] * 1e3:.4f} ms "
+        f"({pred['dominant']}); model flops {pred['model_flops']:.6g}")
+    cfg = get_config(ROOFLINE_ARCH)
+    model = LM(cfg, attn_impl="chunked", remat="full")
+    params = model.init(ROOFLINE_SEED, device="cuda")
+    opt = init_opt_state(params)
+    batch = make_batch(cfg, ROOFLINE_SHAPE, ROOFLINE_SEED, device="cuda")
+    real_args = sum(t.numel() * t.element_size() for t in leaves((params, opt, batch)))
+    check(real_args == ppd["argument_bytes"],
+          f"[roofline] argument bytes {real_args}, predicted {ppd['argument_bytes']}")
+    step = build_train_step(model, AdamWConfig(), donate=True)
+    with FlopCounterMode(display=False) as fc:
+        params, opt, metrics = step(params, opt, batch)
+    check(fc.get_total_flops() == ppd["flops"],
+          f"[roofline] FlopCounterMode counts {fc.get_total_flops()}, predicted {ppd['flops']}")
+    for _ in range(ROOFLINE_WARMUP - 1):
+        params, opt, metrics = step(params, opt, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(ROOFLINE_REPS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, opt, metrics = step(params, opt, batch)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() - base
+    check(all(math.isfinite(x) for x in losses), f"[roofline] losses {losses}")
+    step_s = statistics.median(ms) / 1e3
+    ratio = ppd["peak_bytes"] / peak
+    res.update(step_ms=statistics.median(ms), all_ms=ms, peak_bytes=peak, peak_ratio=ratio,
+               share=pred["model_flops"] / RL.PEAK_FLOPS / step_s,
+               bound_share=pred["bound_s"] / step_s, predicted=pred)
+    log(f"[roofline] measured: step {res['step_ms']:.3f} ms (median of {ROOFLINE_REPS} by CUDA "
+        f"events after {ROOFLINE_WARMUP} warm-up; all {' '.join(f'{x:.3f}' for x in ms)}); "
+        f"flops {fc.get_total_flops():.6g} = predicted; peak {peak / 1e9:.4f} GB against "
+        f"predicted {ppd['peak_bytes'] / 1e9:.4f} (predicted / measured {ratio:.4f}); measured "
+        f"share of the card's peak (model flops / 989e12 / step s) {res['share']:.5f}; the "
+        f"bound's share (bound s / step s) {res['bound_share']:.5f}; losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}")
+    check(1 / ROOFLINE_PEAK_RATIO <= ratio <= ROOFLINE_PEAK_RATIO,
+          f"[roofline] predicted peak {ppd['peak_bytes']} against measured {peak}")
+    del params, opt, batch, metrics, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    one_card = {"arch": ROOFLINE_ARCH, "shape": "launch.train 8x128 (one card)", **pred["terms"],
+                "roofline_fraction": pred["model_flops"] / RL.PEAK_FLOPS / pred["bound_s"]}
+    records = {"stablelm_1_6b|decode_32k|chunked": RL.roofline_cell("stablelm_1_6b",
+                                                                     "decode_32k"),
+               f"{ROOFLINE_ARCH}|train_128x8|chunked": one_card}
+    log(f"[roofline] card of the records: {records['stablelm_1_6b|decode_32k|chunked']['card']}")
+    res["rows"] = roofline_rows(records)
+    check(len(res["rows"]) == 2 and all(math.isfinite(r[1]) and r[1] > 0 for r in res["rows"]),
+          f"[roofline] report rows {res['rows']}")
+    for name, us, derived in res["rows"]:
+        log(f"[roofline] report row {name}: bound {us} us a step, roofline fraction {derived}")
+    return res
+
+
 # -- phase 6 -----------------------------------------------------------------
 
 def time_ms(fn, reps: int) -> float:
@@ -3076,6 +3255,7 @@ def main() -> None:
     state32 = {arch: phase_state_f32(arch, seed) for arch, seed in (("rwkv6_7b", 3),
                                                                     ("zamba2_7b", 4))}
     phase_state_small_vs_cpu()
+    phase_roofline()
     times = phase_times()
     log(f"[times] paged_attention:moe launches on the graphed MoE serve: "
         f"{moe['graph']['paged_launches']}")

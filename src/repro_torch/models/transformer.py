@@ -235,8 +235,14 @@ class LM:
 
     def init(self, generator: torch.Generator | int = 0, *, device="cuda") -> Dict:
         """Random weights with the reference's init rule, drawn on ``device``
-        from ``generator`` (or a fresh one seeded with the given int)."""
+        from ``generator`` (or a fresh one seeded with the given int).  On
+        the meta device: tensors of the same shapes and dtypes, drawn from
+        nothing (the reference's ``jax.eval_shape(model.init)``)."""
         device = resolve_device(device)
+        if device.type == "meta":
+            return map_defs(lambda d: torch.empty(
+                d.shape, dtype=torch.float32 if d.f32 else self.dtype, device=device),
+                self.param_defs())
         if not isinstance(generator, torch.Generator):
             generator = torch.Generator(device=device).manual_seed(int(generator))
         return init_params(

@@ -3,8 +3,8 @@
 ``torch_kv_pool_bench`` print the reference's rows, names and values;
 ``torch_kernel_bench`` the reference's row names with the plain path's
 agreement; ``torch_run`` writes only under ``--dir``, its ``aggregate``
-equals the reference's over the same files, and it refuses the roofline
-module rather than skip it."""
+equals the reference's over the same files, and its roofline module prints
+the reference report's rows."""
 import importlib.util
 import json
 import pathlib
@@ -109,10 +109,42 @@ def test_harness_writes_under_dir_and_aggregates_as_the_reference(tmp_path, monk
     assert json.loads((out / "BENCH_summary.json").read_text()) == summary
 
 
-def test_harness_refuses_the_roofline_module(tmp_path):
-    runner = _load("torch_run")
-    with pytest.raises(SystemExit, match="item 8"):
-        runner.main(["--only", "roofline", "--dir", str(tmp_path)])
+def _roofline_records(scale):
+    recs = {f"{arch}|{shape}|chunked": {
+        "arch": arch, "shape": shape, "compute_s": 1e-3 * scale * (i + 1),
+        "memory_s": 2.5e-3 * scale / (i + 1), "collective_s": 7e-4 * scale,
+        "roofline_fraction": 0.1234567 * scale / (i + 1)}
+        for i, (arch, shape) in enumerate([("stablelm_1_6b", "decode_32k"),
+                                           ("zamba2_7b", "train_4k")])}
+    recs["rwkv6_7b|long_500k|chunked"] = {"arch": "rwkv6_7b", "shape": "long_500k",
+                                          "status": "error", "error": "x"}
+    return recs
+
+
+def test_harness_runs_the_roofline_module(tmp_path, monkeypatch, capsys):
+    """``--only roofline`` runs ``torch_roofline_report``: its rows equal the
+    reference report's over the same records (the port's files beside the
+    reference's names), and ``roofline/missing`` without any."""
+    runner, ref = _load("torch_run"), _load("roofline_report")
+    exp = tmp_path / "experiments"
+    exp.mkdir()
+    monkeypatch.chdir(tmp_path)
+
+    def rows():
+        capsys.readouterr()
+        runner.main(["--only", "roofline", "--dir", str(tmp_path / "out")])
+        return [line.split(",") for line in capsys.readouterr().out.splitlines()
+                if "," in line and not line.startswith("name,")]
+
+    assert rows() == [["roofline/missing", "0.0", "0.0"]]
+    for scale, (port_name, ref_name) in zip((1.0, 0.5), [
+            ("torch_roofline_results.json", "roofline_results.json"),
+            ("torch_roofline_final_decode.json", "roofline_final_decode.json")]):
+        for name in (port_name, ref_name):
+            (exp / name).write_text(json.dumps(_roofline_records(scale)))
+    expected = []
+    out = ref.run(lambda name, us, derived: expected.append([name, f"{us:.1f}", str(derived)]))
+    assert rows() == expected and len(expected) == 4 and len(out) == 4
     with pytest.raises(SystemExit, match="matches no module"):
         runner.main(["--only", "nothing", "--device", "cpu", "--dir", str(tmp_path)])
 

@@ -1,0 +1,353 @@
+"""The port's compile-only dry-run (``repro_torch.launch.dryrun`` and
+``hlo_stats``) against the reference's ``launch/dryrun.py``.
+
+The reference's records come from one process of its own
+(``tests/ref_launch_records.py``, ``JAX_PLATFORMS=cpu``, its own
+``XLA_FLAGS``, 180 s), over the cells of ``CELLS``: every family and every
+mode once, at 1 layer, zamba2 at ``attn_every`` and ``attn_every + 1``.
+zamba2 is taken at decode_32k: its prefill_32k trace on the port runs its
+Mamba2 chunk loop as ~10^5 DTensor ops and takes ~105 s a cell here.
+
+On the port's side the same cells run on a fake 256-rank process group.
+Held equal to the reference's, with the differences each test names:
+argument, output and alias bytes.  Held to a band measured here: flops
+per device (``BANDS``, with the reason for each).  Recorded, not held
+equal: the collectives' kinds and counts (XLA's partitioner and DTensor's
+redistributions differ; PERF.md has them side by side).
+
+Then ``hlo_stats`` per device on a fake 2 x 4 mesh (a sharded matmul's
+local flops, one all-gather's bytes, the counts of ``CommDebugMode`` over a
+smoke MoE train step), ``fused_bytes_estimate``'s rules on hand-built
+records (the counterpart of ``tests/test_hlo_stats.py``'s snippet),
+``LM.init(device="meta")`` for every family, and the CLI on both meshes.
+Each fake process group is started and destroyed inside its test.
+"""
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ref_launch_records import CELLS, key, run_reference  # noqa: E402
+from repro_torch.configs.base import SHAPES, RunShape  # noqa: E402
+from repro_torch.configs.registry import get_config, lm_archs  # noqa: E402
+from repro_torch.dist import sharding as shd  # noqa: E402
+from repro_torch.launch import dryrun, hlo_stats  # noqa: E402
+from repro_torch.launch.hlo_stats import OpEntry  # noqa: E402
+from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
+from repro_torch.models.transformer import LM  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+RANKS = 256
+SIZES = {"data": 16, "model": 16}
+
+#: port flops / reference flops per cell, (low, high), measured on this
+#: tree (PERF.md §6, the dry-run table), with the reason the two counts differ.
+#: * prefill 3.36: the reference's chunked attention is a lax.scan over
+#:   64 KV chunks whose body XLA counts once; the port counts every chunk.
+#: * train 2.8-9.7: the same, plus the port's sharded logits: DTensor
+#:   contracts the logits product over the FSDP axis and cross_entropy
+#:   gathers the vocab whole, so every rank computes the vocab's products
+#:   for more tokens than its own (ROADMAP.md, port fault F6).
+#: * decode 0.66-1.32: the port counts products only, XLA its elementwise
+#:   ops too; and DTensor contracts decode's projections over the FSDP
+#:   axis, every rank multiplying the whole batch by its slice of the embed
+#:   dim (rwkv6 1.32, where the projections are most of the work).
+BANDS = {
+    "stablelm_1_6b|train_4k|1": (8.0, 8.9),
+    "stablelm_1_6b|prefill_32k|1": (3.2, 3.5),
+    "stablelm_1_6b|decode_32k|1": (0.66, 0.74),
+    "granite_moe_1b_a400m|train_4k|1": (2.6, 3.0),
+    "rwkv6_7b|decode_32k|1": (1.25, 1.4),
+    "zamba2_7b|decode_32k|6": (0.62, 0.71),
+    "zamba2_7b|decode_32k|7": (0.61, 0.70),
+    "qwen2_vl_72b|decode_32k|1": (0.66, 0.75),
+    "seamless_m4t_medium|train_4k|1": (9.2, 10.2),
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs several test processes at once; one torch thread per
+    process keeps them from contending for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    return run_reference("dryrun", tmp_path_factory.mktemp("ref_dryrun"))
+
+
+@pytest.fixture(scope="module")
+def port():
+    return {key(a, s, n): dryrun.run_cell(a, s, False, n_layers=n, scan_layers=False,
+                                          accum_steps=1)
+            for a, s, n in CELLS}
+
+
+def _cfg(arch, shape, n):
+    cfg = get_config(arch)
+    over = {"n_layers": n}
+    if cfg.is_encdec:
+        over["enc_layers"] = n
+    if (arch, shape) in dryrun.KV_DTYPE_DEFAULTS:
+        over["kv_cache_dtype"] = dryrun.KV_DTYPE_DEFAULTS[(arch, shape)]
+    return dataclasses.replace(cfg, **over)
+
+
+class _Mesh:
+    """The production single-pod mesh's axes, for ``shardings_for``."""
+    shape = SIZES
+    axis_names = tuple(SIZES)
+
+
+def _bf16_param_bytes(cfg) -> int:
+    """Local bytes of the port's bf16 params on the 16 x 16 mesh: the
+    reference trains f32 master weights, twice these."""
+    model = LM(cfg)
+    params = model.init(device="meta")
+    shard = leaves(shd.shardings_for(model.param_specs(), params, _Mesh()))
+    total = 0
+    for p, s in zip(leaves(params), shard):
+        if p.dtype == torch.bfloat16:
+            n = p.numel()
+            for e in s.spec:
+                for a in (e if isinstance(e, tuple) else (e,) if e else ()):
+                    n //= SIZES[a]
+            total += n * p.element_size()
+    return total
+
+
+def _ring_bytes(cfg, shape) -> int:
+    """Local bytes of the decode cache's recent rings (K and V), whose heads
+    the port leaves whole, as the reference's input does."""
+    model = LM(cfg)
+    cache = model.init_cache(shape.global_batch, shape.seq_len, device="meta")
+    layers = cache["layers"]
+    node = layers.get("attn", layers) if isinstance(layers, dict) else {}
+    return sum(t.numel() * t.element_size() // SIZES["data"] for t in node.get("recent", ()))
+
+
+@pytest.mark.parametrize("cell", [key(*c) for c in CELLS])
+def test_memory_bytes_equal_the_reference(cell, ref, port):
+    """argument, output and alias bytes per device equal the reference's,
+    but for two differences that follow from the port's design:
+    * train: the port's params are bf16 with f32 moments, the reference's
+      f32 master weights (twice the bytes) -- in the arguments, the results
+      and the donated buffers alike;
+    * decode: the port writes the recent ring in place, keeping its
+      placement (heads whole); XLA lays the ring it returns out with its
+      heads over "model" where they divide by 16, so that result is 1/16
+      the size and cannot alias its donated input."""
+    arch, shape_name, n = cell.split("|")
+    cfg, shape = _cfg(arch, shape_name, int(n)), SHAPES[shape_name]
+    mine, theirs = port[cell]["per_device"], ref[cell]["per_device"]
+    arg, out, alias = mine["argument_bytes"], mine["output_bytes"], mine["alias_bytes"]
+    if shape.mode == "train":
+        p = _bf16_param_bytes(cfg)
+        arg, out, alias = arg + p, out + p, alias + p
+    if shape.mode == "decode" and cfg.n_kv_heads % SIZES["model"] == 0:
+        ring = _ring_bytes(cfg, shape)
+        out -= ring - ring // SIZES["model"]
+        alias -= ring
+    assert (arg, out, alias) == (theirs["argument_bytes"], theirs["output_bytes"],
+                                 theirs["alias_bytes"])
+    assert port[cell]["status"] == "ok"
+    assert set(port[cell]["collectives"]) == set(hlo_stats.COLLECTIVES)
+    assert mine["peak_bytes"] == (mine["argument_bytes"] + mine["output_bytes"]
+                                  + mine["temp_bytes"] - mine["alias_bytes"])
+
+
+def test_chip_smoke_cells_carry_the_cpu_argument_bytes(port):
+    """``chip_smoke.py``'s phase ``[roofline]`` holds each production cell
+    on the card to the argument bytes this CPU run gives."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for arch, shape, arg_bytes in smoke.ROOFLINE_CELLS:
+        assert port[key(arch, shape, 1)]["per_device"]["argument_bytes"] == arg_bytes
+
+
+@pytest.mark.parametrize("cell", [key(*c) for c in CELLS])
+def test_flops_within_the_stated_band(cell, ref, port):
+    lo, hi = BANDS[cell]
+    ratio = port[cell]["per_device"]["flops"] / ref[cell]["per_device"]["flops"]
+    assert lo <= ratio <= hi, ratio
+
+
+@pytest.mark.parametrize("cell", [key(*c) for c in CELLS])
+def test_flops_over_the_ranks_cover_the_unsharded_step(cell, port):
+    """Per-device flops are counted on local shards, replicated work on
+    every rank: over 256 ranks they are at least the unsharded step's."""
+    arch, shape_name, n = cell.split("|")
+    shape = SHAPES[shape_name]
+    fn, args, _ = dryrun.build_cell(_cfg(arch, shape_name, int(n)), shape, None,
+                                    accum_steps=1)
+    whole = dryrun.trace_step(fn, args, dryrun.DONATED[shape.mode])["per_device"]["flops"]
+    assert whole > 0
+    assert port[cell]["per_device"]["flops"] * RANKS >= whole
+
+
+# -- hlo_stats per device on a fake 2 x 4 mesh ------------------------------------------
+
+def _on_mesh(fn):
+    with dryrun.fake_process_group(8), shd.use_mesh(None):
+        return fn(make_smoke_mesh(2, 4))
+
+
+def test_sharded_matmul_records_the_local_flops():
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    m, k, n = 64, 256, 96
+
+    def run(mesh):
+        x = distribute_tensor(torch.empty(m, k, device="meta"), mesh, [Shard(0), Replicate()])
+        w = distribute_tensor(torch.empty(k, n, device="meta"), mesh,
+                              [Replicate(), Replicate()])
+        rec = hlo_stats.OpRecorder()
+        with rec:
+            y = x @ w
+        return rec.record, y
+
+    record, y = _on_mesh(run)
+    assert tuple(y.shape) == (m, n)
+    assert hlo_stats.flops(record) == 2 * (m // 2) * n * k
+    assert hlo_stats.op_census(record)["mm"] == 1
+    assert hlo_stats.total_collective_bytes(record) == 0
+
+
+def test_redistribute_records_one_all_gather():
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    def run(mesh):
+        x = distribute_tensor(torch.empty(256, 4096, dtype=torch.bfloat16, device="meta"),
+                              mesh, [Shard(0), Replicate()])
+        rec = hlo_stats.OpRecorder()
+        with rec:
+            x.redistribute(mesh, [Replicate(), Replicate()])
+        return rec.record
+
+    st = hlo_stats.collective_stats(_on_mesh(run))
+    assert st["all-gather"] == {"count": 1, "bytes": 256 * 4096 * 2}
+    assert sum(v["count"] for v in st.values()) == 1
+
+
+def test_collective_counts_equal_comm_debug_mode():
+    """One train step of the smoke granite_moe_1b_a400m (the sharded MoE
+    path) on a 2 x 4 mesh: the record's counts by kind are
+    ``CommDebugMode``'s."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    cfg = get_config("granite_moe_1b_a400m").smoke()
+
+    def run(mesh):
+        fn, args, _ = dryrun.build_cell(cfg, RunShape("t", 32, 4, "train"), mesh,
+                                        accum_steps=1)
+        rec = hlo_stats.OpRecorder()
+        with torch.no_grad(), CommDebugMode() as comm, rec:
+            fn(*args)
+        return rec.record, comm.get_comm_counts()
+
+    record, counts = _on_mesh(run)
+    theirs = {k: 0 for k in hlo_stats.COLLECTIVES}
+    for op, c in counts.items():
+        theirs[OpEntry(f"{op}.default", ()).collective] += c
+    mine = {k: v["count"] for k, v in hlo_stats.collective_stats(record).items()}
+    assert mine == theirs and mine["all-gather"] > 0 and mine["reduce-scatter"] > 0
+
+
+def test_a_started_group_is_refused():
+    with dryrun.fake_process_group(8):
+        with pytest.raises(RuntimeError, match="already started"):
+            dryrun.run_cell("stablelm_1_6b", "decode_32k", False, n_layers=1)
+    assert not torch.distributed.is_initialized()
+
+
+# -- fused_bytes_estimate's rules -------------------------------------------------------
+
+def _e(op, result, *operands, transposes=False):
+    return OpEntry(op, tuple(result), tuple(operands), transposes=transposes)
+
+
+F32 = "float32"
+A = ((128, 256), F32)     # 131072 bytes
+B = ((256, 64), F32)      # 65536
+C = ((128, 64), F32)      # 32768
+IDX = ((128,), "int64")   # 1024
+
+
+@pytest.mark.parametrize("entry, fused", [
+    (_e("aten.mm.default", [C], A, B), 32768 + 131072 + 65536),          # product
+    (_e("repro.kernel.default", [C], A), 32768 + 131072),                # custom kernel
+    (_e("aten.cat.default", [((256, 256), F32)], A, A), 262144 + 2 * 131072),  # concatenation
+    (_e("aten.sort.default", [A, ((128, 256), "int64")], A), 131072 * 2 + 262144),
+    (_e("aten.clone.default", [A], A, transposes=True), 2 * 131072),     # transpose copy
+    (_e("aten.clone.default", [A], A), 0),                               # plain copy
+    (_e("aten.copy_.default", [A], A, A), 0),
+    (_e("aten.index_select.default", [C], ((512, 64), F32), IDX), 2 * 32768 + 1024),
+    (_e("aten.index_put_.default", [((512, 64), F32)], ((512, 64), F32), IDX, C),
+     2 * 32768 + 1024),                                                  # scatter
+    (_e("aten.sum.dim_IntList", [((128,), F32)], A), 512 + 131072),      # reduction
+    (_e("aten.mul.Tensor", [A], A, A), 0),                               # elementwise
+    (_e("aten.max.other", [A], A, A), 0),
+    (_e("_c10d_functional.all_reduce.default", [A], A), 0),              # collective
+])
+def test_fused_bytes_rules(entry, fused):
+    assert hlo_stats.fused_bytes_estimate([entry]) == fused
+
+
+def test_record_statistics_on_a_hand_built_record():
+    rec = [
+        _e("_c10d_functional.all_gather_into_tensor.default", [((128, 256), F32)],
+           ((8, 256), F32)),
+        _e("_c10d_functional.all_reduce.default", [((64,), "bfloat16")], ((64,), "bfloat16")),
+        _e("_c10d_functional.reduce_scatter_tensor.default", [((4,), F32)], ((64,), F32)),
+        _e("_dtensor.shard_dim_alltoall.default", [((16, 2), F32)], ((16, 2), F32)),
+        _e("aten.mm.default", [C], A, B),
+        _e("aten.mul.Tensor", [C], C, C),
+    ]
+    st = hlo_stats.collective_stats(rec)
+    assert st["all-gather"] == {"count": 1, "bytes": 128 * 256 * 4}
+    assert st["all-reduce"] == {"count": 1, "bytes": 128}
+    assert st["reduce-scatter"] == {"count": 1, "bytes": 16}
+    assert st["all-to-all"] == {"count": 1, "bytes": 128}
+    assert hlo_stats.total_collective_bytes(rec) == 128 * 256 * 4 + 128 + 16 + 128
+    assert hlo_stats.bytes_accessed(rec) == 3 * 32768 + 131072 + 65536 + 32768
+    with pytest.raises(ValueError, match="no counterpart"):
+        hlo_stats.collective_stats([_e("_c10d_functional.broadcast.default", [A], A)])
+
+
+# -- abstract params, the CLI ---------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", lm_archs())
+def test_meta_init_gives_the_shapes_and_dtypes_of_an_init(arch):
+    model = LM(get_config(arch).smoke())
+    meta, real = leaves(model.init(device="meta")), leaves(model.init(0, device="cpu"))
+    assert [(t.shape, t.dtype, t.device.type) for t in meta] == [
+        (t.shape, t.dtype, "meta") for t in real]
+
+
+def test_cli_writes_both_meshes(tmp_path):
+    out = tmp_path / "dryrun.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "stablelm_1_6b",
+         "--shape", "decode_32k", "--mesh", "both", "--out", str(out)],
+        capture_output=True, text=True, timeout=240, cwd=str(tmp_path),
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(out.read_text())
+    assert sorted(res) == ["stablelm_1_6b|decode_32k|16x16|chunked",
+                           "stablelm_1_6b|decode_32k|2x16x16|chunked"]
+    for rec in res.values():
+        assert rec["status"] == "ok" and rec["n_layers"] == 24
+    assert res["stablelm_1_6b|decode_32k|2x16x16|chunked"]["chips"] == 512

@@ -22,9 +22,11 @@ SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
            ROOT / "scripts" / "mma_rate.py", ROOT / "examples" / "torch_train_lm.py",
            *(ROOT / "benchmarks" / f"torch_{name}.py" for name in (
                "records", "translate_bench", "channel_bench", "chaos_bench", "churn_bench",
-               "trace_bench", "kv_pool_bench", "alloc_fraction", "kernel_bench", "run")),
+               "trace_bench", "kv_pool_bench", "alloc_fraction", "kernel_bench", "run",
+               "roofline_report")),
+           *(PORT / "launch" / f"{name}.py" for name in ("dryrun", "hlo_stats", "roofline", "perf")),
            ROOT / "tests" / "torch_dist_ranks.py", ROOT / "scripts" / "torch_dist_probe.py",
-           ROOT / "scripts" / "chip_smoke_memory.py"]
+           ROOT / "scripts" / "chip_smoke_memory.py", ROOT / "scripts" / "dryrun_vs_reference.py"]
 
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
@@ -34,7 +36,8 @@ for name in names:
     importlib.import_module(name)
 for i, path in enumerate(sys.argv[1:]):
     spec = importlib.util.spec_from_file_location(f"script{i}", path)
-    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    sys.modules[spec.name] = mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.", "jaxlib")))
 print(len(names), bad)
