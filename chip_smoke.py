@@ -290,9 +290,14 @@ STATE_CHECK_DEPTH = {"rwkv6_7b": 4, "zamba2_7b": 5}
 # smoke models, card against CPU (f32): logits within 1e-4 of their scale
 SMOKE_LOGITS_TOL = 1e-4
 # the [roofline] phase: (a) the dry-run's production cells on this
-# machine's PyTorch (single pod, fake 16 x 16 ranks, 1 layer), each with the
-# argument bytes per device the CPU gives them (tests/test_torch_dryrun.py
-# holds those against the reference's); (b) one cell one card holds,
+# machine's PyTorch (single pod, fake 16 x 16 ranks, 1 layer, each cell at
+# its own accumulation), each with the argument bytes per device the CPU
+# gives them (tests/test_torch_dryrun.py holds those against the
+# reference's); then, without accumulation, its flops and peak a device
+# against the reference's on the CPU (ROOFLINE_REF: its dry-run's records,
+# taken without accumulation, which the same test holds these constants
+# to), each ratio at most its bound: flops 1.3, peak 2 (train) and 1.5
+# (decode); (b) one cell one card holds,
 # predicted by the dry-run's recorder on meta tensors and then run:
 # stablelm_1_6b at full width, launch.train's shape (8 x 128), remat full,
 # chunked attention, AdamW in place, no mesh, seeded; ROOFLINE_WARMUP steps,
@@ -301,6 +306,10 @@ SMOKE_LOGITS_TOL = 1e-4
 ROOFLINE_CELLS = (("stablelm_1_6b", "train_4k", 19_259_396),
                   ("stablelm_1_6b", "decode_32k", 154_632_264),
                   ("granite_moe_1b_a400m", "train_4k", 5_857_284))
+ROOFLINE_REF = {("stablelm_1_6b", "train_4k"): (6840562745344.0, 8456063320),
+                ("stablelm_1_6b", "decode_32k"): (583256704.0, 520948160),
+                ("granite_moe_1b_a400m", "train_4k"): (2406889816064.0, 14378495688)}
+ROOFLINE_MAX_FLOPS, ROOFLINE_MAX_PEAK = 1.3, {"train": 2.0, "decode": 1.5}
 ROOFLINE_ARCH, ROOFLINE_SEED = "stablelm_1_6b", 16
 ROOFLINE_SHAPE = RunShape("train", 128, 8, "train")
 ROOFLINE_WARMUP, ROOFLINE_REPS, ROOFLINE_PEAK_RATIO = 2, 5, 2.0
@@ -2186,8 +2195,8 @@ def _dist_checks(mesh) -> dict:
                        "collectives": comm.get_total_counts(), "by_op": counts}
         log(f"[dist] train step (8 x 128 tokens, chunked attention, remat full, AdamW): loss "
             f"{loss_m:.6f} under the mesh vs {loss_l:.6f} without (relative {rel:.2e}, tol "
-            f"{DIST_LOSS_RTOL:g}); gradients within {worst['grad']:.2e} of each leaf's largest, "
-            f"params after the step within {worst['param_resolved']:.2e} where resolved and "
+            f"{DIST_LOSS_RTOL:g}; bit-equal {loss_m == loss_l}); gradients within "
+            f"{worst['grad']:.2e} of each leaf's largest, params after the step within {worst['param_resolved']:.2e} where resolved and "
             f"{worst['param_abs']:.2e} abs anywhere")
         log(f"[dist] step ms: {' '.join(f'{t:.1f}' for t in ms_l)} without the mesh, "
             f"{' '.join(f'{t:.1f}' for t in ms_m)} with it (host clock, synchronised; the "
@@ -2723,9 +2732,21 @@ def phase_state_small_vs_cpu() -> dict:
 
 def roofline_cells() -> dict:
     """(a): each of ROOFLINE_CELLS through ``dryrun.run_cell`` (its own
-    fake process group, started and destroyed), status ok and the CPU's
-    argument bytes."""
+    fake process group, started and destroyed) at its own accumulation
+    (``auto_accum``: the microbatch loop under the production mesh),
+    status ok and the CPU's argument bytes; then, without accumulation as
+    the reference's records were taken, its flops and peak a device over
+    the reference's (ROOFLINE_REF) within ROOFLINE_MAX_FLOPS /
+    ROOFLINE_MAX_PEAK."""
     from repro_torch.launch import dryrun
+
+    def line(arch, shape, rec, t0):
+        pd = rec["per_device"]
+        log(f"[roofline] {arch} {shape} on {rec['mesh']} fake ranks, 1 layer, accum "
+            f"{rec['accum_steps']}, torch {torch.__version__}: {time.perf_counter() - t0:.1f} s "
+            f"(build {rec['lower_s']} s, traced step {rec['compile_s']} s); per device "
+            + ", ".join(f"{k} {v:.6g}" for k, v in pd.items()) + "; collectives "
+            + ", ".join(f"{k} {v['count']}" for k, v in rec["collectives"].items()))
 
     out = {}
     for arch, shape, arg_bytes in ROOFLINE_CELLS:
@@ -2735,12 +2756,26 @@ def roofline_cells() -> dict:
         check(rec["status"] == "ok" and pd["argument_bytes"] == arg_bytes,
               f"[roofline] {arch} {shape}: argument bytes {pd['argument_bytes']}, the CPU's "
               f"{arg_bytes}")
-        log(f"[roofline] {arch} {shape} on {rec['mesh']} fake ranks, 1 layer, accum "
-            f"{rec['accum_steps']}, torch {torch.__version__}: {time.perf_counter() - t0:.1f} s "
-            f"(build {rec['lower_s']} s, traced step {rec['compile_s']} s); per device "
-            + ", ".join(f"{k} {v:.6g}" for k, v in pd.items()) + "; collectives "
-            + ", ".join(f"{k} {v['count']}" for k, v in rec["collectives"].items()))
+        line(arch, shape, rec, t0)
         out[f"{arch}|{shape}"] = rec
+        if rec["accum_steps"] != 1:
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, False, n_layers=1, accum_steps=1)
+            pd = rec["per_device"]
+            check(rec["status"] == "ok" and pd["argument_bytes"] == arg_bytes,
+                  f"[roofline] {arch} {shape} accum 1: argument bytes {pd['argument_bytes']}")
+            line(arch, shape, rec, t0)
+            out[f"{arch}|{shape}|accum1"] = rec
+        ref_flops, ref_peak = ROOFLINE_REF[(arch, shape)]
+        flops_ratio, peak_ratio = pd["flops"] / ref_flops, pd["peak_bytes"] / ref_peak
+        max_peak = ROOFLINE_MAX_PEAK[rec["mode"]]
+        log(f"[roofline] {arch} {shape} a device, accum 1: flops {pd['flops']:.6g} against the "
+            f"reference's {ref_flops:.6g} on the CPU ({flops_ratio:.4f}, bound "
+            f"{ROOFLINE_MAX_FLOPS}); peak {pd['peak_bytes'] / 1e9:.4f} GB against "
+            f"{ref_peak / 1e9:.4f} ({peak_ratio:.4f}, bound {max_peak})")
+        check(flops_ratio <= ROOFLINE_MAX_FLOPS and peak_ratio <= max_peak,
+              f"[roofline] {arch} {shape}: flops {flops_ratio:.4f}, peak {peak_ratio:.4f} of "
+              f"the reference's")
     return out
 
 

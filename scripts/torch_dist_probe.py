@@ -9,7 +9,13 @@ Each case spawns its ranks as CPU processes (1-8) under a time limit and
 prints one line: the MoE layer on (1, 1) and (2, 4) meshes (max abs diff of
 out, aux and every gradient from the local path on each data shard), the
 train step of the smoke granite_moe_1b_a400m on (2, 4) and stablelm_1_6b on
-(1, 2) (the loss against the no-mesh loss on the data shards' batches),
+(1, 2) (the loss against the no-mesh loss on the data shards' batches,
+the query heads of each rank's local attention and the most rows of
+vocab-wide logits a rank held), the three paths repaired for port faults
+F6-F8 on (2, 4) and (1, 4) meshes (the vocab-parallel loss tied and
+untied, with the mask and without; attention split by query heads, chunked
+and naive; the vocab-parallel token lookup: max abs diff of each output
+and gradient from the no-mesh path, held to 1e-5 of max(1, its largest)),
 ``compressed_psum`` on 4 ranks, ``restore(shardings=)`` on 2 and the
 ``Trainer`` under a (1, 2) mesh.  Exits 1 if a case fails."""
 from __future__ import annotations
@@ -24,7 +30,7 @@ sys.path[:0] = [str(ROOT / "tests"), str(ROOT / "src")]
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-from torch_dist_ranks import run_ranks  # noqa: E402
+from torch_dist_ranks import paths_inputs, paths_local, run_ranks  # noqa: E402
 
 from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.configs.base import RunShape  # noqa: E402
@@ -70,7 +76,21 @@ def train_case(work, arch, shape):
             params, {k: v.chunk(shape[0])[i] for k, v in batch.items()}))
             for i in range(shape[0])]))
     loss = res["metrics"]["loss"]
-    return {"mesh": loss, "local": local, "relative": abs(loss - local) / abs(local)}
+    return {"mesh": loss, "local": local, "relative": abs(loss - local) / abs(local),
+            "q_heads": res["q_heads"], "vocab_rows": res["vocab_rows"]}
+
+
+def paths_case(work, shape, tol=1e-5):
+    inp = paths_inputs()
+    torch.save(inp, work / "inputs.pt")
+    outs = run_ranks("paths", shape[0] * shape[1], work, 180, mesh=list(shape), axes=MESH)
+    want = paths_local(inp)
+    errs = {}
+    for path, vals in want.items():
+        errs[path] = max(float((o[path][k] - v).abs().max()) for o in outs for k, v in vals.items())
+        scale = max(float(v.abs().max()) for v in vals.values())
+        assert errs[path] <= tol * max(1.0, scale), f"{path}: {errs[path]} from the local path"
+    return {"max_abs_diff": errs, "q_heads": outs[0]["q_heads"]}
 
 
 def psum_case(work):
@@ -96,6 +116,8 @@ def trainer_case(work):
 CASES = [("moe 1x1", lambda w: moe_case(w, (1, 1))), ("moe 2x4", lambda w: moe_case(w, (2, 4))),
          ("train moe 2x4", lambda w: train_case(w, "granite_moe_1b_a400m", (2, 4))),
          ("train dense 1x2", lambda w: train_case(w, "stablelm_1_6b", (1, 2))),
+         ("paths 2x4", lambda w: paths_case(w, (2, 4))),
+         ("paths 1x4", lambda w: paths_case(w, (1, 4))),
          ("compressed_psum 4", psum_case), ("restore 2", restore_case),
          ("trainer 1x2", trainer_case)]
 

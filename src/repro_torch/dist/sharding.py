@@ -30,7 +30,8 @@ Key pieces:
   ``device_put`` distributes a tree of tensors by such a tree.
 * ``shard_map`` and the differentiable collectives ``all_gather``,
   ``psum`` and ``pmean`` — a local function over ``to_local()`` shards,
-  rebuilt with ``DTensor.from_local``.
+  rebuilt with ``DTensor.from_local``; ``axis_index`` / ``axis_size``, the
+  rank's place along a mesh axis inside it.
 * ``spmd()`` — the context the model runs in under a mesh: plain tensors
   (masks, positions, scalars) take part in DTensor ops as replicated.
 
@@ -60,6 +61,8 @@ __all__ = [
     "all_gather",
     "psum",
     "pmean",
+    "axis_index",
+    "axis_size",
     "get_mesh",
     "set_mesh",
     "use_mesh",
@@ -449,6 +452,27 @@ def pmean(x: torch.Tensor, axis) -> torch.Tensor:
     for a in _axes(axis):
         x = _PSum.apply(x, a) / sizes[a]
     return x
+
+
+def axis_size(axis) -> int:
+    """``jax.lax.axis_size``: ranks along a mesh axis (or several) of the
+    active mesh."""
+    sizes = mesh_sizes(get_mesh())
+    n = 1
+    for a in _axes(axis):
+        n *= sizes[a]
+    return n
+
+
+def axis_index(axis) -> int:
+    """``jax.lax.axis_index`` inside a ``shard_map`` local function: which
+    of ``axis``'s shards this rank holds (several axes: outermost first, as
+    DTensor splits a dim over them)."""
+    mesh, sizes = get_mesh(), mesh_sizes(get_mesh())
+    idx = 0
+    for a in _axes(axis):
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+    return idx
 
 
 def shard_map(f, *, mesh, in_specs, out_specs):

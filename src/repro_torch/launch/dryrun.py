@@ -226,6 +226,31 @@ def trace_step(fn, args, donated=()) -> Dict[str, Any]:
     return {"per_device": per_device, "collectives": colls, "record": rec.record}
 
 
+def cell_config(arch: str, shape_name: str, n_layers: Optional[int] = None,
+                overrides: Optional[Dict] = None) -> ModelConfig:
+    """The config a cell runs: ``arch``'s, cut to ``n_layers`` (the
+    encoder's too), with the cell's KV cache dtype and ``overrides``."""
+    cfg = get_config(arch)
+    over = {}
+    if n_layers is not None:
+        over["n_layers"] = n_layers
+        if cfg.is_encdec:
+            over["enc_layers"] = n_layers
+    if (arch, shape_name) in KV_DTYPE_DEFAULTS:
+        over["kv_cache_dtype"] = KV_DTYPE_DEFAULTS[(arch, shape_name)]
+    over.update(overrides or {})
+    return dataclasses.replace(cfg, **over) if over else cfg
+
+
+def unsharded_flops(arch: str, shape_name: str, n_layers: Optional[int] = None) -> float:
+    """Flops of the cell's step (no accumulation) traced on meta tensors
+    without a mesh: what ranks x a sharded step's flops a device cover,
+    and exceed by the work the ranks repeat."""
+    shape = SHAPES[shape_name]
+    fn, args, _ = build_cell(cell_config(arch, shape_name, n_layers), shape, None, accum_steps=1)
+    return trace_step(fn, args, DONATED[shape.mode])["per_device"]["flops"]
+
+
 def run_cell(
     arch: str,
     shape_name: str,
@@ -244,18 +269,7 @@ def run_cell(
     """Trace one cell on a fake process group; return the dry-run record
     (``keep_hlo``: with the op record under ``"op_record"``, there being no
     HLO)."""
-    cfg = get_config(arch)
-    overrides = {}
-    if n_layers is not None:
-        overrides["n_layers"] = n_layers
-        if cfg.is_encdec:
-            overrides["enc_layers"] = n_layers
-    if (arch, shape_name) in KV_DTYPE_DEFAULTS:
-        overrides["kv_cache_dtype"] = KV_DTYPE_DEFAULTS[(arch, shape_name)]
-    if cfg_overrides:
-        overrides.update(cfg_overrides)
-    if overrides:
-        cfg = dataclasses.replace(cfg, **overrides)
+    cfg = cell_config(arch, shape_name, n_layers, cfg_overrides)
     shape = SHAPES[shape_name]
     if accum_steps is None:
         accum_steps = auto_accum(arch, shape)

@@ -46,11 +46,12 @@ peak of that count is the step's peak memory on the local shard.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import weakref
 from collections import Counter
-from typing import Any, Dict, Iterable, List, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -175,16 +176,35 @@ def _shapes(tree) -> Tuple[Shape, ...]:
                  for t in _pytree.tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
+_DETAILED: List[list] = []   # the recorder lists of the open peak_detail()s
+
+
+@contextlib.contextmanager
+def peak_detail():
+    """Within it, each new ``OpRecorder`` also keeps the storages live when
+    its peak was reached, each with the shape, dtype and op of the tensor
+    that made it, and is appended to the list this yields; its
+    ``peak_live(n)`` gives the n largest.  How a tensor that every rank
+    holds whole shows itself (``scripts/dryrun_vs_reference.py``)."""
+    recorders: list = []
+    _DETAILED.append(recorders)
+    try:
+        yield recorders
+    finally:
+        _DETAILED.pop()
+
+
 class OpRecorder(TorchDispatchMode):
     """Records every op on plain (local) meta tensors, a step's abstract
     inputs and what it makes of them, and counts their live bytes.
 
     ``track(tree)`` counts tensors that exist before the step (its
-    arguments) as live.  Neither recorded nor counted: the ops DTensor's
-    sharding propagation runs on fake tensors, and those whose results lie
-    on another device (DTensor's bookkeeping of rank maps and offsets on
-    the host, which it caches, so that the first step of a process would
-    count more than the next)."""
+    arguments) as live.  Made inside ``peak_detail()``, it also keeps the
+    storages live when the peak was reached (``peak_live``).  Neither
+    recorded nor counted: the ops DTensor's sharding propagation runs on
+    fake tensors, and those whose results lie on another device (DTensor's
+    bookkeeping of rank maps and offsets on the host, which it caches, so
+    that the first step of a process would count more than the next)."""
 
     def __init__(self):
         super().__init__()
@@ -193,12 +213,16 @@ class OpRecorder(TorchDispatchMode):
         self.peak_bytes = 0
         self._live: Dict[int, int] = {}
         self._read: set = set()
+        self._what: Optional[Dict[int, tuple]] = None
+        if _DETAILED:
+            _DETAILED[-1].append(self)
+            self._what, self._at_peak = {}, {}
 
     # -- live bytes -----------------------------------------------------------
     def _free(self, key: int) -> None:
         self.live_bytes -= self._live.pop(key, 0)
 
-    def _alloc(self, t: torch.Tensor) -> None:
+    def _alloc(self, t: torch.Tensor, op: str = "argument") -> None:
         st = t.untyped_storage()
         key = id(st)
         if key in self._live:
@@ -206,8 +230,17 @@ class OpRecorder(TorchDispatchMode):
         n = st.nbytes()
         self._live[key] = n
         self.live_bytes += n
+        if self._what is not None:
+            self._what[key] = (tuple(t.shape), str(t.dtype).split(".")[-1], op)
+            if self.live_bytes > self.peak_bytes:
+                self._at_peak = {k: (b,) + self._what[k] for k, b in self._live.items()}
         self.peak_bytes = max(self.peak_bytes, self.live_bytes)
         weakref.finalize(st, self._free, key)
+
+    def peak_live(self, n: int) -> List[tuple]:
+        """The ``n`` largest storages live at the peak: (bytes, shape, dtype,
+        op), largest first (a recorder made inside ``peak_detail()``)."""
+        return sorted(self._at_peak.values(), key=lambda e: -e[0])[:n]
 
     def track(self, tree) -> None:
         for t in _pytree.tree_leaves(tree):
@@ -241,9 +274,9 @@ class OpRecorder(TorchDispatchMode):
         out = func(*args, **kwargs)
         outs = [t for t in _pytree.tree_leaves(out)
                 if isinstance(t, torch.Tensor) and t.device.type == "meta"]
-        for t in outs:
-            self._alloc(t)
         ns, name = func.namespace, func._overloadpacket.__name__
+        for t in outs:
+            self._alloc(t, f"{ns}.{name}")
         if (not outs or func.is_view or name in _ALLOCS
                 or (ns in _COMM_NAMESPACES and name in _COMM_SKIP)):
             return out

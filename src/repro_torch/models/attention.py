@@ -174,21 +174,38 @@ def _chunked_attention(q, k, v, *, causal, kv_len, scale, q_offset=0, block_k=51
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _query_heads(fn, axis, group, q, k, v):
+    """``fn`` on this rank's query heads [r*Hl, (r+1)*Hl) along ``axis``
+    (Hl dividing ``group``) and the one KV head they read, (r*Hl) // group."""
+    lo = shd.axis_index(axis) * q.shape[2] // group
+    return fn(q, k[:, :, lo:lo + 1], v[:, :, lo:lo + 1])
+
+
 def _inner_attention(q, k, v, *, impl, causal, kv_len, scale, q_offset=0):
     mesh = shd.get_mesh()
     if mesh is not None and isinstance(q, DTensor):
-        # attention is independent per batch row and per KV head (with its
-        # query heads): run it on each rank's shards, the heads split only
-        # where both head counts divide (PyTorch 2.11's DTensor cannot
-        # flatten the sharded head dim its einsums need)
+        # attention is independent per batch row and per query head: run it
+        # on each rank's shards (PyTorch 2.11's DTensor cannot flatten the
+        # sharded head dim its einsums need).  The heads are split where the
+        # KV heads divide the mesh axis; else, where the query heads do and
+        # each rank's query heads lie in one KV group, q alone is split and
+        # each rank reads that group's KV head (a view of k and v, whole in
+        # heads); else only the batch is split.
         batch = shd.filter_spec(shd.logical_spec("batch"), q.shape[:1], mesh)[0]
         heads = shd.logical_spec("heads")[0]
-        if heads is not None and shd.filter_spec(shd.P(heads), (k.shape[2],), mesh)[0] is None:
-            heads = None
-        spec = shd.filter_spec(shd.P(batch, None, heads, None), q.shape, mesh)
+        q_spec = shd.filter_spec(shd.P(batch, None, heads, None), q.shape, mesh)
+        kv_spec = shd.filter_spec(shd.P(batch, None, heads, None), k.shape, mesh)
         fn = functools.partial(_inner_attention, impl=impl, causal=causal, kv_len=kv_len,
                                scale=scale, q_offset=q_offset)
-        return shd.shard_map(fn, mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec)(q, k, v)
+        group = q.shape[2] // k.shape[2]
+        if kv_spec[2] is None and q_spec[2] is not None:
+            hl = q.shape[2] // shd.axis_size(heads)
+            if group % hl:
+                q_spec = kv_spec
+            else:
+                fn = functools.partial(_query_heads, fn, heads, group)
+        return shd.shard_map(fn, mesh=mesh, in_specs=(q_spec, kv_spec, kv_spec),
+                             out_specs=q_spec)(q, k, v)
     group = q.shape[2] // k.shape[2]
     if impl == "pallas":
         # as the reference: kv_len and q_offset are not passed on

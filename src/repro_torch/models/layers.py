@@ -87,16 +87,36 @@ def embed_defs(cfg: ModelConfig) -> Dict:
     return out
 
 
+def _vocab_axis(spec, dim: int):
+    """The mesh axis that splits the vocab dim ``dim`` of ``spec``, or None
+    where nothing splits it (no divisible spec, or an axis of one rank)."""
+    axis = spec[dim]
+    return None if axis is None or shd.axis_size(axis) == 1 else axis
+
+
 def embed_tokens(p: Dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     mesh = shd.get_mesh()
     if mesh is None or not isinstance(p["tok"], DTensor):
         return p["tok"].to(dtype)[tokens]
-    # DTensor's index over a ("vocab", "embed")-sharded table, and its
-    # backward's index_put, lack sound sharding rules in PyTorch 2.11: look
-    # up locally, the table gathered whole, the tokens by batch
+    # vocab-parallel: each rank holds its vocab slice of the table whole in
+    # "embed" (gathered over the FSDP axis only), looks up the tokens that
+    # fall in it, zeros for the others, and the slices' rows are summed over
+    # the vocab axis.  (DTensor's index over a sharded table, and its
+    # backward's index_put, lack sound sharding rules in PyTorch 2.11.)
     batch = shd.filter_spec(shd.logical_spec("batch"), tokens.shape, mesh)[0]
-    return shd.shard_map(lambda t, tok: t.to(dtype)[tok], mesh=mesh,
-                         in_specs=(shd.P(), shd.P(batch, None)),
+    tok_spec = shd.filter_spec(shd.P(shd.logical_spec("vocab")[0], None), p["tok"].shape, mesh)
+    axis = _vocab_axis(tok_spec, 0)
+
+    def local(table, tok):
+        table = table.to(dtype)
+        if axis is None:
+            return table[tok]
+        vl = table.shape[0]
+        i = tok - shd.axis_index(axis) * vl
+        inside = ((i >= 0) & (i < vl))[..., None]
+        return shd.psum(torch.where(inside, table[i.clamp(0, vl - 1)], 0), axis)
+
+    return shd.shard_map(local, mesh=mesh, in_specs=(tok_spec, shd.P(batch, None)),
                          out_specs=shd.P(batch, None, None))(p["tok"], tokens)
 
 
@@ -104,3 +124,46 @@ def logits_from(p: Dict, x: torch.Tensor) -> torch.Tensor:
     if "head" in p:
         return x @ p["head"]
     return x @ p["tok"].T
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token cross entropy over the last dim, in f32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+
+
+def nll_from(p: Dict, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``token_nll(logits_from(p, x), targets)``: (B, S) f32.  Under a mesh
+    the head product runs inside the loss, vocab-parallel: each rank
+    multiplies its batch shard of x by its vocab slice of the head (whole
+    in "embed", gathered over the FSDP axis), and the softmax's max, its
+    sum and the target's logit are combined over the vocab axis.  No rank
+    holds more logits than its batch shard by its vocab slice, and the
+    head's gradient returns as a partial sum over the batch's axis,
+    reduce-scattered to the parameter's shard."""
+    mesh = shd.get_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return token_nll(logits_from(p, x), targets)
+    vocab = shd.logical_spec("vocab")[0]
+    key, vdim = ("head", 1) if "head" in p else ("tok", 0)
+    w_spec = shd.filter_spec(shd.P(None, vocab) if vdim else shd.P(vocab, None), p[key].shape,
+                             mesh)
+    axis = _vocab_axis(w_spec, vdim)
+    batch = shd.filter_spec(shd.logical_spec("batch"), x.shape[:1], mesh)[0]
+
+    def local(xl, w, t):
+        logits = logits_from({key: w}, xl)
+        if axis is None:
+            return token_nll(logits, t)
+        logits = logits.float()
+        vl = logits.shape[-1]
+        m = shd.all_gather(logits.detach().amax(-1, keepdim=True), axis, 2).amax(-1)
+        lse = torch.log(shd.psum(torch.exp(logits - m[..., None]).sum(-1), axis)) + m
+        i = t.long() - shd.axis_index(axis) * vl
+        ll = torch.gather(logits, -1, i.clamp(0, vl - 1)[..., None])[..., 0]
+        return lse - shd.psum(torch.where((i >= 0) & (i < vl), ll, 0.0), axis)
+
+    return shd.shard_map(local, mesh=mesh,
+                         in_specs=(shd.P(batch, None, None), w_spec, shd.P(batch, None)),
+                         out_specs=shd.P(batch, None))(x, p[key], targets)

@@ -46,7 +46,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import constraint, gather_dim, spmd
+from repro_torch.dist.sharding import constraint, spmd
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -75,12 +75,11 @@ def layer_params(stacked: Dict, li: int) -> Dict:
 def cross_entropy(
     logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor]
 ) -> torch.Tensor:
-    # a DTensor's vocab-sharded gather below leaves a masked partial sum that
-    # DTensor then fails to reduce: take the vocab whole first
-    logits = gather_dim(logits.float(), -1)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    nll = lse - ll
+    return masked_mean(L.token_nll(logits, targets), mask)
+
+
+def masked_mean(nll: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The mean of the per-token losses over ``mask`` (all of them without)."""
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
@@ -380,8 +379,8 @@ class LM:
         with spmd():
             x, aux = self._backbone(params, batch)
             x = L.apply_norm(params["final_ln"], x)
-            logits = constraint(L.logits_from(params["embed"], x), "batch", None, "vocab")
-            loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
+            loss = masked_mean(L.nll_from(params["embed"], x, batch["targets"]),
+                               batch.get("loss_mask"))
             if aux is not None:
                 loss = loss + 0.01 * aux / self.cfg.n_layers
             return loss

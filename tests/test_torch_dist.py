@@ -40,12 +40,12 @@ from repro_torch.dist import sharding as shd  # noqa: E402
 from repro_torch.launch import inputs  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.bridge import params_from_numpy  # noqa: E402
-from repro_torch.models.transformer import LM  # noqa: E402
+from repro_torch.models.transformer import LM, cross_entropy  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.step import value_and_grad  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.tree import leaves, tree_map  # noqa: E402
-from torch_dist_ranks import run_ranks  # noqa: E402
+from torch_dist_ranks import paths_inputs, paths_local, run_ranks  # noqa: E402
 
 MOE_ARCH = "granite_moe_1b_a400m"
 TOL = 1e-5
@@ -320,6 +320,17 @@ def _step_close(res, grads, after):
         assert float(diff.max()) <= 2 * lr * (1 + wd)
 
 
+def _work_split(res, cfg, mesh_shape):
+    """The rank did its share of the work, not the whole batch's or all
+    heads': each local attention call had H / "model" query heads (the
+    smoke granite_moe_1b_a400m's 4 on 2 KV heads split by query heads,
+    port fault F7), and no local logits, nor their gradient, held more
+    rows than the rank's batch shard (port fault F6)."""
+    assert res["q_heads"] == [cfg.n_heads // mesh_shape[1]], res["q_heads"]
+    rows = TRAIN_SHAPE.global_batch // mesh_shape[0] * TRAIN_SHAPE.seq_len
+    assert 0 < res["vocab_rows"] <= rows, (res["vocab_rows"], rows)
+
+
 def test_spmd_train_step_on_a_2x4_mesh(tmp_path):
     """The reference's ``test_spmd_train_step_8_devices`` on 8 gloo ranks:
     the smoke granite_moe_1b_a400m, remat full, chunked attention, batch
@@ -331,6 +342,7 @@ def test_spmd_train_step_on_a_2x4_mesh(tmp_path):
     ref, ref_params, model, params, batch = _train_inputs(MOE_ARCH)
     res = _run_train(tmp_path, MOE_ARCH, (2, 4), params, batch)
     assert res["placements"]["tok"] == "(Shard(dim=1), Shard(dim=0))"
+    _work_split(res, model.cfg, (2, 4))
     loss = res["metrics"]["loss"]
     shard_losses, grads, after = _local_step(model, params, batch, 2)
     local = float(np.mean(shard_losses))
@@ -353,12 +365,74 @@ def test_spmd_train_step_of_a_dense_model_on_a_1x2_mesh(tmp_path):
     ref, ref_params, model, params, batch = _train_inputs("stablelm_1_6b")
     res = _run_train(tmp_path, "stablelm_1_6b", (1, 2), params, batch)
     assert res["placements"]["head"] == "(Shard(dim=0), Shard(dim=1))"
+    _work_split(res, model.cfg, (1, 2))
     loss = res["metrics"]["loss"]
     (local,), grads, after = _local_step(model, params, batch, 1)
     assert abs(loss - local) <= TOL * abs(local), (loss, local)
     ref_loss = float(ref.train_loss(ref_params, {k: jnp.asarray(v.numpy()) for k, v in batch.items()}))
     assert abs(loss - ref_loss) < REF_LOSS_TOL
     _step_close(res, grads, after)
+
+
+# -- the repaired sharded paths on gloo ------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def paths_2x4(tmp_path_factory):
+    """``case_paths`` on a (2, 4) mesh and without one, on the same seeded
+    inputs."""
+    work = tmp_path_factory.mktemp("paths_2x4")
+    inp = paths_inputs()
+    torch.save(inp, work / "inputs.pt")
+    outs = run_ranks("paths", 8, work, RANK_TIMEOUT, mesh=[2, 4], axes=["data", "model"])
+    return inp, outs, paths_local(inp)
+
+
+def _close(mine, want, what):
+    for k, v in want.items():
+        err = float((mine[k] - v).abs().max())
+        assert err <= TOL * max(1.0, float(v.abs().max())), (what, k, err)
+
+
+@pytest.mark.parametrize("form", ["tied/all", "tied/mask", "untied/all", "untied/mask"])
+def test_vocab_parallel_loss_on_a_2x4_mesh(paths_2x4, form):
+    """Port fault F6's repair: the loss with the head product inside it,
+    the vocab over "model" (4 slices of 512), the batch over "data", against
+    the no-mesh ``cross_entropy`` over the same logits and its gradients
+    (x's and the head's, or the tied table's), with the mask and without;
+    the targets fall in every vocab slice."""
+    inp, outs, _ = paths_2x4
+    tied, masked = form.startswith("tied"), form.endswith("mask")
+    assert set((inp["targets"] // 512).flatten().tolist()) == {0, 1, 2, 3}
+    x = inp["x"].clone().requires_grad_()
+    w = inp["tok" if tied else "head"].clone().requires_grad_()
+    logits = x @ w.T if tied else x @ w
+    loss = cross_entropy(logits, inp["targets"], inp["mask"] if masked else None)
+    loss.backward()
+    want = {"loss": loss.detach(), "x": x.grad, "w": w.grad}
+    for o in outs:
+        _close(o[f"loss/{form}"], want, form)
+
+
+@pytest.mark.parametrize("impl", ["chunked", "naive"])
+def test_query_head_attention_on_a_2x4_mesh(paths_2x4, impl):
+    """Port fault F7's repair: 4 query heads on 2 KV heads, "model" 4, so
+    each rank runs its one query head against the one KV head it reads;
+    out and the gradients of q, k and v against the no-mesh attention."""
+    _, outs, local = paths_2x4
+    for o in outs:
+        assert o["q_heads"] == [1]
+        _close(o[f"attention/{impl}"], local[f"attention/{impl}"], impl)
+
+
+def test_vocab_parallel_lookup_on_a_2x4_mesh(paths_2x4):
+    """Port fault F8's repair: each rank looks up the tokens of its vocab
+    slice, the slices' rows summed over "model"; out and the table's
+    gradient against the no-mesh lookup, the tokens in every slice."""
+    inp, outs, local = paths_2x4
+    assert set((inp["tokens"] // 512).flatten().tolist()) == {0, 1, 2, 3}
+    for o in outs:
+        assert torch.equal(o["lookup"]["out"], local["lookup"]["out"])
+        _close(o["lookup"], local["lookup"], "lookup")
 
 
 # -- compressed_psum and restore(shardings=) ------------------------------------------------

@@ -11,7 +11,10 @@ Mamba2 chunk loop as ~10^5 DTensor ops and takes ~105 s a cell here.
 On the port's side the same cells run on a fake 256-rank process group.
 Held equal to the reference's, with the differences each test names:
 argument, output and alias bytes.  Held to a band measured here: flops
-per device (``BANDS``, with the reason for each).  Recorded, not held
+and peak per device over the reference's (``BANDS``, ``PEAK_BANDS``, with
+the reason for each), and the work the sharded step repeats, 256 x its
+flops per device over those of the step without a mesh (``REPEATED``).
+Recorded, not held
 equal: the collectives' kinds and counts (XLA's partitioner and DTensor's
 redistributions differ; PERF.md has them side by side).
 
@@ -22,7 +25,6 @@ records (the counterpart of ``tests/test_hlo_stats.py``'s snippet),
 ``LM.init(device="meta")`` for every family, and the CLI on both meshes.
 Each fake process group is started and destroyed inside its test.
 """
-import dataclasses
 import json
 import pathlib
 import subprocess
@@ -50,24 +52,69 @@ SIZES = {"data": 16, "model": 16}
 #: tree (PERF.md §6, the dry-run table), with the reason the two counts differ.
 #: * prefill 3.36: the reference's chunked attention is a lax.scan over
 #:   64 KV chunks whose body XLA counts once; the port counts every chunk.
-#: * train 2.8-9.7: the same, plus the port's sharded logits: DTensor
-#:   contracts the logits product over the FSDP axis and cross_entropy
-#:   gathers the vocab whole, so every rank computes the vocab's products
-#:   for more tokens than its own (ROADMAP.md, port fault F6).
+#: * train 0.97-1.18: the same scan, over the 8 KV chunks of 4096 tokens,
+#:   against the elementwise ops XLA counts and the port does not; seamless
+#:   counts its encoder's and its cross-attention's chunks too.  Each piece
+#:   of work is done once across the ranks: the loss and the head product
+#:   vocab-parallel (port fault F6), attention split by query heads
+#:   (granite_moe's 16 on 8 KV heads, F7).
 #: * decode 0.66-1.32: the port counts products only, XLA its elementwise
 #:   ops too; and DTensor contracts decode's projections over the FSDP
 #:   axis, every rank multiplying the whole batch by its slice of the embed
 #:   dim (rwkv6 1.32, where the projections are most of the work).
 BANDS = {
-    "stablelm_1_6b|train_4k|1": (8.0, 8.9),
+    "stablelm_1_6b|train_4k|1": (1.0, 1.1),
     "stablelm_1_6b|prefill_32k|1": (3.2, 3.5),
     "stablelm_1_6b|decode_32k|1": (0.66, 0.74),
-    "granite_moe_1b_a400m|train_4k|1": (2.6, 3.0),
+    "granite_moe_1b_a400m|train_4k|1": (0.92, 1.02),
     "rwkv6_7b|decode_32k|1": (1.25, 1.4),
     "zamba2_7b|decode_32k|6": (0.62, 0.71),
     "zamba2_7b|decode_32k|7": (0.61, 0.70),
     "qwen2_vl_72b|decode_32k|1": (0.66, 0.75),
-    "seamless_m4t_medium|train_4k|1": (9.2, 10.2),
+    "seamless_m4t_medium|train_4k|1": (1.12, 1.24),
+}
+
+#: port peak / reference peak per device, (low, high), measured on this
+#: tree with the storages live at each peak
+#: (``scripts/dryrun_vs_reference.py --peak-detail``).  XLA reuses and
+#: schedules buffers across the module; the eager step holds each storage
+#: until Python drops it.  Over 1: stablelm train and prefill hold f32
+#: copies of the norms' (16, 4096, 2048) and (2, 32768, 2048) activations,
+#: 0.54 GB each; seamless train the vocab-parallel loss's four f32 (16,
+#: 4096, 16128) buffers (its logits, their exp, and the target gather's
+#: backward, a zeros and its scatter), 4.2 GB each.  Under 1: granite_moe
+#: train (its largest, the MoE's dispatch buffers of 1.3 GB) and the
+#: decode cells, whose largest are an f32 copy of the rank's KV cache shard
+#: or one FSDP-gathered weight, no table-sized buffer (port fault F8).
+PEAK_BANDS = {
+    "stablelm_1_6b|train_4k|1": (1.47, 1.63),
+    "stablelm_1_6b|prefill_32k|1": (1.15, 1.28),
+    "stablelm_1_6b|decode_32k|1": (0.78, 0.87),
+    "granite_moe_1b_a400m|train_4k|1": (0.78, 0.86),
+    "rwkv6_7b|decode_32k|1": (0.72, 0.80),
+    "zamba2_7b|decode_32k|6": (0.68, 0.76),
+    "zamba2_7b|decode_32k|7": (0.67, 0.75),
+    "qwen2_vl_72b|decode_32k|1": (0.43, 0.48),
+    "seamless_m4t_medium|train_4k|1": (1.10, 1.23),
+}
+
+#: the most work the sharded step may repeat: 256 x the port's per-device
+#: flops over the flops of the same step without a mesh.  Train cells: at
+#: most 1.3, each piece of work done about once across the ranks
+#: (measured 1.00 / 1.07 / 1.09; before the repairs of port faults F6 and
+#: F7, 8.03 / 3.07 / 9.00).  rwkv6 decode: its measured 1.52, the reason
+#: open (PERF.md §7).  The others: their measured ratio and a little over,
+#: not analysed.
+REPEATED = {
+    "stablelm_1_6b|train_4k|1": 1.3,
+    "stablelm_1_6b|prefill_32k|1": 1.02,
+    "stablelm_1_6b|decode_32k|1": 1.06,
+    "granite_moe_1b_a400m|train_4k|1": 1.3,
+    "rwkv6_7b|decode_32k|1": 1.53,
+    "zamba2_7b|decode_32k|6": 1.06,
+    "zamba2_7b|decode_32k|7": 1.06,
+    "qwen2_vl_72b|decode_32k|1": 1.14,
+    "seamless_m4t_medium|train_4k|1": 1.3,
 }
 
 
@@ -91,16 +138,6 @@ def port():
     return {key(a, s, n): dryrun.run_cell(a, s, False, n_layers=n, scan_layers=False,
                                           accum_steps=1)
             for a, s, n in CELLS}
-
-
-def _cfg(arch, shape, n):
-    cfg = get_config(arch)
-    over = {"n_layers": n}
-    if cfg.is_encdec:
-        over["enc_layers"] = n
-    if (arch, shape) in dryrun.KV_DTYPE_DEFAULTS:
-        over["kv_cache_dtype"] = dryrun.KV_DTYPE_DEFAULTS[(arch, shape)]
-    return dataclasses.replace(cfg, **over)
 
 
 class _Mesh:
@@ -148,7 +185,7 @@ def test_memory_bytes_equal_the_reference(cell, ref, port):
       heads over "model" where they divide by 16, so that result is 1/16
       the size and cannot alias its donated input."""
     arch, shape_name, n = cell.split("|")
-    cfg, shape = _cfg(arch, shape_name, int(n)), SHAPES[shape_name]
+    cfg, shape = dryrun.cell_config(arch, shape_name, int(n)), SHAPES[shape_name]
     mine, theirs = port[cell]["per_device"], ref[cell]["per_device"]
     arg, out, alias = mine["argument_bytes"], mine["output_bytes"], mine["alias_bytes"]
     if shape.mode == "train":
@@ -166,16 +203,41 @@ def test_memory_bytes_equal_the_reference(cell, ref, port):
                                   + mine["temp_bytes"] - mine["alias_bytes"])
 
 
-def test_chip_smoke_cells_carry_the_cpu_argument_bytes(port):
+def test_chip_smoke_cells_carry_the_cpu_argument_bytes(port, ref):
     """``chip_smoke.py``'s phase ``[roofline]`` holds each production cell
-    on the card to the argument bytes this CPU run gives."""
+    on the card to the argument bytes this CPU run gives, and its flops and
+    peak to the reference's on the CPU (``ROOFLINE_REF``), within bounds
+    that this CPU run meets."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     for arch, shape, arg_bytes in smoke.ROOFLINE_CELLS:
-        assert port[key(arch, shape, 1)]["per_device"]["argument_bytes"] == arg_bytes
+        mine, theirs = port[key(arch, shape, 1)], ref[key(arch, shape, 1)]["per_device"]
+        assert mine["per_device"]["argument_bytes"] == arg_bytes
+        assert smoke.ROOFLINE_REF[(arch, shape)] == (theirs["flops"], theirs["peak_bytes"])
+        assert mine["per_device"]["flops"] / theirs["flops"] <= smoke.ROOFLINE_MAX_FLOPS
+        assert (mine["per_device"]["peak_bytes"] / theirs["peak_bytes"]
+                <= smoke.ROOFLINE_MAX_PEAK[mine["mode"]])
+
+
+@pytest.mark.parametrize("arch", ["stablelm_1_6b", "granite_moe_1b_a400m"])
+def test_accumulated_train_cell_splits_the_peak_not_the_flops(arch, port):
+    """``chip_smoke.py``'s train cells at their own accumulation
+    (``auto_accum``: 2 and 4 microbatches through ``build_train_step``'s
+    loop under the production mesh, the vocab-parallel loss inside it):
+    status ok, the argument bytes and flops of the step without
+    accumulation, and a peak at most 1.1 x that step's share of a
+    microbatch (stablelm 1.045, granite_moe 1.057 measured)."""
+    one = port[key(arch, "train_4k", 1)]["per_device"]
+    rec = dryrun.run_cell(arch, "train_4k", False, n_layers=1, scan_layers=False)
+    n, mine = rec["accum_steps"], rec["per_device"]
+    assert n == dryrun.auto_accum(arch, SHAPES["train_4k"]) > 1
+    assert rec["status"] == "ok"
+    assert mine["argument_bytes"] == one["argument_bytes"]
+    assert mine["flops"] == one["flops"]
+    assert mine["peak_bytes"] <= 1.1 * one["peak_bytes"] / n
 
 
 @pytest.mark.parametrize("cell", [key(*c) for c in CELLS])
@@ -186,16 +248,21 @@ def test_flops_within_the_stated_band(cell, ref, port):
 
 
 @pytest.mark.parametrize("cell", [key(*c) for c in CELLS])
+def test_peak_within_the_stated_band(cell, ref, port):
+    lo, hi = PEAK_BANDS[cell]
+    ratio = port[cell]["per_device"]["peak_bytes"] / ref[cell]["per_device"]["peak_bytes"]
+    assert lo <= ratio <= hi, ratio
+
+
+@pytest.mark.parametrize("cell", [key(*c) for c in CELLS])
 def test_flops_over_the_ranks_cover_the_unsharded_step(cell, port):
     """Per-device flops are counted on local shards, replicated work on
-    every rank: over 256 ranks they are at least the unsharded step's."""
+    every rank: over 256 ranks they are at least the unsharded step's, and
+    at most ``REPEATED`` times it."""
     arch, shape_name, n = cell.split("|")
-    shape = SHAPES[shape_name]
-    fn, args, _ = dryrun.build_cell(_cfg(arch, shape_name, int(n)), shape, None,
-                                    accum_steps=1)
-    whole = dryrun.trace_step(fn, args, dryrun.DONATED[shape.mode])["per_device"]["flops"]
+    whole = dryrun.unsharded_flops(arch, shape_name, int(n))
     assert whole > 0
-    assert port[cell]["per_device"]["flops"] * RANKS >= whole
+    assert whole <= port[cell]["per_device"]["flops"] * RANKS <= REPEATED[cell] * whole
 
 
 # -- hlo_stats per device on a fake 2 x 4 mesh ------------------------------------------
