@@ -11,13 +11,21 @@ out, aux and every gradient from the local path on each data shard), the
 train step of the smoke granite_moe_1b_a400m on (2, 4) and stablelm_1_6b on
 (1, 2) (the loss against the no-mesh loss on the data shards' batches,
 the query heads of each rank's local attention and the most rows of
-vocab-wide logits a rank held), the three paths repaired for port faults
-F6-F8 on (2, 4) and (1, 4) meshes (the vocab-parallel loss tied and
-untied, with the mask and without; attention split by query heads, chunked
-and naive; the vocab-parallel token lookup: max abs diff of each output
-and gradient from the no-mesh path, held to 1e-5 of max(1, its largest)),
+vocab-wide logits a rank held), the paths repaired for port faults F6-F8
+("paths": the vocab-parallel loss tied and untied, with the mask and
+without; attention split by query heads, chunked and naive; the
+vocab-parallel token lookup) and F9-F11 ("split": the smoke rwkv6_7b's
+channel mix at three shapes; the recent ring's segment split over
+"model"; a split-cache decode step of the smoke stablelm_1_6b and
+qwen2_vl_72b's first attention layer; the ring positions and the
+receptance and projection columns a rank takes, its share of "model"),
+each on (2, 4) and (1, 4) meshes: max abs diff of each output and
+gradient from the no-mesh path, held to 1e-5 of max(1, its largest),
 ``compressed_psum`` on 4 ranks, ``restore(shardings=)`` on 2 and the
-``Trainer`` under a (1, 2) mesh.  Exits 1 if a case fails."""
+``Trainer`` under a (1, 2) mesh.  Exits 1 if a case fails.  The tests'
+Mamba2 case (F12) is left out: PyTorch 2.11's DTensor cannot run the
+decay step's einsum over batch- and head-sharded operands (ROADMAP.md,
+port fault F14)."""
 from __future__ import annotations
 
 import pathlib
@@ -30,7 +38,8 @@ sys.path[:0] = [str(ROOT / "tests"), str(ROOT / "src")]
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-from torch_dist_ranks import paths_inputs, paths_local, run_ranks  # noqa: E402
+from torch_dist_ranks import (DECODE_RING, paths_inputs, paths_local, run_ranks,  # noqa: E402
+                              split_inputs, split_local)
 
 from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.configs.base import RunShape  # noqa: E402
@@ -80,17 +89,37 @@ def train_case(work, arch, shape):
             "q_heads": res["q_heads"], "vocab_rows": res["vocab_rows"]}
 
 
-def paths_case(work, shape, tol=1e-5):
-    inp = paths_inputs()
-    torch.save(inp, work / "inputs.pt")
-    outs = run_ranks("paths", shape[0] * shape[1], work, 180, mesh=list(shape), axes=MESH)
-    want = paths_local(inp)
+def _max_diffs(outs, want, tol):
+    """Each path's max abs diff over the ranks from the no-mesh path, held
+    to ``tol`` of max(1, its largest)."""
     errs = {}
     for path, vals in want.items():
         errs[path] = max(float((o[path][k] - v).abs().max()) for o in outs for k, v in vals.items())
         scale = max(float(v.abs().max()) for v in vals.values())
         assert errs[path] <= tol * max(1.0, scale), f"{path}: {errs[path]} from the local path"
+    return errs
+
+
+def paths_case(work, shape, tol=1e-5):
+    inp = paths_inputs()
+    torch.save(inp, work / "inputs.pt")
+    outs = run_ranks("paths", shape[0] * shape[1], work, 180, mesh=list(shape), axes=MESH)
+    errs = _max_diffs(outs, paths_local(inp), tol)
     return {"max_abs_diff": errs, "q_heads": outs[0]["q_heads"]}
+
+
+def split_case(work, shape, tol=1e-5):
+    inp = split_inputs()
+    torch.save(inp, work / "inputs.pt")
+    outs = run_ranks("split", shape[0] * shape[1], work, 180, mesh=list(shape), axes=MESH)
+    errs = _max_diffs(outs, split_local(inp), tol)
+    o = outs[0]
+    assert o["ring_positions"] == [DECODE_RING // shape[1]], o["ring_positions"]
+    split = ("receptance_columns", "projection_columns")
+    columns = [c for k in split for c in o[k]]
+    assert columns and all(n == shape[1] * mine for n, mine in columns), columns
+    return {"max_abs_diff": errs, "ring_positions": o["ring_positions"],
+            **{k: o[k] for k in split}}
 
 
 def psum_case(work):
@@ -118,6 +147,8 @@ CASES = [("moe 1x1", lambda w: moe_case(w, (1, 1))), ("moe 2x4", lambda w: moe_c
          ("train dense 1x2", lambda w: train_case(w, "stablelm_1_6b", (1, 2))),
          ("paths 2x4", lambda w: paths_case(w, (2, 4))),
          ("paths 1x4", lambda w: paths_case(w, (1, 4))),
+         ("split 2x4", lambda w: split_case(w, (2, 4))),
+         ("split 1x4", lambda w: split_case(w, (1, 4))),
          ("compressed_psum 4", psum_case), ("restore 2", restore_case),
          ("trainer 1x2", trainer_case)]
 

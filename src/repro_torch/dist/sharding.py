@@ -29,9 +29,10 @@ Key pieces:
   ``Sharding`` trees for parameter specs and logical-axis-name trees;
   ``device_put`` distributes a tree of tensors by such a tree.
 * ``shard_map`` and the differentiable collectives ``all_gather``,
-  ``psum`` and ``pmean`` — a local function over ``to_local()`` shards,
-  rebuilt with ``DTensor.from_local``; ``axis_index`` / ``axis_size``, the
-  rank's place along a mesh axis inside it.
+  ``psum``, ``psum_scatter`` and ``pmean`` — a local function over
+  ``to_local()`` shards, rebuilt with ``DTensor.from_local``;
+  ``axis_index`` / ``axis_size``, the rank's place along a mesh axis inside
+  it; ``spec_of``, the spec a DTensor is placed by.
 * ``spmd()`` — the context the model runs in under a mesh: plain tensors
   (masks, positions, scalars) take part in DTensor ops as replicated.
 
@@ -60,6 +61,7 @@ __all__ = [
     "shard_map",
     "all_gather",
     "psum",
+    "psum_scatter",
     "pmean",
     "axis_index",
     "axis_size",
@@ -72,6 +74,7 @@ __all__ = [
     "logical_spec",
     "filter_spec",
     "placements_for",
+    "spec_of",
     "constraint",
     "shardings_for",
     "axes_to_shardings",
@@ -248,6 +251,17 @@ def placements_for(spec, mesh) -> tuple:
                 raise ValueError(f"mesh axis {a!r} shards two dims of {spec}")
             owner[a] = dim
     return tuple(Shard(owner[n]) if n in owner else Replicate() for n in names)
+
+
+def spec_of(x: DTensor) -> P:
+    """The spec a DTensor is placed by (``placements_for``'s inverse; a
+    partial sum counts as replicated)."""
+    names = axis_names(x.device_mesh)
+    entries = [[] for _ in range(x.dim())]
+    for n, pl in zip(names, x.placements):
+        if pl.is_shard():
+            entries[pl.dim % x.dim()].append(n)
+    return P(*(None if not e else e[0] if len(e) == 1 else tuple(e) for e in entries))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -427,6 +441,20 @@ class _PSum(torch.autograd.Function):
         return g, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter (sum) along ``dim``; its gradient is the all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _wait(funcol.reduce_scatter_tensor(x.contiguous(), "sum", dim, _group(axis)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _wait(funcol.all_gather_tensor(g.contiguous(), ctx.dim,
+                                              _group(ctx.axis))), None, None
+
+
 def _axes(axis) -> tuple:
     return axis if isinstance(axis, tuple) else (axis,)
 
@@ -443,6 +471,15 @@ def psum(x: torch.Tensor, axis) -> torch.Tensor:
     """``jax.lax.psum`` over a mesh axis (or several, or a process group)."""
     for a in _axes(axis):
         x = _PSum.apply(x, a)
+    return x
+
+
+def psum_scatter(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """``jax.lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``
+    inside a ``shard_map`` local function (several axes: the first one
+    first, so that ``dim`` ends split over them in that order)."""
+    for a in _axes(axis):
+        x = _ReduceScatter.apply(x, dim, a)
     return x
 
 
@@ -475,7 +512,7 @@ def axis_index(axis) -> int:
     return idx
 
 
-def shard_map(f, *, mesh, in_specs, out_specs):
+def shard_map(f, *, mesh, in_specs, out_specs, splits=()):
     """Run ``f`` on each rank's local shards and rebuild DTensors.
 
     Each input is redistributed to its spec and taken ``to_local()``; a
@@ -488,10 +525,12 @@ def shard_map(f, *, mesh, in_specs, out_specs):
     gradient is that spec's shard where the input is sharded.  (A local
     function that reassembles a sharded input whole, as an all-gather does,
     must not also take a replicated input along the same dim: it would be
-    counted once a rank.)  ``f`` returns one tensor or a tuple, matched by
-    ``out_specs``."""
-    split = {a for spec in in_specs for e in spec if e is not None
-             for a in (e if isinstance(e, tuple) else (e,))}
+    counted once a rank.)  ``splits`` names axes along which ``f`` splits
+    the work itself, each rank taking its part of a replicated input by
+    ``axis_index``: there too the gradients are summed.  ``f`` returns one
+    tensor or a tuple, matched by ``out_specs``."""
+    split = {a for e in (*(e for spec in in_specs for e in spec), *splits) if e is not None
+             for a in _axes(e)}
     names = axis_names(mesh)
 
     def to_local(x, spec):

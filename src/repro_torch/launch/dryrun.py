@@ -242,13 +242,13 @@ def cell_config(arch: str, shape_name: str, n_layers: Optional[int] = None,
     return dataclasses.replace(cfg, **over) if over else cfg
 
 
-def unsharded_flops(arch: str, shape_name: str, n_layers: Optional[int] = None) -> float:
-    """Flops of the cell's step (no accumulation) traced on meta tensors
-    without a mesh: what ranks x a sharded step's flops a device cover,
-    and exceed by the work the ranks repeat."""
+def unsharded_trace(arch: str, shape_name: str, n_layers: Optional[int] = None) -> Dict[str, Any]:
+    """``trace_step`` of the cell's step (no accumulation) on meta tensors
+    without a mesh: its flops are what ranks x a sharded step's flops a
+    device cover, and exceed by the work the ranks repeat."""
     shape = SHAPES[shape_name]
     fn, args, _ = build_cell(cell_config(arch, shape_name, n_layers), shape, None, accum_steps=1)
-    return trace_step(fn, args, DONATED[shape.mode])["per_device"]["flops"]
+    return trace_step(fn, args, DONATED[shape.mode])
 
 
 def run_cell(

@@ -43,12 +43,20 @@ counted on every rank, as XLA's per-device cost analysis counts it.
 The recorder also counts live bytes: every storage an op creates is live
 until Python frees its last tensor (a weak reference's finalizer), and the
 peak of that count is the step's peak memory on the local shard.
+
+Within ``product_sites()`` it also notes, for each op with flops, the line
+of model code that issued it (``OpEntry.site``), and ``repeated_products``
+sets a sharded step's products beside those of the same step without a
+mesh, line by line: which product the ranks repeat.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import functools
+import os
+import re
+import sys
 import weakref
 from collections import Counter
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
@@ -61,7 +69,7 @@ from torch.utils.flop_counter import flop_registry
 
 __all__ = ["COLLECTIVES", "OpEntry", "OpRecorder", "collective_stats",
            "total_collective_bytes", "op_census", "fused_bytes_estimate",
-           "bytes_accessed", "flops", "tensor_bytes"]
+           "bytes_accessed", "flops", "tensor_bytes", "product_sites", "repeated_products"]
 
 COLLECTIVES = (
     "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -140,13 +148,18 @@ class OpEntry:
     """One op of the record.  ``op`` is ``"namespace.packet.overload"``
     (``"aten.mm.default"``); ``result`` and ``operands`` are (shape, dtype
     name) of each tensor, local to the rank; ``transposes`` marks a copy
-    whose input was not contiguous (the reference's ``transpose``)."""
+    whose input was not contiguous (the reference's ``transpose``);
+    ``site``, recorded within ``product_sites()`` for an op with flops: the
+    lines of model code that issued it, outermost first, joined by " > "
+    (for a backward product, those of the forward op it is the gradient
+    of, and " (grad)" after them)."""
 
     op: str
     result: Tuple[Shape, ...]
     operands: Tuple[Shape, ...] = ()
     flops: int = 0
     transposes: bool = False
+    site: str = ""
 
     @property
     def namespace(self) -> str:
@@ -192,6 +205,52 @@ def peak_detail():
         yield recorders
     finally:
         _DETAILED.pop()
+
+
+_SITES = [False]   # whether a product_sites() is open
+_MODELS = os.sep + os.path.join("repro_torch", "models") + os.sep
+_TRACEBACK_LINE = re.compile(r'File "([^"]+)", line (\d+)')
+
+
+@contextlib.contextmanager
+def product_sites():
+    """Within it, each ``OpRecorder`` notes the model line of each op with
+    flops (``OpEntry.site``).  Autograd keeps the forward's stack on each
+    node it makes (anomaly mode, without its NaN checks), so a backward
+    product is put down to the forward line it is the gradient of."""
+    prev, _SITES[0] = _SITES[0], True
+    try:
+        with torch.autograd.set_detect_anomaly(True, check_nan=False):
+            yield
+    finally:
+        _SITES[0] = prev
+
+
+_GRAD = " (grad)"
+
+
+def _short(path: str, line) -> str:
+    return f"{path[path.index(_MODELS) + len(os.sep + 'repro_torch' + os.sep):]}:{line}"
+
+
+def _site() -> str:
+    """The lines of model code on the stack, outermost first, joined by
+    " > "; with none there (a backward), those of the forward op whose
+    autograd node runs, and "(grad)" after them."""
+    chain = []
+    f = sys._getframe(2)
+    while f is not None:
+        if _MODELS in f.f_code.co_filename:
+            chain.append(_short(f.f_code.co_filename, f.f_lineno))
+        f = f.f_back
+    if chain:
+        return " > ".join(reversed(chain))
+    node = torch._C._current_autograd_node()
+    for line in (node.metadata.get("traceback_") if node is not None else None) or ():
+        m = _TRACEBACK_LINE.search(line)
+        if m and _MODELS in m.group(1):
+            chain.append(_short(m.group(1), m.group(2)))
+    return " > ".join(chain) + _GRAD if chain else "?"
 
 
 class OpRecorder(TorchDispatchMode):
@@ -285,7 +344,8 @@ class OpRecorder(TorchDispatchMode):
             fl = int(flop_registry[func._overloadpacket](*args, **kwargs, out_val=out))
         transposes = name == "clone" and not operands[0].is_contiguous()
         self.record.append(OpEntry(f"{ns}.{name}.{func._overloadname}", _shapes(outs),
-                                   _shapes(operands), fl, transposes))
+                                   _shapes(operands), fl, transposes,
+                                   _site() if fl and _SITES[0] else ""))
         return out
 
 
@@ -354,3 +414,77 @@ def bytes_accessed(record: Iterable[OpEntry]) -> float:
 
 def flops(record: Iterable[OpEntry]) -> float:
     return float(sum(e.flops for e in record))
+
+
+def _expansion(local: Tuple[Shape, ...], whole: Tuple[Shape, ...]):
+    """How many times ``whole``'s operands hold ``local``'s (each dim a
+    multiple), or None where they cannot be shards of them."""
+    if len(local) != len(whole):
+        return None
+    n = 1
+    for (ls, ld), (ws, wd) in zip(local, whole):
+        if ld != wd or len(ls) != len(ws) or any(w % max(l, 1) for l, w in zip(ls, ws)):
+            return None
+        for l, w in zip(ls, ws):
+            n *= w // max(l, 1)
+    return n
+
+
+def _shared_lines(a: str, b: str) -> int:
+    """How many lines of model code two sites share from the outermost
+    (-1 where one is a backward and the other not)."""
+    if a.endswith(_GRAD) != b.endswith(_GRAD):
+        return -1
+    n = 0
+    for x, y in zip(a.removesuffix(_GRAD).split(" > "), b.removesuffix(_GRAD).split(" > ")):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def repeated_products(record: Iterable[OpEntry], whole: Iterable[OpEntry], ranks: int,
+                      n: int) -> List[Dict[str, Any]]:
+    """The ``n`` largest groups of a sharded step's products by ``ranks`` x
+    their flops, a group being the ops of one (site, op, local operands),
+    each beside the matching group of the same step without a mesh
+    (``whole``): the one whose site shares the most lines of model code with
+    the group's (a sharded path may reach the product through a
+    ``shard_map`` of its own), then of the same op, then whose operands the
+    local ones are shards of the fewest times over.  ``ratio`` is ``ranks``
+    x the group's flops over the matching group's; ``site_ratio`` the same
+    over all the groups of the two sites (DTensor may run one product as
+    ``mm`` in one layer and ``bmm`` in another).  1 where the ranks do the
+    product once between them.  Both records are made within
+    ``product_sites()``."""
+    def groups(rec):
+        out: Dict[tuple, list] = {}
+        for e in rec:
+            if e.flops:
+                g = out.setdefault((e.site, e.op, e.operands), [0, 0])
+                g[0] += 1
+                g[1] += e.flops
+        return out
+
+    def site_flops(gs):
+        out: Dict[str, int] = {}
+        for (site, _, _), (_, fl) in gs.items():
+            out[site] = out.get(site, 0) + fl
+        return out
+
+    mine, theirs = groups(record), groups(whole)
+    mine_sites, their_sites = site_flops(mine), site_flops(theirs)
+    rows = []
+    for (site, op, operands), (count, fl) in mine.items():
+        fits = [(-_shared_lines(site, k[0]), k[1] != op, x if x is not None else float("inf"), k)
+                for k in theirs for x in (_expansion(operands, k[2]),)]
+        match = min(fits)[3] if fits else None
+        rows.append({"site": site, "op": op, "operands": operands, "count": count,
+                     "ranks_flops": ranks * fl,
+                     "whole_site": match and match[0], "whole_op": match and match[1],
+                     "whole_operands": match and match[2],
+                     "whole_flops": theirs[match][1] if match else None,
+                     "ratio": ranks * fl / theirs[match][1] if match else None,
+                     "site_ratio": (ranks * mine_sites[site] / their_sites[match[0]]
+                                    if match else None)})
+    return sorted(rows, key=lambda r: -r["ranks_flops"])[:n]

@@ -35,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import constraint, flatten, unflatten
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.layers import column_parallel
 from repro_torch.models.params import ParamDef
 from repro_torch.models.rope import apply_rope
 
@@ -53,8 +54,11 @@ def attn_defs(cfg: ModelConfig, d_model: Optional[int] = None) -> Dict:
 
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk")`` as one matmul: x (..., d), w (d, H, k)."""
-    return unflatten(x @ flatten(w, 1, -1), -1, w.shape[1:])
+    """``einsum("bsd,dhk->bshk")`` as one matmul: x (..., d), w (d, H, k).
+    Under a mesh the (H, k) columns are split over the tensor-parallel axis
+    (``column_parallel``); where the heads do not divide it (KV heads), the
+    slices are gathered back into whole heads."""
+    return unflatten(column_parallel(x, flatten(w, 1, -1)), -1, w.shape[1:])
 
 
 def _repeat_kv(k: torch.Tensor, group: int) -> torch.Tensor:
@@ -117,6 +121,40 @@ def _attention_with_lse(q, k, v, *, kv_len, kv_offset, scale, q_pos):
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
     lse = lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
     return out, lse
+
+
+def _ring_segment(q, k, v, *, kv_len, kv_offset, scale, q_pos):
+    """``_attention_with_lse`` over the recent ring, whose positions no mesh
+    axis splits (the cache keeps it batch-sharded only).  Under a mesh each
+    rank of the axis that splits the main segment's positions ("kv_seq"'s)
+    attends to its slice of the ring, a view of its shard, masked at or past
+    ``kv_len`` as the whole ring is, and the slices' partial attentions are
+    merged over the axis: the largest lse gathered, the weighted outputs and
+    the weights summed.  Where the axis has one rank or does not divide the
+    ring, the whole ring on every rank."""
+    mesh = shd.get_mesh()
+    axis = shd.logical_spec("kv_seq")[0]
+    n = shd.axis_size(axis) if mesh is not None and axis is not None else 1
+    if n == 1 or not isinstance(k, DTensor) or k.shape[1] % n:
+        return _attention_with_lse(q, k, v, kv_len=kv_len, kv_offset=kv_offset, scale=scale,
+                                   q_pos=q_pos)
+    batch = shd.filter_spec(shd.logical_spec("batch"), q.shape[:1], mesh)[0]
+    width = k.shape[1] // n
+
+    def local(ql, kl, vl, pos):
+        lo = shd.axis_index(axis) * width
+        out, lse = _attention_with_lse(ql, kl[:, lo:lo + width], vl[:, lo:lo + width],
+                                       kv_len=kv_len - lo, kv_offset=kv_offset + lo,
+                                       scale=scale, q_pos=pos)
+        m = shd.all_gather(lse.detach()[..., None], axis, -1).amax(-1)
+        w = torch.exp(lse - m)
+        den = shd.psum(w, axis)
+        return shd.psum(out * w[..., None], axis) / den[..., None], m + torch.log(den)
+
+    spec = shd.P(batch, None, None, None)
+    return shd.shard_map(local, mesh=mesh, in_specs=(spec, spec, spec, shd.P(batch, None)),
+                         out_specs=(spec, shd.P(batch, None, None)), splits=(axis,))(
+        q, k, v, q_pos)
 
 
 def merge_segments(parts):
@@ -282,7 +320,7 @@ def apply_attention(
             q, mk, mv, kv_len=len_main, kv_offset=0, scale=scale,
             q_pos=q_pos,
         )
-        out_r, lse_r = _attention_with_lse(
+        out_r, lse_r = _ring_segment(
             q, rk, rv, kv_len=len_rec + S, kv_offset=len_main,
             scale=scale, q_pos=q_pos,
         )

@@ -38,6 +38,67 @@ def apply_norm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# products
+# ---------------------------------------------------------------------------
+
+def _axes(entry) -> tuple:
+    """A spec entry's mesh axes: () for None."""
+    return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+
+
+def column_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``, x (..., d) and w (d, n).  Under a mesh each rank computes
+    its slice of the n columns over the tensor-parallel axis ("heads"'
+    rule), whether or not w's spec splits them, and the result keeps them
+    split: a product whose columns no axis splits ("embed_tp", KV heads
+    that do not divide the axis) is otherwise done whole on every rank of
+    it.  The rank's slice of w is cut from the rows it holds; the rows are
+    reached whichever way moves fewer bytes: the slice gathered over the
+    rows' FSDP axis and multiplied by the rank's batch shard (training's
+    many rows), or x's d split over that axis and the partial products
+    reduce-scattered onto the batch (decode's few).  Inside ``shard_map``
+    with explicit collectives; ``x @ w`` without a mesh, on a one-rank axis,
+    or where the columns do not divide it."""
+    mesh = shd.get_mesh()
+    tp = shd.logical_spec("heads")[0]
+    if (mesh is None or not isinstance(w, DTensor) or tp is None or shd.axis_size(tp) == 1
+            or w.shape[1] % shd.axis_size(tp)):
+        return x @ w
+    w_spec = shd.spec_of(w)
+    x_spec = shd.spec_of(x) if isinstance(x, DTensor) else shd.P(*[None] * x.dim())
+    rows_ax, batch = w_spec[0], x_spec[0]
+    rows_axes, batch_axes = _axes(rows_ax), _axes(batch)
+    if (w_spec[1] not in (None, tp) or any(e is not None for e in x_spec[1:])
+            or tp in rows_axes + batch_axes):
+        return x @ w
+    rest = tuple(a for a in batch_axes if a not in rows_axes)
+    n_rest, n_rows = shd.axis_size(rest) if rest else 1, shd.axis_size(rows_ax) if rows_ax else 1
+    d, cols = w.shape[0], w.shape[1] // shd.axis_size(tp)
+    rows = x.numel() // d // n_rest   # the rows one group of the rows' axis holds
+    mid = (None,) * (x.dim() - 2)
+
+    def spec(axes, last=None):
+        return shd.P(None if not axes else axes[0] if len(axes) == 1 else axes, *mid, last)
+
+    w_in = shd.P(rows_ax, tp)
+    if not rows_axes or (set(rows_axes) <= set(batch_axes)
+                         and d * cols <= rows * (d // n_rows + cols)):
+        def gathered(xl, wl):
+            return xl @ (shd.all_gather(wl, rows_ax, 0) if rows_ax else wl)
+
+        return shd.shard_map(gathered, mesh=mesh, in_specs=(spec(batch_axes), w_in),
+                             out_specs=spec(batch_axes, tp))(x, w)
+    scatter = x.shape[0] // n_rest % n_rows == 0
+
+    def contracted(xl, wl):
+        y = xl @ wl
+        return shd.psum_scatter(y, rows_ax, 0) if scatter else shd.psum(y, rows_ax)
+
+    return shd.shard_map(contracted, mesh=mesh, in_specs=(spec(rest, rows_ax), w_in),
+                         out_specs=spec(rest + rows_axes if scatter else rest, tp))(x, w)
+
+
+# ---------------------------------------------------------------------------
 # dense MLP
 # ---------------------------------------------------------------------------
 

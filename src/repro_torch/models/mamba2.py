@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import constraint
+from repro_torch.models.layers import column_parallel
 from repro_torch.models.linear_scan import chunked_decay_attention, decay_attention_step
 from repro_torch.models.params import ParamDef
 
@@ -77,9 +78,11 @@ def apply_mamba(
 
     z = x @ p["wz"]
     xi = x @ p["wx"]
-    Bp = x @ p["wB"]
-    Cp = x @ p["wC"]
-    dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"])          # (B, S, H)
+    # B, C ("state", split by no axis) and dt: each rank computes its slice
+    # of the columns under a mesh
+    Bp = column_parallel(x, p["wB"])
+    Cp = column_parallel(x, p["wC"])
+    dt = F.softplus(column_parallel(x, p["wdt"]).float() + p["dt_bias"])   # (B, S, H)
 
     xBC = constraint(torch.cat([xi, Bp, Cp], dim=-1), "batch", "seq", "mlp")
     conv_prev = state.conv if state is not None else None

@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import constraint
+from repro_torch.dist.sharding import constraint, gather_dim
+from repro_torch.models.layers import column_parallel
 from repro_torch.models.linear_scan import chunked_decay_attention, decay_attention_step
 from repro_torch.models.params import ParamDef
 
@@ -135,7 +136,9 @@ def apply_channel_mix(
     xr = x + dx * p["mu_r"]
     k = constraint(torch.square(F.relu(xk @ p["wk"])), "batch", "seq", "mlp")
     kv = k @ p["wv"]
-    r = torch.sigmoid(xr @ p["wr"])
+    # wr's columns are "embed_tp", split by no axis: each rank computes its
+    # slice of them, gathered after the sigmoid
+    r = gather_dim(torch.sigmoid(column_parallel(xr, p["wr"])), -1)
     new_shift = x[:, -1] if shift_prev is not None else None
     return constraint(r * kv, "batch", "seq_res", None), new_shift
 

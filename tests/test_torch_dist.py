@@ -45,7 +45,9 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.step import value_and_grad  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.tree import leaves, tree_map  # noqa: E402
-from torch_dist_ranks import paths_inputs, paths_local, run_ranks  # noqa: E402
+from torch_dist_ranks import (CHANNEL_MIX_SHAPES, DECODE_LEN_REC, DECODE_RING,  # noqa: E402
+                              mamba_local, paths_inputs, paths_local, run_ranks, split_inputs,
+                              split_local)
 
 MOE_ARCH = "granite_moe_1b_a400m"
 TOL = 1e-5
@@ -433,6 +435,81 @@ def test_vocab_parallel_lookup_on_a_2x4_mesh(paths_2x4):
     for o in outs:
         assert torch.equal(o["lookup"]["out"], local["lookup"]["out"])
         _close(o["lookup"], local["lookup"], "lookup")
+
+
+@pytest.fixture(scope="module")
+def split_2x4(tmp_path_factory):
+    """``case_split`` (the paths repaired for port faults F9-F11) on a (2, 4)
+    mesh and without one, on the same seeded inputs."""
+    work = tmp_path_factory.mktemp("split_2x4")
+    inp = split_inputs()
+    torch.save(inp, work / "inputs.pt")
+    outs = run_ranks("split", 8, work, RANK_TIMEOUT, mesh=[2, 4], axes=["data", "model"])
+    return inp, outs, split_local(inp)
+
+
+@pytest.mark.parametrize("shape", list(CHANNEL_MIX_SHAPES))
+def test_channel_mix_receptance_on_a_2x4_mesh(split_2x4, shape):
+    """Port fault F9's repair: the smoke rwkv6_7b's channel mix, whose
+    receptance ``wr`` has "embed_tp" columns that no axis splits: each rank
+    computes its 32 of the 128 columns and they are gathered after the
+    sigmoid.  Out and the gradients of x and every param against the
+    no-mesh path, for a sequence (the weight slice gathered over "data"),
+    a decode step (x's d split over "data", the partial products
+    reduce-scattered onto the batch) and a step of one sequence (summed
+    over "data")."""
+    _, outs, local = split_2x4
+    for o in outs:
+        assert o["receptance_columns"] == [(128, 32)]
+        _close(o[f"channel_mix/{shape}"], local[f"channel_mix/{shape}"], shape)
+
+
+def test_mamba_projections_on_a_2x4_mesh(tmp_path):
+    """Port fault F12's repair: a decode step of the smoke zamba2_7b's
+    Mamba2 block, whose B and C projections ("state" columns, no axis) and
+    dt projection each rank computes a quarter of (4 of B's and C's 16
+    columns, 4 of dt's 16 heads).  Out and the new state against the
+    no-mesh step."""
+    inp = split_inputs()
+    torch.save(inp, tmp_path / "inputs.pt")
+    outs = run_ranks("mamba", 8, tmp_path, RANK_TIMEOUT, mesh=[2, 4], axes=["data", "model"])
+    local = mamba_local(inp)
+    for o in outs:
+        assert o["mamba_columns"] == [(16, 4)]
+        _close(o["mamba/step"], local["mamba/step"], "mamba")
+
+
+def test_ring_segment_on_a_2x4_mesh(split_2x4):
+    """Port fault F10's repair: the recent ring's segment (16 positions, 6
+    of them filled), each "model" rank attending to its 4, the slices'
+    partial attentions merged over the axis; out, lse and the gradients of
+    q, k and v against the whole ring's ``_attention_with_lse``."""
+    _, outs, local = split_2x4
+    assert 4 < DECODE_LEN_REC + 1 <= DECODE_RING // 2   # ranks 2 and 3 attend to no token
+    for o in outs:
+        assert o["ring_positions"] == [DECODE_RING // 4]
+        _close(o["ring"], local["ring"], "ring")
+
+
+@pytest.mark.parametrize("arch", ["stablelm_1_6b", "qwen2_vl_72b"])
+def test_split_cache_decode_step_on_a_2x4_mesh(split_2x4, arch):
+    """Port faults F10 and F11 on a decode step over the split cache (32
+    tokens in the main store, 5 in the ring): smoke stablelm_1_6b's logits
+    and the ring the step wrote, K and V of every layer, and smoke
+    qwen2_vl_72b's first attention layer on the token embeddings, its
+    output and the ring it wrote, against the no-mesh step (through all of
+    qwen2_vl's layers the no-mesh step's own f32 rounding is 8e-5 from a
+    float64 step, the mesh's 4e-5 from the no-mesh one).  Every attention
+    projection's columns are split over "model": qwen2_vl_72b's 2 KV heads
+    of 32 do not divide it, so a rank projects 16 of their 64 columns, half
+    a head (F11), and the slices are gathered into the ring's whole heads;
+    the ring positions each rank attends to are its 4 of 16 (F10)."""
+    _, outs, local = split_2x4
+    for o in outs:
+        assert (64, 16) in o["projection_columns"]
+        assert all(n == 4 * mine for n, mine in o["projection_columns"])
+        assert o["ring_positions"] == [DECODE_RING // 4]
+        _close(o[f"decode/{arch}"], local[f"decode/{arch}"], arch)
 
 
 # -- compressed_psum and restore(shardings=) ------------------------------------------------

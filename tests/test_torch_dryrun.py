@@ -52,26 +52,30 @@ SIZES = {"data": 16, "model": 16}
 #: tree (PERF.md §6, the dry-run table), with the reason the two counts differ.
 #: * prefill 3.36: the reference's chunked attention is a lax.scan over
 #:   64 KV chunks whose body XLA counts once; the port counts every chunk.
-#: * train 0.97-1.18: the same scan, over the 8 KV chunks of 4096 tokens,
+#: * train 0.92-1.08: the same scan, over the 8 KV chunks of 4096 tokens,
 #:   against the elementwise ops XLA counts and the port does not; seamless
 #:   counts its encoder's and its cross-attention's chunks too.  Each piece
 #:   of work is done once across the ranks: the loss and the head product
 #:   vocab-parallel (port fault F6), attention split by query heads
-#:   (granite_moe's 16 on 8 KV heads, F7).
-#: * decode 0.66-1.32: the port counts products only, XLA its elementwise
-#:   ops too; and DTensor contracts decode's projections over the FSDP
-#:   axis, every rank multiplying the whole batch by its slice of the embed
-#:   dim (rwkv6 1.32, where the projections are most of the work).
+#:   (granite_moe's 16 on 8 KV heads, F7), every attention projection's
+#:   columns split over "model" (granite_moe's K/V, F11; seamless's
+#:   encoder K/V, F13).
+#: * decode 0.63-0.87: the port counts products only, XLA its elementwise
+#:   ops too.  Each piece of work is done once across the ranks: rwkv6's
+#:   channel-mix receptance, whose "embed_tp" columns no axis splits, was
+#:   done whole on every "model" rank (port fault F9, 1.32 before), and so
+#:   were the recent ring's attention (F10) and qwen2_vl's K/V projection
+#:   (F11), zamba2's B, C and dt projections (F12).
 BANDS = {
     "stablelm_1_6b|train_4k|1": (1.0, 1.1),
     "stablelm_1_6b|prefill_32k|1": (3.2, 3.5),
-    "stablelm_1_6b|decode_32k|1": (0.66, 0.74),
-    "granite_moe_1b_a400m|train_4k|1": (0.92, 1.02),
-    "rwkv6_7b|decode_32k|1": (1.25, 1.4),
-    "zamba2_7b|decode_32k|6": (0.62, 0.71),
-    "zamba2_7b|decode_32k|7": (0.61, 0.70),
-    "qwen2_vl_72b|decode_32k|1": (0.66, 0.75),
-    "seamless_m4t_medium|train_4k|1": (1.12, 1.24),
+    "stablelm_1_6b|decode_32k|1": (0.65, 0.70),
+    "granite_moe_1b_a400m|train_4k|1": (0.88, 0.96),
+    "rwkv6_7b|decode_32k|1": (0.84, 0.90),
+    "zamba2_7b|decode_32k|6": (0.62, 0.68),
+    "zamba2_7b|decode_32k|7": (0.60, 0.67),
+    "qwen2_vl_72b|decode_32k|1": (0.61, 0.66),
+    "seamless_m4t_medium|train_4k|1": (1.04, 1.12),
 }
 
 #: port peak / reference peak per device, (low, high), measured on this
@@ -99,22 +103,25 @@ PEAK_BANDS = {
 }
 
 #: the most work the sharded step may repeat: 256 x the port's per-device
-#: flops over the flops of the same step without a mesh.  Train cells: at
-#: most 1.3, each piece of work done about once across the ranks
-#: (measured 1.00 / 1.07 / 1.09; before the repairs of port faults F6 and
-#: F7, 8.03 / 3.07 / 9.00).  rwkv6 decode: its measured 1.52, the reason
-#: open (PERF.md §7).  The others: their measured ratio and a little over,
-#: not analysed.
+#: flops over the flops of the same step without a mesh, each cell's
+#: measured ratio and at most 0.02 over (``scripts/dryrun_vs_reference.py
+#: --repeated-detail`` names each product behind a ratio over 1).  Every
+#: cell measures 1.0000 but granite_moe's 1.0088: its router product and
+#: gate combine run on every "model" rank, as the experts' partial sums
+#: over their split width need the same tokens there (ROADMAP.md).
+#: Before the repairs of port faults F9-F13: granite_moe 1.07, seamless
+#: 1.09, decode 1.04 (stablelm), 1.52 (rwkv6), 1.03 / 1.04 (zamba2), 1.12
+#: (qwen2_vl); before F6-F8's, the train cells 8.03 / 3.07 / 9.00.
 REPEATED = {
-    "stablelm_1_6b|train_4k|1": 1.3,
+    "stablelm_1_6b|train_4k|1": 1.02,
     "stablelm_1_6b|prefill_32k|1": 1.02,
-    "stablelm_1_6b|decode_32k|1": 1.06,
-    "granite_moe_1b_a400m|train_4k|1": 1.3,
-    "rwkv6_7b|decode_32k|1": 1.53,
-    "zamba2_7b|decode_32k|6": 1.06,
-    "zamba2_7b|decode_32k|7": 1.06,
-    "qwen2_vl_72b|decode_32k|1": 1.14,
-    "seamless_m4t_medium|train_4k|1": 1.3,
+    "stablelm_1_6b|decode_32k|1": 1.02,
+    "granite_moe_1b_a400m|train_4k|1": 1.02,
+    "rwkv6_7b|decode_32k|1": 1.02,
+    "zamba2_7b|decode_32k|6": 1.02,
+    "zamba2_7b|decode_32k|7": 1.02,
+    "qwen2_vl_72b|decode_32k|1": 1.02,
+    "seamless_m4t_medium|train_4k|1": 1.02,
 }
 
 
@@ -260,7 +267,7 @@ def test_flops_over_the_ranks_cover_the_unsharded_step(cell, port):
     every rank: over 256 ranks they are at least the unsharded step's, and
     at most ``REPEATED`` times it."""
     arch, shape_name, n = cell.split("|")
-    whole = dryrun.unsharded_flops(arch, shape_name, int(n))
+    whole = dryrun.unsharded_trace(arch, shape_name, int(n))["per_device"]["flops"]
     assert whole > 0
     assert whole <= port[cell]["per_device"]["flops"] * RANKS <= REPEATED[cell] * whole
 
@@ -392,6 +399,66 @@ def test_record_statistics_on_a_hand_built_record():
     assert hlo_stats.bytes_accessed(rec) == 3 * 32768 + 131072 + 65536 + 32768
     with pytest.raises(ValueError, match="no counterpart"):
         hlo_stats.collective_stats([_e("_c10d_functional.broadcast.default", [A], A)])
+
+
+def _mm(a, b, site, op="aten.mm.default"):
+    """A product's entry: operand shapes a @ b (the last two dims), at ``site``."""
+    out = a[:-1] + b[-1:]
+    n = 2 * a[-1]
+    for d in out:
+        n *= d
+    return OpEntry(op, ((out, F32),), ((a, F32), (b, F32)), n, site=site)
+
+
+def test_repeated_products_match_each_product_by_its_lines():
+    """``repeated_products`` on hand-built records of 16 ranks: a product
+    each rank does a 16th of (x1) and one every rank does whole (x16); two
+    products of the same shapes told apart by the line that reaches them
+    (the ring's segment and the main one); a product the sharded step
+    reaches through a ``shard_map`` of its own; and one line whose product
+    DTensor runs as ``bmm`` in one layer, ``mm`` in another (its line x1)."""
+    split, whole_ring = "models/t.py:1 > models/a.py:5", "models/t.py:1 > models/a.py:9"
+    whole = [_mm((64, 32), (32, 16), "models/t.py:1 > models/a.py:2"),
+             _mm((64, 32), (32, 16), split), _mm((64, 32), (32, 16), whole_ring),
+             _mm((64, 32), (32, 64), "models/t.py:3"), _mm((64, 32), (32, 64), "models/t.py:3")]
+    mine = [_mm((4, 32), (32, 16), "models/t.py:1 > models/a.py:2"),
+            _mm((64, 32), (32, 16), split),
+            _mm((64, 32), (32, 1), whole_ring + " > models/s.py:7 > models/s.py:8"),
+            _mm((1, 4, 32), (1, 32, 64), "models/t.py:3", "aten.bmm.default"),
+            _mm((4, 32), (32, 64), "models/t.py:3")]
+    rows = hlo_stats.repeated_products(mine, whole, 16, 10)
+    got = {(r["site"], r["op"]): r for r in rows}
+    assert got[("models/t.py:1 > models/a.py:2", "aten.mm.default")]["ratio"] == 1
+    assert got[(split, "aten.mm.default")]["ratio"] == 16
+    ring = got[(whole_ring + " > models/s.py:7 > models/s.py:8", "aten.mm.default")]
+    assert ring["whole_site"] == whole_ring and ring["ratio"] == 1
+    both = [r for r in rows if r["site"] == "models/t.py:3"]
+    assert [r["site_ratio"] for r in both] == [1, 1] and sorted(r["ratio"] for r in both) == [
+        0.5, 0.5]
+    assert [r["ranks_flops"] for r in rows] == sorted((r["ranks_flops"] for r in rows),
+                                                      reverse=True)
+    assert len(hlo_stats.repeated_products(mine, whole, 16, 2)) == 2
+
+
+def test_product_sites_name_the_forward_line_of_a_backward_product():
+    """Within ``product_sites()`` a product is put down to its lines of
+    model code; its gradient's products to the same lines and "(grad)"."""
+    from repro_torch.models import layers
+
+    x = torch.empty(8, 16, device="meta", requires_grad=True)
+    w = torch.empty(16, 4, device="meta", requires_grad=True)
+    rec = hlo_stats.OpRecorder()
+    with hlo_stats.product_sites(), rec:
+        y = layers.column_parallel(x, w)
+        torch.autograd.grad(y.sum(), (x, w))
+    sites = [e.site for e in rec.record if e.flops]
+    line = sites[0]
+    assert line.startswith("models/layers.py:") and len(sites) == 3
+    assert sites[1:] == [line + " (grad)"] * 2
+    rec = hlo_stats.OpRecorder()
+    with rec:
+        layers.column_parallel(x, w)
+    assert [e.site for e in rec.record if e.flops] == [""]
 
 
 # -- abstract params, the CLI ---------------------------------------------------------------

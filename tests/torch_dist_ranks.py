@@ -171,9 +171,49 @@ def case_train(mesh, args, workdir):
             "q_heads": sorted(set(heads)), "vocab_rows": rows.rows}
 
 
+def _spy_columns(module):
+    """Wrap ``module.column_parallel`` so that it keeps, for each call that
+    returns a DTensor, (the product's columns, those of the rank's shard)."""
+    cols, inner = [], module.column_parallel
+
+    def spy(x, w):
+        out = inner(x, w)
+        if hasattr(out, "to_local"):
+            cols.append((w.shape[1], out.to_local().shape[-1]))
+        return out
+
+    module.column_parallel = spy
+    return cols
+
+
+def _spy_ring_positions():
+    """Wrap the segment attention so that it keeps the positions each call
+    on a rank's local tensors attends to (the recent ring's slices inside
+    ``shard_map``; the main segment runs on DTensors)."""
+    from repro_torch.models import attention
+
+    widths, inner = [], attention._attention_with_lse
+
+    def spy(q, k, v, **kw):
+        if not hasattr(k, "to_local"):
+            widths.append(k.shape[1])
+        return inner(q, k, v, **kw)
+
+    attention._attention_with_lse = spy
+    return widths
+
+
 #: the repaired sharded paths' inputs: the smoke granite_moe_1b_a400m's
 #: widths (4 query heads on 2 KV, d 128, vocab padded to 2048)
 PATHS_ARCH = "granite_moe_1b_a400m"
+#: the decode steps over a split cache (port faults F10, F11): smoke
+#: stablelm_1_6b (4 KV heads) and qwen2_vl_72b (2 KV heads, "model" 4 does
+#: not divide them); batch 4, 32 tokens in the main store, 5 in a ring of 16
+DECODE_ARCHS = ("stablelm_1_6b", "qwen2_vl_72b")
+DECODE_B, DECODE_MAIN, DECODE_RING, DECODE_LEN_REC = 4, 32, 16, 5
+#: the rwkv6 channel mix (port fault F9): (batch, seq) of a sequence, a
+#: decode step and a decode step of one sequence
+CHANNEL_MIX_SHAPES = {"seq": (4, 32), "step": (4, 1), "one": (1, 1)}
 
 
 def paths_inputs(seed: int = 0, B: int = 4, S: int = 32) -> dict:
@@ -200,6 +240,84 @@ def paths_inputs(seed: int = 0, B: int = 4, S: int = 32) -> dict:
             "gattn": normal(B, S, H, hd),
             "tokens": torch.from_numpy(rng.integers(0, V, size=(B, S))),
             "gembed": normal(B, S, d)}
+
+
+def split_inputs(seed: int = 0) -> dict:
+    """Seeded inputs of ``case_split``: the recent ring's segment alone (one
+    query a row at the ring's next position, its 5 tokens and the new
+    one; the cotangents of out and lse), the channel mix, a split-cache
+    decode step of each of ``DECODE_ARCHS``; and of ``case_mamba``, a
+    Mamba2 decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(PATHS_ARCH).smoke()
+    B, H, KV, hd, R = DECODE_B, cfg.n_heads, cfg.n_kv_heads, cfg.hd, DECODE_RING
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32))
+
+    return {"ring": {"q": normal(B, 1, H, hd), "k": normal(B, R, KV, hd),
+                     "v": normal(B, R, KV, hd), "gout": normal(B, 1, H, hd),
+                     "glse": normal(B, 1, H)},
+            "channel_mix": _channel_mix_inputs(normal),
+            "decode": {arch: _decode_inputs(arch, normal, rng) for arch in DECODE_ARCHS},
+            "mamba": _mamba_inputs(normal)}
+
+
+def _channel_mix_inputs(normal) -> dict:
+    """The smoke rwkv6_7b's channel-mix params (every leaf drawn, the
+    token-shift mixes too), and for each of ``CHANNEL_MIX_SHAPES`` x, the
+    previous token's row and the cotangent."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import rwkv6
+    from repro_torch.models.params import map_defs
+
+    cfg = get_config("rwkv6_7b").smoke()
+    out = {"params": map_defs(lambda d: normal(*d.shape, scale=0.1),
+                              rwkv6.channel_mix_defs(cfg))}
+    for name, (B, S) in CHANNEL_MIX_SHAPES.items():
+        out[name] = {"x": normal(B, S, cfg.d_model), "prev": normal(B, cfg.d_model),
+                     "gout": normal(B, S, cfg.d_model)}
+    return out
+
+
+def _mamba_inputs(normal) -> dict:
+    """The smoke zamba2_7b's Mamba2 params (every leaf drawn), and a decode
+    step's x and state (conv, ssd)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import mamba2
+    from repro_torch.models.params import map_defs
+
+    cfg = get_config("zamba2_7b").smoke()
+    st = mamba2.init_mamba_state(cfg, DECODE_B, torch.float32, device="cpu")
+    return {"params": map_defs(lambda d: normal(*d.shape, scale=0.1), mamba2.mamba_defs(cfg)),
+            "step": {"x": normal(DECODE_B, 1, cfg.d_model), "conv": normal(*st.conv.shape),
+                     "ssd": normal(*st.ssd.shape, scale=0.1)}}
+
+
+def _decode_inputs(arch: str, normal, rng) -> dict:
+    """``arch``'s smoke params, a split cache of random K/V with
+    ``DECODE_MAIN`` tokens in the main store and ``DECODE_LEN_REC`` in the
+    ring, and one decode step's tokens at the next position."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import LM
+
+    cfg = get_config(arch).smoke()
+    model = LM(cfg)
+    cache = model.init_cache(DECODE_B, DECODE_MAIN, recent_size=DECODE_RING, device="cpu")
+    layers = {k: tuple(normal(*t.shape) for t in v) for k, v in cache["layers"].items()}
+    pos = torch.full((DECODE_B, 1), DECODE_MAIN + DECODE_LEN_REC, dtype=torch.int32)
+    return {"params": model.init(int(rng.integers(1 << 16)), device="cpu"),
+            "layers": layers,
+            "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(DECODE_B, 1))).to(
+                torch.int32),
+            "positions": pos[..., None].expand(DECODE_B, 1, 3).contiguous()
+            if cfg.rope == "mrope" else pos}
 
 
 def _paths(inp, put) -> dict:
@@ -242,30 +360,199 @@ def _paths(inp, put) -> dict:
     return out
 
 
+def _split_paths(inp, put, mesh=None) -> dict:
+    """The paths repaired for port faults F9-F11, each input placed by
+    ``put`` as in ``_paths`` and the models' params and caches by their own
+    specs on ``mesh``: the rwkv6 channel mix at each of
+    ``CHANNEL_MIX_SHAPES`` with its gradients, the recent ring's segment
+    with its gradients, a decode step over a split cache of each of
+    ``DECODE_ARCHS`` (its output and the ring it writes; qwen2_vl_72b's
+    first layer alone: through all its layers the no-mesh step's own f32
+    rounding is 8e-5 from a float64 step, as at depth under the reference's
+    init, ROADMAP.md fault 4)."""
+    import math
+
+    import torch
+    from repro_torch.models import attention
+
+    out = _channel_mix_paths(inp["channel_mix"], put, mesh)
+    ring = inp["ring"]
+    q, k, v = (put(ring[n]).requires_grad_() for n in "qkv")
+    pos = torch.full((k.shape[0], 1), DECODE_MAIN + DECODE_LEN_REC, dtype=torch.int32)
+    o, lse = attention._ring_segment(q, k, v, kv_len=DECODE_LEN_REC + 1, kv_offset=DECODE_MAIN,
+                                     scale=1 / math.sqrt(q.shape[-1]), q_pos=put(pos))
+    ((o * put(ring["gout"])).sum() + (lse * put(ring["glse"])).sum()).backward()
+    out["ring"] = {"out": _full(o), "lse": _full(lse), "q": _full(q.grad), "k": _full(k.grad),
+                   "v": _full(v.grad)}
+    out["decode/stablelm_1_6b"] = _decode_path("stablelm_1_6b", inp["decode"]["stablelm_1_6b"],
+                                                mesh)
+    out["decode/qwen2_vl_72b"] = _decode_path("qwen2_vl_72b", inp["decode"]["qwen2_vl_72b"], mesh,
+                                              layer=0)
+    return out
+
+
+def _channel_mix_paths(inp, put, mesh) -> dict:
+    """``rwkv6.apply_channel_mix`` at each shape, with the previous token's
+    row: its output and the gradients of x and every param."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import rwkv6
+    from repro_torch.models.params import spec_tree
+
+    cfg = get_config("rwkv6_7b").smoke()
+    specs = spec_tree(rwkv6.channel_mix_defs(cfg))
+    out = {}
+    for name in CHANNEL_MIX_SHAPES:
+        p = {k: v.clone() for k, v in inp["params"].items()}
+        if mesh is not None:
+            p = shd.device_put(p, shd.shardings_for(specs, p, mesh))
+        p = {k: v.requires_grad_() for k, v in p.items()}
+        x = put(inp[name]["x"]).requires_grad_()
+        y, _ = rwkv6.apply_channel_mix(p, cfg, x, put(inp[name]["prev"]))
+        (y * put(inp[name]["gout"])).sum().backward()
+        out[f"channel_mix/{name}"] = {"out": _full(y), "x": _full(x.grad),
+                                      **{k: _full(v.grad) for k, v in p.items()}}
+    return out
+
+
+def _mamba_paths(inp, put, mesh) -> dict:
+    """``mamba2.apply_mamba``'s decode step from the given state: its output
+    and the new state (the products' gradients are the channel mix's
+    case)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import mamba2
+    from repro_torch.models.params import spec_tree
+
+    cfg = get_config("zamba2_7b").smoke()
+    p = {k: v.clone() for k, v in inp["params"].items()}
+    if mesh is not None:
+        p = shd.device_put(p, shd.shardings_for(spec_tree(mamba2.mamba_defs(cfg)), p, mesh))
+    step = inp["step"]
+    state = mamba2.MambaState(conv=put(step["conv"]), ssd=put(step["ssd"]))
+    with torch.no_grad():
+        y, new = mamba2.apply_mamba(p, cfg, put(step["x"]), state)
+    return {"mamba/step": {"out": _full(y), "conv": _full(new.conv), "ssd": _full(new.ssd)}}
+
+
+def _decode_path(arch, inp, mesh, layer=None) -> dict:
+    """One ``LM.decode_step`` over the split cache: the logits and the
+    recent ring it wrote (K and V of every layer).  With ``layer``, that
+    layer's attention alone over its cache, on the token embeddings: its
+    output and the ring it wrote."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.inputs import batch_shardings
+    from repro_torch.models.attention import apply_attention
+    from repro_torch.models.transformer import LM, layer_params
+
+    model = LM(get_config(arch).smoke())
+    params = inp["params"]
+    layers = {k: tuple(t.clone() for t in v) for k, v in inp["layers"].items()}
+    batch = {"tokens": inp["tokens"], "positions": inp["positions"]}
+    if mesh is not None:
+        params = shd.device_put(params, shd.shardings_for(model.param_specs(), params, mesh))
+        layers = shd.device_put(layers, shd.axes_to_shardings(
+            model.cache_spec_axes()["layers"], layers, mesh))
+        batch = shd.device_put(batch, batch_shardings(batch, mesh))
+    cache = {"layers": layers, "len": DECODE_MAIN, "len_rec": DECODE_LEN_REC}
+    with torch.no_grad():
+        if layer is None:
+            logits, new = model.decode_step(params, batch, cache)
+            rk, rv = new["layers"]["recent"]
+            return {"logits": _full(logits), "ring_k": _full(rk), "ring_v": _full(rv)}
+        with shd.spmd():
+            x, pos = model._embed_inputs(params, batch)
+            out, new = apply_attention(layer_params(params["layers"], layer)["attn"], model.cfg,
+                                       x, pos, cache=layer_params(layers, layer),
+                                       cache_len=(DECODE_MAIN, DECODE_LEN_REC))
+    rk, rv = new["recent"]
+    return {"out": _full(out), "ring_k": _full(rk), "ring_v": _full(rv)}
+
+
 def paths_local(inp) -> dict:
     """``_paths`` without a mesh."""
     return _paths(inp, lambda t, weight=None: t.clone())
 
 
-def case_paths(mesh, args, workdir):
-    """``_paths`` under the mesh: the weights placed as the model's params
-    ("embed" over "data", the vocab over "model"), every activation, target
-    and mask split by batch."""
-    import torch
+def split_local(inp) -> dict:
+    """``_split_paths`` without a mesh."""
+    return _split_paths(inp, lambda t, weight=None: t.clone())
+
+
+def mamba_local(inp) -> dict:
+    """``_mamba_paths`` of ``split_inputs()["mamba"]`` without a mesh."""
+    return _mamba_paths(inp["mamba"], lambda t, weight=None: t.clone(), None)
+
+
+def _put_on(mesh):
+    """``put`` for ``_paths`` under the mesh: the weights placed as the
+    model's params ("embed" over "data", the vocab over "model"), every
+    activation, target and mask split by batch."""
     from torch.distributed.tensor import distribute_tensor
     from repro_torch.dist import sharding as shd
 
-    inp = torch.load(workdir / "inputs.pt")
     specs = {"head": shd.P("data", "model"), "tok": shd.P("model", "data"), None: shd.P("data")}
 
     def put(t, weight=None):
         spec = shd.filter_spec(specs[weight], t.shape, mesh)
         return distribute_tensor(t.clone(), mesh, shd.placements_for(spec, mesh))
 
+    return put
+
+
+def case_paths(mesh, args, workdir):
+    """``_paths`` under the mesh (``_put_on``), and the query heads of each
+    local attention call."""
+    import torch
+    from repro_torch.dist import sharding as shd
+
+    inp = torch.load(workdir / "inputs.pt")
     heads = _spy_attention_heads()
     with shd.use_mesh(mesh), shd.spmd():
-        out = _paths(inp, put)
+        out = _paths(inp, _put_on(mesh))
     out["q_heads"] = sorted(set(heads))
+    return out
+
+
+def case_split(mesh, args, workdir):
+    """``_split_paths`` under the mesh, and the rank's share of the work:
+    the ring positions each local segment attends to, and (all columns,
+    the rank's) of the channel mix's receptance and of every attention
+    projection."""
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import attention, rwkv6
+
+    inp = torch.load(workdir / "inputs.pt")
+    ring = _spy_ring_positions()
+    cols = {k: _spy_columns(m) for k, m in (("receptance_columns", rwkv6),
+                                            ("projection_columns", attention))}
+    with shd.use_mesh(mesh), shd.spmd():
+        out = _split_paths(inp, _put_on(mesh), mesh)
+    out["ring_positions"] = sorted(set(ring))
+    out.update({k: sorted(set(v)) for k, v in cols.items()})
+    return out
+
+
+def case_mamba(mesh, args, workdir):
+    """``_mamba_paths`` (port fault F12) under the mesh, and (all columns,
+    the rank's) of Mamba2's B, C and dt.  A rank run of its own: PyTorch
+    2.11's DTensor cannot run the decay step's einsum over batch- and
+    head-sharded operands (port fault F14), so the card machine's probe
+    leaves it out."""
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import mamba2
+
+    inp = torch.load(workdir / "inputs.pt")
+    cols = _spy_columns(mamba2)
+    with shd.use_mesh(mesh), shd.spmd():
+        out = _mamba_paths(inp["mamba"], _put_on(mesh), mesh)
+    out["mamba_columns"] = sorted(set(cols))
     return out
 
 
@@ -323,7 +610,8 @@ def case_trainer(mesh, args, workdir):
 
 
 CASES = {"moe": case_moe, "train": case_train, "psum": case_psum, "restore": case_restore,
-         "trainer": case_trainer, "paths": case_paths}
+         "trainer": case_trainer, "paths": case_paths, "split": case_split,
+         "mamba": case_mamba}
 
 
 def main() -> None:
