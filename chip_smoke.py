@@ -234,6 +234,12 @@ ENCDEC_TRAIN_STEPS = 5
 DIST_ARCH, DIST_SEED = "granite_moe_1b_a400m", 15
 DIST_FULL = (24, 1024, 16, 8, 64, 512, 49155, 32, 8)
 DIST_LOSS_RTOL = 1e-5
+# and the state path's blocks (port fault F14) on the same mesh: layer 0 of
+# the unreduced rwkv6_7b (time mix) and zamba2_7b (Mamba2 block), seeded
+# bf16 weights (the inert leaves set, as in the state phases), over
+# STATE_BATCH x STATE_PROMPT activations from a zero state, then one decode
+# step: bit-equal to the same calls without the mesh, each on its decay path
+DIST_STATE = (("rwkv6_7b", "time mix", 17), ("zamba2_7b", "Mamba2 block", 18))
 # the [train-families] phase: launch.train's trainer on the vlm and encdec
 # families at full width (seamless_m4t_medium unreduced, qwen2_vl_72b cut to
 # 2 of its 80 layers: its two 152064 x 8192 tables alone hold 2.49 B
@@ -2218,7 +2224,94 @@ def _dist_checks(mesh) -> dict:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    # (d) the state path's blocks
+    res["state"] = {arch: _dist_state_check(mesh, arch, what, seed)
+                    for arch, what, seed in DIST_STATE}
     return res
+
+
+def _dist_state_check(mesh, arch: str, what: str, seed: int) -> dict:
+    """Layer 0's block of ``arch`` at full width over STATE_BATCH x
+    STATE_PROMPT bf16 activations from a zero state (the chunked form with
+    a state: one decay launch), then one decode step from the state it
+    leaves (the step form), without the mesh and under it (params, x and
+    the state as DTensors): outputs and states bit-equal, each launch on
+    the family's path (STATE_PATH) both ways."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models.params import init_params
+
+    cfg = get_config(arch)
+    check((cfg.d_model, cfg.ssm_head_dim, cfg.ssm_state) == {"rwkv6_7b": (4096, 64, 0),
+                                                             "zamba2_7b": (3584, 64, 64)}[arch],
+          f"{arch} is not at full width")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if arch == "rwkv6_7b":
+        defs, groups, init = R6.time_mix_defs(cfg), ("tm", "cm"), R6.init_rwkv_state
+    else:
+        defs, groups, init = M2.mamba_defs(cfg), ("mamba",), M2.init_mamba_state
+    p = init_params(defs, dtype=torch.bfloat16, generator=gen, device="cuda")
+    # the block's leaves under the group names the inert rule reads (the
+    # ssm family's "cm", the channel mix, not drawn here, stays empty)
+    sub = {g: {} for g in groups}
+    names = inert.inert_leaves(cfg.family, {g: p if g == groups[0] else {} for g in groups})
+    for g, n in names:
+        sub[g][n] = p[n]
+    drawn = inert.perturb_inert(cfg.family, params_to_numpy(sub), seed)
+    for g, n in names:
+        p[n].copy_(torch.from_numpy(drawn[g][n]))
+    x = (torch.randn(STATE_BATCH, STATE_PROMPT, cfg.d_model, generator=gen, device="cuda")
+         .to(torch.bfloat16))
+    x1 = torch.randn(STATE_BATCH, 1, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    state = init(cfg, STATE_BATCH, torch.bfloat16, device="cuda")
+
+    def block(p, x, state):
+        if arch == "rwkv6_7b":
+            y, (shift, wkv) = R6.apply_time_mix(p, cfg, x, state)
+            return y, state._replace(shift_tm=shift, wkv=wkv)
+        return M2.apply_mamba(p, cfg, x, state)
+
+    def run(p, x, x1, state):
+        """(prompt output, its state, step output, its state, the paths of
+        the launches of each call)"""
+        out, paths = [], []
+        for xi in (x, x1):
+            kernels.reset_launches()
+            y, state = block(p, xi, state)
+            out += [y, state]
+            paths.append({k.split(":")[1]: n for k, n in kernels.launches.items()
+                          if k.startswith("decay_attention:") and n})
+        return out, paths
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    with torch.no_grad():
+        plain, plain_paths = run(p, x, x1, state)
+        with shd.use_mesh(mesh), shd.spmd():
+            p_m = shd.device_put(p, shd.shardings_for(spec_tree(defs), p, mesh))
+            batch = shd.placements_for(shd.P("data"), mesh)
+            x_m, x1_m = (distribute_tensor(t, mesh, batch) for t in (x, x1))
+            state_m = type(state)(*(distribute_tensor(t, mesh, batch) for t in state))
+            meshed, mesh_paths = run(p_m, x_m, x1_m, state_m)
+    flat = []
+    for name, a, b in zip(("prompt", "prompt state", "step", "step state"), meshed, plain):
+        pairs = [("out", a, b)] if isinstance(b, torch.Tensor) else zip(b._fields, a, b)
+        flat += [(f"{name} {field}", full(ta), tb) for field, ta, tb in pairs]
+    equal = {name: bool(torch.equal(a, b)) for name, a, b in flat}
+    worst = max(float((a.float() - b.float()).abs().max()) for _, a, b in flat)
+    log(f"[dist] state path, {arch} layer 0's {what} at full width ({STATE_BATCH} x "
+        f"{STATE_PROMPT} from a zero state, then one decode step), bf16: decay launches by "
+        f"path prompt / step without the mesh {plain_paths[0]} / {plain_paths[1]}, under it "
+        f"{mesh_paths[0]} / {mesh_paths[1]}; bit-equal {all(equal.values())} "
+        f"({sum(equal.values())} of {len(equal)} outputs and state tensors), max abs diff "
+        f"{worst:.3e}")
+    check(plain_paths == mesh_paths == [{STATE_PATH[arch]: 1}, {}],
+          f"[dist] {arch}: decay paths {plain_paths} without the mesh, {mesh_paths} under it")
+    check(all(equal.values()), f"[dist] {arch}: under the mesh not bit-equal: {equal}")
+    del p, p_m, plain, meshed
+    torch.cuda.empty_cache()
+    return {"paths": plain_paths, "mesh_paths": mesh_paths, "bit_equal": equal}
 
 
 # -- phase 5e: launch.train's trainer on the vlm and encdec families ----------------

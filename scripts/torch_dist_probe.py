@@ -20,12 +20,16 @@ channel mix at three shapes; the recent ring's segment split over
 qwen2_vl_72b's first attention layer; the ring positions and the
 receptance and projection columns a rank takes, its share of "model"),
 each on (2, 4) and (1, 4) meshes: max abs diff of each output and
-gradient from the no-mesh path, held to 1e-5 of max(1, its largest),
-``compressed_psum`` on 4 ranks, ``restore(shardings=)`` on 2 and the
-``Trainer`` under a (1, 2) mesh.  Exits 1 if a case fails.  The tests'
-Mamba2 case (F12) is left out: PyTorch 2.11's DTensor cannot run the
-decay step's einsum over batch- and head-sharded operands (ROADMAP.md,
-port fault F14)."""
+gradient from the no-mesh path, held to 1e-5 of max(1, its largest);
+F14 ("state": the smoke zamba2_7b's Mamba2 block and rwkv6_7b's time mix
+over a ragged 40-token sequence from a state with the gradients of x, the
+state and every param, then a decode step; the decay math's calls, each
+on plain tensors of the rank's heads) on the same meshes: each output's
+max abs diff from the float32 no-mesh path over max(1, its largest), held
+to 1e-5 beyond that path's own distance from a float64 run
+(``torch_dist_ranks.state_close``); ``compressed_psum`` on 4 ranks,
+``restore(shardings=)`` on 2 and the ``Trainer`` under a (1, 2) mesh.
+Exits 1 if a case fails."""
 from __future__ import annotations
 
 import pathlib
@@ -39,7 +43,8 @@ sys.path[:0] = [str(ROOT / "tests"), str(ROOT / "src")]
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch_dist_ranks import (DECODE_RING, paths_inputs, paths_local, run_ranks,  # noqa: E402
-                              split_inputs, split_local)
+                              split_inputs, split_local, state_close, state_inputs,
+                              state_local)
 
 from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.configs.base import RunShape  # noqa: E402
@@ -122,6 +127,21 @@ def split_case(work, shape, tol=1e-5):
             **{k: o[k] for k in split}}
 
 
+def state_case(work, shape, tol=1e-5):
+    inp = state_inputs()
+    torch.save(inp, work / "inputs.pt")
+    outs = run_ranks("state", shape[0] * shape[1], work, 180, mesh=list(shape), axes=MESH)
+    local = state_local(inp)
+    beyond = max(state_close(o, local, tol) for o in outs)
+    rel = {}
+    for path, vals in local["f32"].items():
+        rel[path] = max(float((o[path][k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+                        for o in outs for k, v in vals.items())
+    calls = sorted({c for o in outs for c in o["decay_calls"]})
+    assert not any(dtensor for _, _, dtensor, _ in calls), calls
+    return {"max_rel_diff_from_f32": rel, "beyond_the_f32_path": beyond, "decay_calls": calls}
+
+
 def psum_case(work):
     outs = run_ranks("psum", 4, work, 120, mesh=[4], axes=["data"])
     return {"max_abs_from_the_sum": float((outs[0]["out"] - sum(o["x"] for o in outs)).abs().max())}
@@ -149,6 +169,8 @@ CASES = [("moe 1x1", lambda w: moe_case(w, (1, 1))), ("moe 2x4", lambda w: moe_c
          ("paths 1x4", lambda w: paths_case(w, (1, 4))),
          ("split 2x4", lambda w: split_case(w, (2, 4))),
          ("split 1x4", lambda w: split_case(w, (1, 4))),
+         ("state 2x4", lambda w: state_case(w, (2, 4))),
+         ("state 1x4", lambda w: state_case(w, (1, 4))),
          ("compressed_psum 4", psum_case), ("restore 2", restore_case),
          ("trainer 1x2", trainer_case)]
 

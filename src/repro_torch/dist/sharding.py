@@ -28,6 +28,8 @@ Key pieces:
 * ``shardings_for`` / ``axes_to_shardings`` — tree helpers producing
   ``Sharding`` trees for parameter specs and logical-axis-name trees;
   ``device_put`` distributes a tree of tensors by such a tree.
+* ``region_mesh`` -- the guard of every ``shard_map`` region of the model
+  code: the mesh to run it on, or None, where the plain path runs.
 * ``shard_map`` and the differentiable collectives ``all_gather``,
   ``psum``, ``psum_scatter`` and ``pmean`` — a local function over
   ``to_local()`` shards, rebuilt with ``DTensor.from_local``;
@@ -59,6 +61,7 @@ __all__ = [
     "P",
     "Sharding",
     "shard_map",
+    "region_mesh",
     "all_gather",
     "psum",
     "psum_scatter",
@@ -510,6 +513,17 @@ def axis_index(axis) -> int:
     for a in _axes(axis):
         idx = idx * sizes[a] + mesh.get_local_rank(a)
     return idx
+
+
+def region_mesh(*xs):
+    """The mesh a ``shard_map`` region of the model code runs on: the active
+    mesh where one of ``xs`` is a DTensor (given none, wherever a mesh is
+    active), else None, and the caller runs its plain path, bit for bit the
+    path without a mesh."""
+    mesh = get_mesh()
+    if mesh is None or (xs and not any(isinstance(x, DTensor) for x in xs)):
+        return None
+    return mesh
 
 
 def shard_map(f, *, mesh, in_specs, out_specs, splits=()):

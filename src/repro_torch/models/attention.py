@@ -29,7 +29,6 @@ import math
 from typing import Dict, Optional
 
 import torch
-from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding as shd
@@ -132,10 +131,10 @@ def _ring_segment(q, k, v, *, kv_len, kv_offset, scale, q_pos):
     merged over the axis: the largest lse gathered, the weighted outputs and
     the weights summed.  Where the axis has one rank or does not divide the
     ring, the whole ring on every rank."""
-    mesh = shd.get_mesh()
+    mesh = shd.region_mesh(k)
     axis = shd.logical_spec("kv_seq")[0]
     n = shd.axis_size(axis) if mesh is not None and axis is not None else 1
-    if n == 1 or not isinstance(k, DTensor) or k.shape[1] % n:
+    if n == 1 or k.shape[1] % n:
         return _attention_with_lse(q, k, v, kv_len=kv_len, kv_offset=kv_offset, scale=scale,
                                    q_pos=q_pos)
     batch = shd.filter_spec(shd.logical_spec("batch"), q.shape[:1], mesh)[0]
@@ -220,8 +219,8 @@ def _query_heads(fn, axis, group, q, k, v):
 
 
 def _inner_attention(q, k, v, *, impl, causal, kv_len, scale, q_offset=0):
-    mesh = shd.get_mesh()
-    if mesh is not None and isinstance(q, DTensor):
+    mesh = shd.region_mesh(q)
+    if mesh is not None:
         # attention is independent per batch row and per query head: run it
         # on each rank's shards (PyTorch 2.11's DTensor cannot flatten the
         # sharded head dim its einsums need).  The heads are split where the

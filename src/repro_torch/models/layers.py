@@ -26,15 +26,105 @@ def norm_defs(cfg: ModelConfig, d: int | None = None) -> Dict:
 
 
 def apply_norm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm (with "bias") or RMSNorm over the last dim, in f32, cast back
+    to x's dtype: ``(x - mean) * rsqrt(var + eps) * scale + bias``, or
+    ``x * rsqrt(mean(x^2) + eps) * scale`` (:class:`_Norm`).  Under a mesh
+    on each rank's batch shard inside ``shard_map``: DTensor would resolve
+    the backward's partial sums where its rules choose (gathering the batch
+    and repeating the next products on every rank)."""
+    params = (p["scale"],) + ((p["bias"],) if "bias" in p else ())
+
+    def local(x, scale, bias=None):
+        return _Norm.apply(x, scale, bias, eps)
+
+    mesh = shd.region_mesh(x)
+    if mesh is None:
+        return local(x, *params)
+    batch = shd.filter_spec(shd.logical_spec("batch"), x.shape[:1], mesh)[0]
+    spec = shd.P(batch, *(None,) * (x.dim() - 1))
+    return shd.shard_map(local, mesh=mesh, in_specs=(spec,) + (shd.P(None),) * len(params),
+                         out_specs=spec)(x, *params)
+
+
+#: the f32 temporaries of the norm's and the vocab-parallel loss's row loops
+#: hold at most this many bytes (a chunk of rows at a time)
+CHUNK_BYTES = 1 << 26
+
+
+def _row_chunks(rows: torch.Tensor):
+    """Slices of the first dim of a (rows, width) tensor, each at most
+    ``CHUNK_BYTES`` of f32."""
+    n, width = rows.shape
+    step = max(1, CHUNK_BYTES // (4 * width))
+    return [slice(r, r + step) for r in range(0, n, step)]
+
+
+def _f32_copy(x: torch.Tensor) -> torch.Tensor:
+    """``x.float()`` as a tensor of its own, to be worked in place."""
     xf = x.float()
-    if "bias" in p:
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
-    else:
-        ms = (xf * xf).mean(-1, keepdim=True)
-        out = xf * torch.rsqrt(ms + eps) * p["scale"]
-    return out.to(x.dtype)
+    return xf.clone() if xf is x else xf
+
+
+class _Norm(torch.autograd.Function):
+    """The norm's formula op for op, a chunk of rows at a time
+    (``CHUNK_BYTES``), each on its f32 copy worked in place; the backward
+    keeps x in its own dtype, the f32 mean and reciprocal RMS (..., 1) and
+    the scale, and recomputes x-hat from them, a chunk at a time."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        d = x.shape[-1]
+        rows = x.reshape(-1, d)
+        out = x.new_empty(x.shape)
+        out_rows = out.view(-1, d)
+        # the row statistics in the type of the f32 copies
+        rstd = rows.new_empty((rows.shape[0], 1), dtype=rows[:0].float().dtype)
+        mu = None if bias is None else torch.empty_like(rstd)
+        for c in _row_chunks(rows):
+            xf = _f32_copy(rows[c])
+            if bias is not None:
+                m = xf.mean(-1, keepdim=True)
+                xf.sub_(m)
+                rs = torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + eps)
+                mu[c] = m
+            else:
+                rs = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+            rstd[c] = rs
+            xf.mul_(rs).mul_(scale)
+            if bias is not None:
+                xf.add_(bias)
+            out_rows[c] = xf
+        lead = x.shape[:-1] + (1,)
+        ctx.save_for_backward(x, None if mu is None else mu.view(lead), rstd.view(lead), scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mu, rstd, scale = ctx.saved_tensors
+        d = x.shape[-1]
+        rows, g = x.reshape(-1, d), g.reshape(-1, d)
+        mu = None if mu is None else mu.reshape(-1, 1)
+        rstd = rstd.reshape(-1, 1)
+        dx = x.new_empty(x.shape)
+        dx_rows = dx.view(-1, d)
+        dscale = dbias = None
+        for c in _row_chunks(rows):
+            xhat = _f32_copy(rows[c])
+            if mu is not None:
+                xhat.sub_(mu[c])
+            xhat.mul_(rstd[c])
+            gf = _f32_copy(g[c])
+            part = (gf * xhat).sum(0)
+            dscale = part if dscale is None else dscale.add_(part)
+            if mu is not None:
+                part = gf.sum(0)
+                dbias = part if dbias is None else dbias.add_(part)
+            gf.mul_(scale)                                  # the gradient of x-hat
+            proj = (gf * xhat).mean(-1, keepdim=True)
+            if mu is not None:
+                gf.sub_(gf.mean(-1, keepdim=True))
+            dx_rows[c] = gf.sub_(xhat.mul_(proj)).mul_(rstd[c])
+        return dx, dscale, dbias, None
 
 
 # ---------------------------------------------------------------------------
@@ -59,9 +149,9 @@ def column_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     reduce-scattered onto the batch (decode's few).  Inside ``shard_map``
     with explicit collectives; ``x @ w`` without a mesh, on a one-rank axis,
     or where the columns do not divide it."""
-    mesh = shd.get_mesh()
+    mesh = shd.region_mesh(w)
     tp = shd.logical_spec("heads")[0]
-    if (mesh is None or not isinstance(w, DTensor) or tp is None or shd.axis_size(tp) == 1
+    if (mesh is None or tp is None or shd.axis_size(tp) == 1
             or w.shape[1] % shd.axis_size(tp)):
         return x @ w
     w_spec = shd.spec_of(w)
@@ -156,8 +246,8 @@ def _vocab_axis(spec, dim: int):
 
 
 def embed_tokens(p: Dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    mesh = shd.get_mesh()
-    if mesh is None or not isinstance(p["tok"], DTensor):
+    mesh = shd.region_mesh(p["tok"])
+    if mesh is None:
         return p["tok"].to(dtype)[tokens]
     # vocab-parallel: each rank holds its vocab slice of the table whole in
     # "embed" (gathered over the FSDP axis only), looks up the tokens that
@@ -194,6 +284,45 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return lse - torch.gather(logits, -1, targets.long()[..., None])[..., 0]
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """The per-token cross entropy of a rank's vocab slice of the logits
+    inside ``shard_map``: the softmax's max gathered over ``axis``, its sum
+    and the target's logit summed over it, in f32 on one copy of the slice
+    worked in place.  Saved for the backward: the logits in their own
+    dtype, the f32 LSE (global), and the rank's target index, clamped, with
+    its in-range mask.  The backward is ``g * (softmax - onehot)`` cast to
+    the logits' dtype, a chunk of rows at a time (``CHUNK_BYTES``); it
+    needs no collective: the LSE is global, and g is the same on every rank
+    of the vocab axis."""
+
+    @staticmethod
+    def forward(ctx, logits, t, axis):
+        lf = _f32_copy(logits)
+        vl = lf.shape[-1]
+        m = shd.all_gather(lf.amax(-1, keepdim=True), axis, 2).amax(-1)
+        i = t.long() - shd.axis_index(axis) * vl
+        inside = (i >= 0) & (i < vl)
+        i = i.clamp(0, vl - 1)
+        ll = torch.gather(lf, -1, i[..., None])[..., 0]
+        lse = torch.log(shd.psum(lf.sub_(m[..., None]).exp_().sum(-1), axis)) + m
+        del lf
+        ctx.save_for_backward(logits, lse, i, inside)
+        return lse - shd.psum(torch.where(inside, ll, 0.0), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, i, inside = ctx.saved_tensors
+        vl = logits.shape[-1]
+        rows = logits.reshape(-1, vl)
+        out = torch.empty_like(rows)
+        lse, i, off, g = (a.reshape(-1, 1) for a in (lse, i, -inside.to(lse.dtype), g))
+        for c in _row_chunks(rows):
+            p = _f32_copy(rows[c])
+            p.sub_(lse[c]).exp_().scatter_add_(-1, i[c], off[c])
+            out[c] = p.mul_(g[c])
+        return out.view(logits.shape), None, None
+
+
 def nll_from(p: Dict, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """``token_nll(logits_from(p, x), targets)``: (B, S) f32.  Under a mesh
     the head product runs inside the loss, vocab-parallel: each rank
@@ -203,8 +332,8 @@ def nll_from(p: Dict, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     holds more logits than its batch shard by its vocab slice, and the
     head's gradient returns as a partial sum over the batch's axis,
     reduce-scattered to the parameter's shard."""
-    mesh = shd.get_mesh()
-    if mesh is None or not isinstance(x, DTensor):
+    mesh = shd.region_mesh(x)
+    if mesh is None:
         return token_nll(logits_from(p, x), targets)
     vocab = shd.logical_spec("vocab")[0]
     key, vdim = ("head", 1) if "head" in p else ("tok", 0)
@@ -217,13 +346,7 @@ def nll_from(p: Dict, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         logits = logits_from({key: w}, xl)
         if axis is None:
             return token_nll(logits, t)
-        logits = logits.float()
-        vl = logits.shape[-1]
-        m = shd.all_gather(logits.detach().amax(-1, keepdim=True), axis, 2).amax(-1)
-        lse = torch.log(shd.psum(torch.exp(logits - m[..., None]).sum(-1), axis)) + m
-        i = t.long() - shd.axis_index(axis) * vl
-        ll = torch.gather(logits, -1, i.clamp(0, vl - 1)[..., None])[..., 0]
-        return lse - shd.psum(torch.where((i >= 0) & (i < vl), ll, 0.0), axis)
+        return _VocabParallelNLL.apply(logits, t, axis)
 
     return shd.shard_map(local, mesh=mesh,
                          in_specs=(shd.P(batch, None, None), w_spec, shd.P(batch, None)),

@@ -4,7 +4,8 @@ Chunk-parallel selective state space: per-head scalar decay
 ``a_t = exp(-exp(A_log) * dt_t)`` feeding the shared
 :mod:`repro_torch.models.linear_scan` machinery with q=C, k=B, v=dt*x.  C and
 B are passed broadcast over the heads and the decay over the state dim, as
-stride-0 views: nothing is materialized per head.  Includes the depthwise
+stride-0 views made on each rank (``linear_scan.chunked_on_shards``):
+nothing is materialized per head.  Includes the depthwise
 causal conv on (x, B, C), gated RMS norm, and the D skip connection.  Decode
 keeps (conv_state, ssd_state) per layer.  ``dt_bias``, ``A_log`` and
 ``norm`` stay float32 (the reference uses them on float32 values).
@@ -19,7 +20,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import constraint
 from repro_torch.models.layers import column_parallel
-from repro_torch.models.linear_scan import chunked_decay_attention, decay_attention_step
+from repro_torch.models.linear_scan import (chunked_decay_attention, chunked_on_shards,
+                                            decay_attention_step, step_on_shards)
 from repro_torch.models.params import ParamDef
 
 
@@ -90,25 +92,19 @@ def apply_mamba(
     xi, Bp, Cp = torch.split(xBC, [d_in, ns, ns], dim=-1)
 
     xh = xi.reshape(B, S, H, hd)
-    v = xh * dt.to(dt_f)[..., None]                                  # (B, S, H, hd)
-    q = Cp[:, :, None, :].expand(B, S, H, ns)                        # stride 0 over H
-    k = Bp[:, :, None, :].expand(B, S, H, ns)
-    log_w = (-torch.exp(p["A_log"])[None, None, :] * dt)[..., None]  # (B, S, H, 1)
-    log_w = log_w.expand(B, S, H, ns)                                # stride 0 over ns
-    # shard the (B, S, H, *) scan tensors over heads under a mesh (no-ops,
-    # and no copies of the stride-0 views, without one)
-    v = constraint(v, "batch", "seq", "heads", None)
-    q = constraint(q, "batch", "seq", "heads", None)
-    k = constraint(k, "batch", "seq", "heads", None)
-    log_w = constraint(log_w, "batch", "seq", "heads", None)
+    v = constraint(xh * dt.to(dt_f)[..., None], "batch", "seq", "heads", None)  # (B, S, H, hd)
+    log_w = -torch.exp(p["A_log"])[None, None, :] * dt               # (B, S, H)
 
+    # q = C and k = B (B, S, ns), shared by every head, and the per-head
+    # decay are broadcast over the heads and the state dim on each rank
     ssd_prev = state.ssd if state is not None else None
     if S == 1 and state is not None:
-        y1, ssd_new = decay_attention_step(q[:, 0], k[:, 0], v[:, 0], log_w[:, 0], ssd_prev)
+        y1, ssd_new = step_on_shards(Cp[:, 0], Bp[:, 0], v[:, 0], log_w[:, 0], ssd_prev,
+                                     step=decay_attention_step)
         y = y1[:, None]
     else:
-        y, ssd_new = chunked_decay_attention(
-            q, k, v, log_w, initial_state=ssd_prev, return_state=True)
+        y, ssd_new = chunked_on_shards(Cp, Bp, v, log_w, initial_state=ssd_prev,
+                                       chunked=chunked_decay_attention)
     y = y + p["D"][None, None, :, None] * xh
     y = y.reshape(B, S, d_in)
 

@@ -146,7 +146,7 @@ def _moe_math(
 def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux loss, f32 scalar)."""
     B, S, d = x.shape
-    mesh = shd.get_mesh()
+    mesh = shd.region_mesh()
     if mesh is None:
         out, aux = _moe_math(x.reshape(B * S, d), p["router"], p["wg"], p["wu"], p["wo"], cfg)
         return out.reshape(B, S, d), aux

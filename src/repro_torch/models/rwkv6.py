@@ -15,9 +15,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import constraint, gather_dim
+from repro_torch.dist.sharding import constraint, flatten, gather_dim, unflatten
 from repro_torch.models.layers import column_parallel
-from repro_torch.models.linear_scan import chunked_decay_attention, decay_attention_step
+from repro_torch.models.linear_scan import (chunked_decay_attention, chunked_on_shards,
+                                            decay_attention_step, step_on_shards)
 from repro_torch.models.params import ParamDef
 
 LORA_R = 64
@@ -82,16 +83,18 @@ def apply_time_mix(
     x: torch.Tensor,                     # (B, S, d)
     state: Optional[RwkvState] = None,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
-    B, S, d = x.shape
+    S = x.shape[1]
     H, hd = _heads(cfg)
 
     xs = _shift(x, state.shift_tm if state is not None else None)
     dx = xs - x
     xr, xk, xv, xg, xw = (x + dx * p[f"mu_{n}"] for n in "rkvgw")
 
-    r = (xr @ p["wr"]).reshape(B, S, H, hd)
-    k = (xk @ p["wk"]).reshape(B, S, H, hd)
-    v = (xv @ p["wv"]).reshape(B, S, H, hd)
+    # the heads split off the projections' columns (under a mesh gathered
+    # first where the columns' shards do not fall on whole heads)
+    r = unflatten(xr @ p["wr"], -1, (H, hd))
+    k = unflatten(xk @ p["wk"], -1, (H, hd))
+    v = unflatten(xv @ p["wv"], -1, (H, hd))
     g = F.silu(xg @ p["wg"])
     r = constraint(r, "batch", "seq", "heads", None)
     k = constraint(k, "batch", "seq", "heads", None)
@@ -99,24 +102,24 @@ def apply_time_mix(
 
     # data-dependent decay (Finch): w = exp(-exp(w0 + lora(xw)))
     lora = torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
-    log_w = -torch.exp(
+    log_w = unflatten(-torch.exp(
         torch.clamp(p["w0"][None, None] + lora.float(), -8.0, 4.0)
-    ).reshape(B, S, H, hd)
+    ), -1, (H, hd))
     log_w = constraint(log_w, "batch", "seq", "heads", None)
 
     wkv_prev = state.wkv if state is not None else None
     if S == 1 and state is not None:
-        y1, wkv_new = decay_attention_step(
-            r[:, 0], k[:, 0], v[:, 0], log_w[:, 0], wkv_prev, bonus=p["u"])
+        y1, wkv_new = step_on_shards(r[:, 0], k[:, 0], v[:, 0], log_w[:, 0], wkv_prev,
+                                     bonus=p["u"], step=decay_attention_step)
         y = y1[:, None]
     else:
-        y, wkv_new = chunked_decay_attention(
-            r, k, v, log_w, bonus=p["u"], initial_state=wkv_prev, return_state=True)
+        y, wkv_new = chunked_on_shards(r, k, v, log_w, bonus=p["u"], initial_state=wkv_prev,
+                                       chunked=chunked_decay_attention)
 
     # per-head group norm, gate, out-projection
     yf = y.float()
     yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
-    y = (yf.reshape(B, S, d) * p["ln_scale"]).to(x.dtype) * g
+    y = (flatten(yf, 2, 3) * p["ln_scale"]).to(x.dtype) * g
     out = constraint(y @ p["wo"], "batch", "seq_res", None)
 
     if state is not None:

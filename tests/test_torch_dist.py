@@ -46,8 +46,9 @@ from repro_torch.train.step import value_and_grad  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.tree import leaves, tree_map  # noqa: E402
 from torch_dist_ranks import (CHANNEL_MIX_SHAPES, DECODE_LEN_REC, DECODE_RING,  # noqa: E402
-                              mamba_local, paths_inputs, paths_local, run_ranks, split_inputs,
-                              split_local)
+                              STATE_BLOCKS, STATE_S, mamba_local, paths_inputs, paths_local,
+                              run_ranks, split_inputs, split_local, state_close, state_inputs,
+                              state_local)
 
 MOE_ARCH = "granite_moe_1b_a400m"
 TOL = 1e-5
@@ -415,6 +416,32 @@ def test_vocab_parallel_loss_on_a_2x4_mesh(paths_2x4, form):
         _close(o[f"loss/{form}"], want, form)
 
 
+@pytest.mark.parametrize("form", ["tok", "head"])
+def test_vocab_parallel_loss_function_is_bit_equal_to_its_ops(paths_2x4, form):
+    """Port fault P2's repair: the loss after the head product is one
+    autograd function; its forward runs the ops the local function ran
+    under autograd before, in the same order, so the loss on the (2, 4)
+    mesh is bit-equal to theirs (``torch_dist_ranks._nll_before``), tied
+    (the table) and untied (the head)."""
+    _, outs, _ = paths_2x4
+    for o in outs:
+        assert o["loss_checks"][f"bit_equal/{form}"]
+
+
+def test_vocab_parallel_loss_saves_no_f32_logits(paths_2x4):
+    """Port fault P2: in bfloat16, what autograd keeps for the loss's
+    backward on the (2, 4) mesh holds no float32 tensor as wide as the
+    vocab or a rank's slice of it (512 of 2048): the function saves the
+    bfloat16 logits, the f32 LSE (rows only) and the target's index and
+    mask.  Before, the f32 copy of the logits and the gather's were."""
+    _, outs, _ = paths_2x4
+    for o in outs:
+        saved = o["loss_checks"]["saved"]
+        assert ("torch.bfloat16", (2, 32, 512)) in saved, saved
+        wide = [(d, s) for d, s in saved if d == "torch.float32" and s and s[-1] in (512, 2048)]
+        assert not wide, wide
+
+
 @pytest.mark.parametrize("impl", ["chunked", "naive"])
 def test_query_head_attention_on_a_2x4_mesh(paths_2x4, impl):
     """Port fault F7's repair: 4 query heads on 2 KV heads, "model" 4, so
@@ -477,6 +504,50 @@ def test_mamba_projections_on_a_2x4_mesh(tmp_path):
     for o in outs:
         assert o["mamba_columns"] == [(16, 4)]
         _close(o["mamba/step"], local["mamba/step"], "mamba")
+
+
+STATE_MESHES = {"2x4": [2, 4], "1x4": [1, 4]}
+
+
+@pytest.fixture(scope="module", params=list(STATE_MESHES))
+def state_on_mesh(request, tmp_path_factory):
+    """``case_state`` (port fault F14's repair) on a mesh and without one, on
+    the same seeded inputs."""
+    work = tmp_path_factory.mktemp(f"state_{request.param}")
+    inp = state_inputs()
+    torch.save(inp, work / "inputs.pt")
+    mesh = STATE_MESHES[request.param]
+    outs = run_ranks("state", mesh[0] * mesh[1], work, RANK_TIMEOUT, mesh=mesh,
+                     axes=["data", "model"])
+    return mesh, outs, state_local(inp)
+
+
+@pytest.mark.parametrize("block", STATE_BLOCKS)
+def test_state_path_on_a_mesh(state_on_mesh, block):
+    """Port fault F14's repair: the smoke zamba2_7b's Mamba2 block and
+    rwkv6_7b's time mix over a ragged sequence (40 tokens: the chunked form
+    pads its last chunk) from a state, with the gradients of x, the state
+    and every param (the bonus u's summed over the batch's ranks), then a
+    decode step from the state it left, against the no-mesh path: each
+    output within 1e-5 of max(1, its largest) of the no-mesh path run in
+    float64, beyond the float32 no-mesh path's own distance from that run
+    (``state_close``: float32 rounding puts two of the time mix's gradients
+    1.4-1.6e-5 of their largest from it, with or without a mesh).  The
+    decay math (the chunked form and the step) runs inside ``shard_map`` on
+    plain tensors of the rank's rows and heads: no DTensor op of the decay,
+    which PyTorch 2.11's DTensor could not run.  Mamba2's 16 heads divide
+    "model" (4): each call holds 4; the time mix's 2 heads (of 64) do not:
+    each call holds both, the batch alone split."""
+    mesh, outs, local = state_on_mesh
+    assert STATE_S % 32
+    module, heads = {"mamba": ("mamba2", 16 // mesh[1]), "time_mix": ("rwkv6", 2)}[block]
+    for o in outs:
+        calls = [c for c in o["decay_calls"] if c[0] == module]
+        assert calls == [(module, "chunked_decay_attention", False, heads),
+                         (module, "decay_attention_step", False, heads)], o["decay_calls"]
+        mine = {k: v for k, v in o.items() if k.startswith(f"{block}/")}
+        state_close(mine, {r: {k: v for k, v in local[r].items() if k in mine} for r in local},
+                    TOL)
 
 
 def test_ring_segment_on_a_2x4_mesh(split_2x4):

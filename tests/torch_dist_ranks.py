@@ -203,6 +203,29 @@ def _spy_ring_positions():
     return widths
 
 
+def _spy_decay_heads(*modules):
+    """Wrap each block module's chunked form and step (the functions its
+    blocks hand to ``linear_scan.chunked_on_shards`` / ``step_on_shards``)
+    so that they keep, for each call, the module, the form, whether q was a
+    DTensor and the heads it held (a rank's own, inside ``shard_map``)."""
+    calls = []
+
+    def wrap(module, name):
+        inner = getattr(module, name)
+        block = module.__name__.rsplit(".", 1)[-1]
+
+        def spy(q, *a, **kw):
+            calls.append((block, name, hasattr(q, "to_local"), q.shape[-2]))
+            return inner(q, *a, **kw)
+
+        setattr(module, name, spy)
+
+    for m in modules:
+        wrap(m, "chunked_decay_attention")
+        wrap(m, "decay_attention_step")
+    return calls
+
+
 #: the repaired sharded paths' inputs: the smoke granite_moe_1b_a400m's
 #: widths (4 query heads on 2 KV, d 128, vocab padded to 2048)
 PATHS_ARCH = "granite_moe_1b_a400m"
@@ -214,6 +237,12 @@ DECODE_B, DECODE_MAIN, DECODE_RING, DECODE_LEN_REC = 4, 32, 16, 5
 #: the rwkv6 channel mix (port fault F9): (batch, seq) of a sequence, a
 #: decode step and a decode step of one sequence
 CHANNEL_MIX_SHAPES = {"seq": (4, 32), "step": (4, 1), "one": (1, 1)}
+#: the state path's blocks (port fault F14): the smoke zamba2_7b's Mamba2
+#: block and rwkv6_7b's time mix, over a ragged sequence (not a multiple of
+#: the 32-token chunk) from a state, then a decode step from the state it
+#: leaves
+STATE_BLOCKS = ("mamba", "time_mix")
+STATE_B, STATE_S = 4, 40
 
 
 def paths_inputs(seed: int = 0, B: int = 4, S: int = 32) -> dict:
@@ -265,6 +294,83 @@ def split_inputs(seed: int = 0) -> dict:
             "channel_mix": _channel_mix_inputs(normal),
             "decode": {arch: _decode_inputs(arch, normal, rng) for arch in DECODE_ARCHS},
             "mamba": _mamba_inputs(normal)}
+
+
+def state_inputs(seed: int = 0) -> dict:
+    """Seeded inputs of ``case_state``: for each of ``STATE_BLOCKS`` its
+    smoke params (every leaf drawn), a state, the sequence's x and
+    cotangents of its output and of the state it leaves, and the decode
+    step's x."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import mamba2, rwkv6
+    from repro_torch.models.params import map_defs
+
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32))
+
+    out = {}
+    for block, arch, defs, init in (
+            ("mamba", "zamba2_7b", mamba2.mamba_defs, mamba2.init_mamba_state),
+            ("time_mix", "rwkv6_7b", rwkv6.time_mix_defs, rwkv6.init_rwkv_state)):
+        cfg = get_config(arch).smoke()
+        st = init(cfg, STATE_B, torch.float32, device="cpu")
+        out[block] = {"params": map_defs(lambda d: normal(*d.shape, scale=0.1), defs(cfg)),
+                      "state": {k: normal(*v.shape, scale=0.1) for k, v in st._asdict().items()},
+                      "x": normal(STATE_B, STATE_S, cfg.d_model),
+                      "gout": normal(STATE_B, STATE_S, cfg.d_model),
+                      "gstate": normal(*st[-1].shape),
+                      "x_step": normal(STATE_B, 1, cfg.d_model)}
+    return out
+
+
+def _state_paths(inp, put, mesh) -> dict:
+    """Each of ``STATE_BLOCKS`` over the sequence from the given state with
+    the gradients of x, the state and every param (the cotangents on the
+    output and on the decay state it leaves), then a decode step from the
+    state it left: the sequence's output, state and gradients, the step's
+    output and state."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import mamba2, rwkv6
+    from repro_torch.models.params import spec_tree
+
+    out = {}
+    for block, arch, defs in (("mamba", "zamba2_7b", mamba2.mamba_defs),
+                              ("time_mix", "rwkv6_7b", rwkv6.time_mix_defs)):
+        cfg = get_config(arch).smoke()
+        b = inp[block]
+        p = {k: v.clone() for k, v in b["params"].items()}
+        if mesh is not None:
+            p = shd.device_put(p, shd.shardings_for(spec_tree(defs(cfg)), p, mesh))
+        p = {k: v.requires_grad_() for k, v in p.items()}
+        x = put(b["x"]).requires_grad_()
+        st = {k: put(v).requires_grad_() for k, v in b["state"].items()}
+        if block == "mamba":
+            y, new = mamba2.apply_mamba(p, cfg, x, mamba2.MambaState(**st))
+            decay, keep = new.ssd, new
+        else:
+            y, (shift, decay) = rwkv6.apply_time_mix(p, cfg, x, rwkv6.RwkvState(**st))
+            keep = rwkv6.RwkvState(shift, st["shift_cm"], decay)
+        ((y * put(b["gout"])).sum() + (decay * put(b["gstate"])).sum()).backward()
+        out[f"{block}/seq"] = {"out": _full(y), "state": _full(decay), "x": _full(x.grad),
+                               **{f"state.{k}": _full(v.grad) for k, v in st.items()
+                                  if v.grad is not None},
+                               **{k: _full(v.grad) for k, v in p.items()}}
+        keep = type(keep)(*(t.detach() for t in keep))
+        with torch.no_grad():
+            if block == "mamba":
+                y, new = mamba2.apply_mamba(p, cfg, put(b["x_step"]), keep)
+                states = new._asdict()
+            else:
+                y, (shift, decay) = rwkv6.apply_time_mix(p, cfg, put(b["x_step"]), keep)
+                states = {"shift_tm": shift, "wkv": decay}
+        out[f"{block}/step"] = {"out": _full(y), **{k: _full(v) for k, v in states.items()}}
+    return out
 
 
 def _channel_mix_inputs(normal) -> dict:
@@ -488,6 +594,41 @@ def mamba_local(inp) -> dict:
     return _mamba_paths(inp["mamba"], lambda t, weight=None: t.clone(), None)
 
 
+def state_local(inp) -> dict:
+    """``_state_paths`` without a mesh, as it runs (float32) and in float64
+    (the inputs and params cast, the code's own float32 casts kept: the
+    decay math, the norms): ``{"f32": ..., "f64": ...}``.  The float64 run is
+    the referee of gradients that float32 cannot give to 1e-5 of their
+    largest in any reduction order: over these inputs the float32 no-mesh
+    path's gradient of the time mix's mu_r is 1.6e-5 of its largest from
+    it, the (2, 4) mesh's 2.9e-6."""
+    from repro_torch.tree import tree_map
+
+    def run(cast):
+        return _state_paths(tree_map(cast, inp), lambda t, weight=None: t.clone(), None)
+
+    return {"f32": run(lambda t: t),
+            "f64": run(lambda t: t.double() if t.is_floating_point() else t)}
+
+
+def state_close(mine: dict, local: dict, tol: float) -> float:
+    """The largest of ``mine``'s distances from the float64 no-mesh run
+    less the float32 no-mesh run's own, each over max(1, the output's
+    largest), over every output of every path; asserts it is at most
+    ``tol``: the mesh is no farther from float64 than the float32 path
+    without a mesh, beyond ``tol`` of each output's largest."""
+    worst = 0.0
+    for path, vals in local["f64"].items():
+        for k, v in vals.items():
+            f32 = local["f32"][path][k]
+            scale = max(1.0, float(f32.abs().max()))
+            own = float((f32.double() - v).abs().max())
+            err = (float((mine[path][k].double() - v).abs().max()) - own) / scale
+            assert err <= tol, f"{path} {k}: {err:.3e} of {scale:.3f} beyond the f32 path's {own:.3e}"
+            worst = max(worst, err)
+    return worst
+
+
 def _put_on(mesh):
     """``put`` for ``_paths`` under the mesh: the weights placed as the
     model's params ("embed" over "data", the vocab over "model"), every
@@ -504,9 +645,73 @@ def _put_on(mesh):
     return put
 
 
+def _nll_before(p, x, targets):
+    """``layers.nll_from`` under a mesh as it was before its loss became one
+    autograd function (port fault P2): the same ops on the f32 copy of the
+    logits under autograd, kept to hold the function's loss bit-equal."""
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import layers as L
+
+    mesh = shd.get_mesh()
+    vocab = shd.logical_spec("vocab")[0]
+    key, vdim = ("head", 1) if "head" in p else ("tok", 0)
+    w_spec = shd.filter_spec(shd.P(None, vocab) if vdim else shd.P(vocab, None), p[key].shape,
+                             mesh)
+    axis = L._vocab_axis(w_spec, vdim)
+    batch = shd.filter_spec(shd.logical_spec("batch"), x.shape[:1], mesh)[0]
+
+    def local(xl, w, t):
+        logits = L.logits_from({key: w}, xl).float()
+        vl = logits.shape[-1]
+        m = shd.all_gather(logits.detach().amax(-1, keepdim=True), axis, 2).amax(-1)
+        lse = torch.log(shd.psum(torch.exp(logits - m[..., None]).sum(-1), axis)) + m
+        i = t.long() - shd.axis_index(axis) * vl
+        ll = torch.gather(logits, -1, i.clamp(0, vl - 1)[..., None])[..., 0]
+        return lse - shd.psum(torch.where((i >= 0) & (i < vl), ll, 0.0), axis)
+
+    return shd.shard_map(local, mesh=mesh,
+                         in_specs=(shd.P(batch, None, None), w_spec, shd.P(batch, None)),
+                         out_specs=shd.P(batch, None))(x, p[key], targets)
+
+
+def _loss_checks(inp, put) -> dict:
+    """The vocab-parallel loss (port fault P2) against ``_nll_before``, tied
+    and untied, bit for bit; and in bfloat16 (x and the head), the (dtype,
+    shape) of every tensor autograd saves for the loss's backward (a
+    DTensor's global shape; inside ``shard_map``, the rank's)."""
+    import torch
+    from repro_torch.models import layers as L
+
+    out = {}
+    for tied in (True, False):
+        name = "tok" if tied else "head"
+        p = {"tok": put(inp["tok"], "tok")}
+        if not tied:
+            p["head"] = put(inp["head"], "head")
+        x, t = put(inp["x"]), put(inp["targets"])
+        with torch.no_grad():
+            mine, before = L.nll_from(p, x, t), _nll_before(p, x, t)
+        out[f"bit_equal/{name}"] = bool(torch.equal(_full(mine), _full(before)))
+    saved = []
+
+    def pack(t):
+        saved.append((str(t.dtype), tuple(t.shape)))
+        return t
+
+    x = put(inp["x"].bfloat16()).requires_grad_()
+    head = put(inp["head"].bfloat16(), "head").requires_grad_()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss = L.nll_from({"tok": put(inp["tok"].bfloat16(), "tok"), "head": head}, x,
+                          put(inp["targets"])).mean()
+    loss.backward()
+    out["saved"] = saved
+    return out
+
+
 def case_paths(mesh, args, workdir):
-    """``_paths`` under the mesh (``_put_on``), and the query heads of each
-    local attention call."""
+    """``_paths`` under the mesh (``_put_on``), the query heads of each
+    local attention call, and ``_loss_checks``."""
     import torch
     from repro_torch.dist import sharding as shd
 
@@ -514,6 +719,7 @@ def case_paths(mesh, args, workdir):
     heads = _spy_attention_heads()
     with shd.use_mesh(mesh), shd.spmd():
         out = _paths(inp, _put_on(mesh))
+        out["loss_checks"] = _loss_checks(inp, _put_on(mesh))
     out["q_heads"] = sorted(set(heads))
     return out
 
@@ -538,12 +744,24 @@ def case_split(mesh, args, workdir):
     return out
 
 
+def case_state(mesh, args, workdir):
+    """``_state_paths`` (port fault F14) under the mesh, and each call of the
+    decay math: its name, whether q was a DTensor, and its heads."""
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import mamba2, rwkv6
+
+    inp = torch.load(workdir / "inputs.pt")
+    calls = _spy_decay_heads(mamba2, rwkv6)
+    with shd.use_mesh(mesh), shd.spmd():
+        out = _state_paths(inp, _put_on(mesh), mesh)
+    out["decay_calls"] = sorted(set(calls))
+    return out
+
+
 def case_mamba(mesh, args, workdir):
     """``_mamba_paths`` (port fault F12) under the mesh, and (all columns,
-    the rank's) of Mamba2's B, C and dt.  A rank run of its own: PyTorch
-    2.11's DTensor cannot run the decay step's einsum over batch- and
-    head-sharded operands (port fault F14), so the card machine's probe
-    leaves it out."""
+    the rank's) of Mamba2's B, C and dt."""
     import torch
     from repro_torch.dist import sharding as shd
     from repro_torch.models import mamba2
@@ -611,7 +829,7 @@ def case_trainer(mesh, args, workdir):
 
 CASES = {"moe": case_moe, "train": case_train, "psum": case_psum, "restore": case_restore,
          "trainer": case_trainer, "paths": case_paths, "split": case_split,
-         "mamba": case_mamba}
+         "mamba": case_mamba, "state": case_state}
 
 
 def main() -> None:
