@@ -177,7 +177,13 @@ SOURCES = {
                                       "src/repro/kernels/decay_attention/kernel.py:79"),
     "decay_attention:scalar_tc_f32": ("src/repro_torch/csrc/decay_attention.cu",
                                       "src/repro/kernels/decay_attention/kernel.py:79"),
+    # the paged kernel's grouped-query path (decode_attention.cuh), timed at
+    # granite_moe_3b_a800m's group
+    "paged_attention:group": ("src/repro_torch/csrc/paged_attention.cu",
+                              "src/repro/kernels/paged_attention/kernel.py:74"),
 }
+# the kernels line's time and error rows of the path entries
+PATH_ROWS = {"paged_attention:group": ("paged_attention:moe", "moe-bf16")}
 # the full-width serving shapes (stablelm_1_6b, bf16)
 N_LAYERS, HEADS, HEAD_DIM, BLOCK = 24, 32, 64, 16
 NUM_BLOCKS, MAX_SEQS, MAX_BLOCKS = 2048, 8, 64
@@ -413,6 +419,75 @@ def main_lens():
     return sorted(int(x) for x in np.random.default_rng(0).integers(64, 1025, size=MAX_SEQS))
 
 
+def paged_path(group, D, dtype) -> str:
+    """The path the paged kernel takes for q of ``dtype`` at this group and
+    head width: its routing rule, read from the source (``route`` in
+    ``paged_attention.cu``), so that the rule is written once."""
+    return pa_ops.route(dtype, group, D)
+
+
+# the group path's edges: lengths around its 64-token splits and 16-token pages
+GROUP_LENS = [0, 1, 15, 16, 17, 63, 64, 65, 1024]
+
+
+def paged_check(name, out, lse, args, dtype, tol) -> float:
+    """The kernel's output and LSE against the plain version: within ``tol``,
+    bf16 outputs within one bf16 ulp, length-0 rows zero."""
+    plain, plain_lse = paged_plain(*args)
+    diff = (out.float() - plain.float()).abs()
+    err = diff.max().item()
+    lse_err = paged_lse_err(lse, plain_lse, name)
+    log(f"[kernels] paged_attention {name} ({pa_ops.last_path}): max_abs_err {err:.3e} (tol "
+        f"{tol:g}), LSE {lse_err:.3e} of max(1, |lse|) (tol {PAGED_LSE_TOL:g})")
+    check(out.dtype == args[0].dtype and out.shape == args[0].shape, f"{name}: output type/shape")
+    check(err < tol, f"paged_attention {name}: err {err} over tolerance")
+    if dtype == torch.bfloat16:
+        # kernel and plain version round the same f32 result to bf16
+        check(bool((diff <= BF16_ULP * plain.float().abs() + 1e-5).all()),
+              f"paged_attention {name}: more than one bf16 ulp from the plain version")
+    empty = args[4] <= 0
+    check(bool((out[empty] == 0).all()), f"{name}: a length-0 row must give zeros")
+    return err
+
+
+def paged_group_cases(gen) -> dict:
+    """The group path at granite_moe_3b_a800m's, qwen2_vl_72b's and
+    granite_34b's groups (3 x 64, 8 x 128, 48 x 128), over bf16 and fp8
+    pages, at the lengths of ``GROUP_LENS``; then one graphed call replayed
+    twice with new lengths and tables (the path keeps no state between
+    calls: its blocks merge in shared memory)."""
+    errs = {}
+    for Hq, Hkv, D in ((24, 8, 64), (64, 8, 128), (48, 1, 128)):
+        for pages in ("bf16", "fp8"):
+            args = list(paged_case(gen, len(GROUP_LENS), Hq, Hkv, D, GROUP_LENS, torch.bfloat16))
+            if pages == "fp8":
+                args[1], args[2] = args[1].to(torch.float8_e4m3fn), args[2].to(torch.float8_e4m3fn)
+            out, lse = pa_ops.paged_attention(*args, return_lse=True)
+            torch.cuda.synchronize()
+            name = f"group {Hq // Hkv}x{D} {pages} pages, lens {GROUP_LENS}"
+            check(pa_ops.last_path == "group", f"{name}: took the {pa_ops.last_path} path")
+            errs[name] = paged_check(name, out, lse, args, torch.bfloat16, 2e-2)
+    q, kp, vp, tbl, lens = paged_case(gen, MAX_SEQS, 64, 8, 128, main_lens(), torch.bfloat16)
+    pa_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)   # warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, lse = pa_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
+    base_tbl, base_lens = tbl.clone(), lens.clone()
+    for step, new_lens in enumerate(([1, 64, 65, 300, 500, 700, 900, 1000], main_lens()[::-1])):
+        lens.copy_(torch.tensor(new_lens, dtype=torch.int32))
+        # the pages for the new lengths: the table's rows reordered
+        tbl.copy_(base_tbl[torch.argsort(base_lens, descending=step == 0)])
+        graph.replay()
+        torch.cuda.synchronize()
+        name = f"group 8x128 graph replay {step + 1}, lens {new_lens}"
+        errs[name] = paged_check(name, out, lse, (q, kp, vp, tbl, lens), torch.bfloat16, 2e-2)
+    log("[kernels] paged_attention group path: one graph replayed twice with new lengths and "
+        "tables, each against the plain version")
+    del graph
+    return errs
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
@@ -438,23 +513,12 @@ def phase_kernels() -> dict:
         args = paged_case(gen, **kw)
         out, lse = pa_ops.paged_attention(*args, return_lse=True)
         torch.cuda.synchronize()
-        plain, plain_lse = paged_plain(*args)
-        diff = (out.float() - plain.float()).abs()
-        err = diff.max().item()
-        errs[name] = err
-        lse_err = paged_lse_err(lse, plain_lse, name)
-        log(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} (tol {TOL[kw['dtype']]:g}), "
-            f"LSE {lse_err:.3e} of max(1, |lse|) (tol {PAGED_LSE_TOL:g})")
-        check(out.dtype == kw["dtype"] and out.shape == args[0].shape, f"{name}: output type/shape")
-        check(err < TOL[kw["dtype"]], f"paged_attention {name}: err {err} over tolerance")
-        if kw["dtype"] == torch.bfloat16:
-            # kernel and plain version round the same f32 result to bf16
-            check(bool((diff <= BF16_ULP * plain.float().abs() + 1e-5).all()),
-                  f"paged_attention {name}: more than one bf16 ulp from the plain version")
-        if kw["lens"][0] == 0:
-            check(bool((out[0] == 0).all()), f"{name}: a length-0 row must give zeros")
+        want = paged_path(kw["Hq"] // kw["Hkv"], kw["D"], kw["dtype"])
+        check(pa_ops.last_path == want, f"{name}: took the {pa_ops.last_path} path, not {want}")
+        errs[name] = paged_check(name, out, lse, args, kw["dtype"], TOL[kw["dtype"]])
 
     errs.update(paged_fp8_case(gen))
+    errs.update(paged_group_cases(gen))
     errs.update(flash_cases())
     errs.update(decay_cases())
 
@@ -505,6 +569,8 @@ def paged_fp8_case(gen) -> dict:
         plain, plain_lse = paged_plain(q, kp, vp, tbl, lens)
         err = (out.float() - plain.float()).abs().max().item()
         name = f"fp8-pages-{str(qdt).split('.')[-1]}" + {1: "-mqa48", 8: "-vlm"}.get(Hkv, "")
+        want = paged_path(Hq // Hkv, D, qdt)
+        check(pa_ops.last_path == want, f"{name}: took the {pa_ops.last_path} path, not {want}")
         errs[name] = err
         lse_err = paged_lse_err(lse, plain_lse, name)
         log(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} (tol 2e-2), "
@@ -1235,6 +1301,10 @@ def check_served(engine, tag: str, jit: bool, launches: dict, n_requests: int, n
     check(launches["paged_attention"] == cfg.n_layers * engine.steps and engine.steps > 0,
           f"{tag} paged_attention launches {launches['paged_attention']} != "
           f"{cfg.n_layers} x {engine.steps} steps")
+    path = paged_path(cfg.n_heads // cfg.n_kv_heads, cfg.hd, getattr(torch, cfg.dtype))
+    check(launches[f"paged_attention:{path}"] == launches["paged_attention"],
+          f"{tag} {launches[f'paged_attention:{path}']} of {launches['paged_attention']} "
+          f"paged_attention launches on the {path} path")
     if forked:
         check(launches["block_copy"] > 0,
               f"{tag} the fork launched {launches['block_copy']} block copies")
@@ -1291,7 +1361,9 @@ def phase_granite_serve() -> dict:
         key = "graph" if jit else "eager"
         res[key] = {"ids": {r.rid: list(r.out) for r in done}, "steps": engine.steps,
                     "mean_decode_step_ms": statistics.mean(step_ms),
-                    "decode_steps_timed": len(step_ms), "paged_launches": launches["paged_attention"]}
+                    "decode_steps_timed": len(step_ms),
+                    "paged_launches": launches["paged_attention"],
+                    "group_launches": launches["paged_attention:group"]}
         log(f"{tag} {GRANITE_REQUESTS} requests x {GRANITE_NEW} ids in {engine.steps} steps: mean "
             f"decode step {res[key]['mean_decode_step_ms']:.2f} ms over {len(step_ms)} steps (host "
             f"clock incl. sync; steps that prefill or capture left out); {launches['paged_attention']} "
@@ -1397,6 +1469,7 @@ def phase_moe_serve() -> dict:
                     "decode_steps_timed": len(step_ms),
                     "mean_prefill_ms": statistics.mean(prefill_ms), "prefills": len(prefill_ms),
                     "paged_launches": launches["paged_attention"],
+                    "group_launches": launches["paged_attention:group"],
                     "block_copy_launches": launches["block_copy"],
                     "captures": engine.graphs.captures if jit else 0}
         log(f"{tag} {MOE_REQUESTS} requests x {MOE_NEW} ids in {engine.steps} steps: mean decode "
@@ -1530,6 +1603,7 @@ def phase_vlm() -> dict:
                         "mean_prefill_ms": statistics.mean(prefill_ms),
                         "mean_prompt_tokens": statistics.mean(len(r.prompt) for r in done),
                         "paged_launches": launches["paged_attention"],
+                        "group_launches": launches["paged_attention:group"],
                         "block_copy_launches": launches["block_copy"],
                         "captures": engine.graphs.captures if jit else 0}
             log(f"{tag} {VLM_REQUESTS} requests x {VLM_NEW} ids in {engine.steps} steps: mean "
@@ -2999,13 +3073,16 @@ def phase_roofline() -> dict:
 
 def time_ms(fn, reps: int) -> float:
     """Median device time of one call, with the 50 MB L2 flushed before each
-    (the main path finds every layer's pages cold)."""
+    (the main path finds every layer's pages cold).  The card then waits
+    (``torch.cuda._sleep``, ~0.5 ms) while the host enqueues the call, so
+    that a slow enqueue (after the profiler has run: 20-60 us) is not timed."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -3160,7 +3237,10 @@ def paged_group_times() -> dict:
     granite_moe_3b_a800m's (24 on 8 KV heads of 64, ``":moe"``) and
     qwen2_vl_72b's (64 on 8 KV heads of 128, ``":vlm"``).  The bound counts
     what the main shape's counts: each sequence's K and V rows once, its
-    table entries, the lengths, q and out."""
+    table entries, the lengths, q and out; the products (q.k and p.v, 2
+    flops a multiply-add) at the bf16 tensor cores' rate, where the group
+    path runs them (its P V as two bf16 products, which the bound does not
+    count: the least time of any design, as ``op_ms``)."""
     lens = main_lens()
     pages_read = sum(-(-n // BLOCK) for n in lens)
     times = {}
@@ -3179,11 +3259,13 @@ def paged_group_times() -> dict:
             "plain_ms": time_ms(lambda: paged_attention_ref(qg, kp, vp, tbl, lens_t, scale=scale),
                                 10),
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "ops_ms": 4 * Hq * D * sum(lens) / F32_FLOPS * 1e3,
+            "ops_ms": op_ms(4 * Hq * D * sum(lens), torch.bfloat16),
             "library_ms": None,
             "shape": f"B={MAX_SEQS} Hq={Hq} Hkv={Hkv} D={D} bs={BLOCK} lens={lens} bf16 "
-                     f"({arch} decode)",
+                     f"({arch} decode), {pa_ops.last_path} path",
         }
+        check(pa_ops.last_path == paged_path(Hq // Hkv, D, torch.bfloat16),
+              f"paged_attention:{key}: took the {pa_ops.last_path} path")
         del q, kp, vp
     torch.cuda.empty_cache()
     return times
@@ -3394,6 +3476,9 @@ def main() -> None:
         f"and its decode's encoder: {encdec['forward']['launches_total']} + "
         f"{encdec['enc_launches']}; flash_attention:xdec launches in its decode steps: "
         f"{encdec['step_launches']}")
+    log(f"[times] paged_attention:group launches on the graphed granite, MoE and vlm serves: "
+        f"{granite['graph']['group_launches']} + {moe['graph']['group_launches']} + "
+        f"{vlm['graph']['group_launches']}")
     launches = {"paged_attention": (serve_maint["launches"]["paged_attention"]
                                     + granite["graph"]["paged_launches"]
                                     + moe["graph"]["paged_launches"]
@@ -3408,9 +3493,14 @@ def main() -> None:
                                     + encdec["launches_total"]),
                 "decay_attention": sum(r["launches"] for r in state.values()),
                 "decay_attention:vector_tc_f32": state32["rwkv6_7b"]["launches"],
-                "decay_attention:scalar_tc_f32": state32["zamba2_7b"]["launches"]}
+                "decay_attention:scalar_tc_f32": state32["zamba2_7b"]["launches"],
+                "paged_attention:group": (granite["graph"]["group_launches"]
+                                          + moe["graph"]["group_launches"]
+                                          + vlm["graph"]["group_launches"])}
     errs["bulk_op"] = bitmap["max_abs_err"]
     times["bulk_op"] = times["bulk_op:and"]
+    for k, (time_row, err_row) in PATH_ROWS.items():
+        times[k], errs[k] = times[time_row], errs[err_row]
     line = {"kernels": []}
     for k, (source, replaces) in SOURCES.items():
         t = times[k]
@@ -3422,6 +3512,7 @@ def main() -> None:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
         check(all(math.isfinite(t[x]) for x in ("ms", "plain_ms", "bound_ms")), f"{k} times")
+        check(launches[k] > 0, f"{k}: no launch on the main path")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

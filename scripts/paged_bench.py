@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
-"""Time the paged-attention kernel at the serve's main shape on the card.
+"""Time the paged-attention kernel at the served models' decode shapes on the card.
 
-    python3 scripts/paged_bench.py [--root DIR ...] [--rounds N]
+    python3 scripts/paged_bench.py [--root DIR ...] [--rounds N] [--detail]
+                                   [--shape main|moe|vlm|mqa48 ...] [--path split|group]
 
 For each checkout root (default: this repository) it builds that tree's
-``csrc/paged_attention.cu`` and, at the shape the full-width stablelm_1_6b
-decode step gives the kernel (q (8, 32, 64) bf16, pools (2048, 16, 32, 64),
-the block table and lengths of ``chip_smoke.main_lens()``), checks it
+``csrc/paged_attention.cu`` and, at each ``--shape`` (default ``main``), the
+shape a served model's decode step gives the kernel: ``main``, the
+full-width stablelm_1_6b's (q (8, 32, 64) bf16, pools (2048, 16, 32, 64));
+``moe``, granite_moe_3b_a800m's (24 query heads on 8 KV heads of 64);
+``vlm``, qwen2_vl_72b's (64 on 8 of 128); ``mqa48``, granite_34b's (48 on
+one of 128); each with the block table and lengths of
+``chip_smoke.main_lens()`` (the shapes of ``chip_smoke.paged_group_times``,
+written here so that an older tree times at all of them), checks it
 against the plain version (the output within 2e-2 and one bf16 ulp; the LSE
 within 2e-5 of max(1, |lse|) where the tree returns one) and times it with
 ``chip_smoke.time_ms`` (CUDA events, L2 flushed, median of 50), over bf16
@@ -32,8 +38,13 @@ log-sum-exp), its ``layer_ms`` and its host time.
 
 Each root runs in a process of its own, the roots in turn for ``--rounds``
 rounds, so that two versions (an unpacked parent and this tree, say)
-compare inside one run on one card.  Prints the card's name and power
-limit, then one JSON line per root and round.
+compare inside one run on one card.  ``--path`` asks the tree's wrapper
+for one path of the kernel (``_launch(..., path=...)``: ``split``, the
+flash-decoding split kernel and its combine, or ``group``, the grouped-query
+path on tensor cores) where the routing would take the other, so both
+paths time at one shape in one tree; a tree without that argument fails.
+Prints the card's name and power limit, then one JSON line per root, round
+and shape.
 """
 from __future__ import annotations
 
@@ -47,18 +58,28 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _CHILD = r"""
 import json, sys
-root, detail = sys.argv[1], sys.argv[2] == "1"
+root, detail, shape, path = sys.argv[1], sys.argv[2] == "1", sys.argv[3], sys.argv[4]
 sys.path.insert(0, root)
 import chip_smoke as c
 import torch
+# (query heads, KV heads, head width) of each served model's decode step
+Hq, Hkv, D = {"main": (32, 32, 64), "moe": (24, 8, 64), "vlm": (64, 8, 128),
+              "mqa48": (48, 1, 128)}[shape]
 gen = torch.Generator(device="cuda").manual_seed(0)
 lens = c.main_lens()
-B, H, D, bs = c.MAX_SEQS, c.HEADS, c.HEAD_DIM, c.BLOCK
-q, kp, vp, tbl, lens_t = c.paged_case(gen, B, H, H, D, lens, torch.bfloat16)
-qg = q.reshape(B, H, 1, D)
+B, bs = c.MAX_SEQS, c.BLOCK
+q, kp, vp, tbl, lens_t = c.paged_case(gen, B, Hq, Hkv, D, lens, torch.bfloat16)
+qg = q.reshape(B, Hkv, Hq // Hkv, D)
 scale = D ** -0.5
 pages_read = sum(-(-n // bs) for n in lens)
-res = {"root": root, "lens": lens}
+res = {"root": root, "shape": shape, "lens": lens}
+kw_path = {} if path == "route" else {"path": path}
+
+
+def launch(*pools):
+    return c.pa_ops._launch(qg, *pools, tbl, lens_t, scale, **kw_path)
+
+
 flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
 
 
@@ -73,8 +94,9 @@ def kernel_us(fn, n=20):
         torch.cuda.synchronize()
     by = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and "paged" in e.name:
-            name = e.name.split("<")[0].split("::")[-1]
+        if e.device_type == torch.autograd.DeviceType.CUDA and ("paged" in e.name
+                                                                or "decode_kernel" in e.name):
+            name = e.name.split("<")[0].split("::")[-1].split("(")[0]
             by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / n
     return by
 
@@ -120,8 +142,9 @@ def clean_l2_ms(fn, reps=50, flush_l2=True):
 ok = True
 pool_sets = (("bf16", (kp, vp)), ("fp8", (kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn))))
 for key, pools in pool_sets:
-    got = c.pa_ops._launch(qg, *pools, tbl, lens_t, scale)
+    got = launch(*pools)
     torch.cuda.synchronize()
+    res[f"{key}_path"] = getattr(c.pa_ops, "last_path", None)
     out, lse = got if isinstance(got, tuple) else (got, None)
     kw = {"return_lse": True} if lse is not None else {}
     plain = c.paged_attention_ref(qg, *pools, tbl, lens_t, scale=scale, **kw)
@@ -135,26 +158,27 @@ for key, pools in pool_sets:
     res[f"{key}_ok"] = good
     ok = ok and good
     item = pools[0].element_size()
-    nbytes = (2 * sum(lens) * H * D * item + 2 * q.numel() * q.element_size()
+    nbytes = (2 * sum(lens) * Hkv * D * item + 2 * q.numel() * q.element_size()
               + pages_read * 4 + lens_t.numel() * 4)
     res[f"{key}_bound_ms"] = nbytes / c.HBM_BYTES_PER_S * 1e3
-    call = lambda: c.pa_ops._launch(qg, *pools, tbl, lens_t, scale)  # noqa: E731
+    call = lambda: launch(*pools)  # noqa: E731
     res[f"{key}_ms"] = c.time_ms(call, 50)
     if detail:   # the profiler last: once it has run, the host's launches are slower
         res[f"{key}_clean_l2_ms"] = clean_l2_ms(call)
         res[f"{key}_warm_l2_ms"] = clean_l2_ms(call, flush_l2=False)
         res[f"{key}_host_us"], res[f"{key}_host_us_min"] = host_us(call)
-if detail:   # one layer of the decode step: the call, then the current token merged
+if detail and shape == "main":   # one decode layer's attention: the call, the current token
     from repro_torch.serve import paged_runner
-    k_cur, v_cur = (torch.randn(B, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+    k_cur, v_cur = (torch.randn(B, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
                     for _ in range(2))
     seq_lens = lens_t + 1
     layer = lambda: paged_runner._paged_attention_with_current(  # noqa: E731
         q, kp, vp, tbl, seq_lens, k_cur, v_cur)
     res["layer_ms"] = c.time_ms(layer, 50)
     res["layer_host_us"], res["layer_host_us_min"] = host_us(layer, batches=30, n=10)
+if detail:
     for key, pools in pool_sets:
-        res[f"{key}_kernel_us"] = kernel_us(lambda: c.pa_ops._launch(qg, *pools, tbl, lens_t, scale))
+        res[f"{key}_kernel_us"] = kernel_us(lambda: launch(*pools))
 print(json.dumps(res), flush=True)
 sys.exit(0 if ok else 1)
 """
@@ -167,6 +191,10 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--detail", action="store_true",
                     help="also each kernel's device time and the time with a clean L2")
+    ap.add_argument("--shape", action="append", choices=("main", "moe", "vlm", "mqa48"),
+                    help="decode shape to time (repeatable; default: main)")
+    ap.add_argument("--path", choices=("route", "split", "group"), default="route",
+                    help="the kernel path to time (default: the one the routing takes)")
     args = ap.parse_args()
     roots = [str(Path(r).resolve()) for r in (args.root or [ROOT])]
     if shutil.which("nvidia-smi") is None:
@@ -176,8 +204,10 @@ def main() -> None:
     failed = False
     for _ in range(args.rounds):
         for root in roots:
-            r = subprocess.run([sys.executable, "-c", _CHILD, root, str(int(args.detail))], cwd=root)
-            failed |= r.returncode != 0
+            for shape in args.shape or ["main"]:
+                r = subprocess.run([sys.executable, "-c", _CHILD, root, str(int(args.detail)),
+                                    shape, args.path], cwd=root)
+                failed |= r.returncode != 0
     sys.exit(1 if failed else 0)
 
 

@@ -60,6 +60,21 @@
 //
 // fp8 pages are widened two at a time through the hardware's e4m3x2 -> f16x2
 // conversion.  No tensor cores: the work is bytes-bound.
+//
+// That is the "split" path, for q in f32, a group of one and groups over 64
+// (route()).  bf16 q with
+// a group of 2 to 64 at D = 64 or 128 (over bf16 or fp8 pages) takes the
+// "group" path instead (decode_attention.cuh): a block takes splits of 64
+// tokens of one (b, h) with the whole group, so each page is read once
+// whatever the group (the split path reads it again for every GH heads: 12
+// times at granite_34b's group of 48); the products run on tensor cores (q.k
+// exact, P V as a bf16 hi/lo pair, which holds the one-bf16-ulp check); the
+// blocks of a (b, h), up to eight, form a cluster and merge their partials
+// through distributed shared memory, so a call is one launch.  The path is
+// chosen by the types, the group and D alone; a path that fails raises, none
+// falls back.
+
+#include "decode_attention.cuh"
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -70,6 +85,7 @@
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 
 namespace {
 
@@ -470,8 +486,8 @@ __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
   }
 }
 
-// Floats of the f32 workspace: (m, l) then acc[D] for every (b, h, g) row
-// and split.
+// Floats of the split path's f32 workspace: (m, l) then acc[D] for every
+// (b, h, g) row and split.
 long long workspace_floats(int B, int Hkv, int group, int D, int bs, int max_blocks) {
   const long long parts = (long long)B * Hkv * group * split_count(bs, max_blocks);
   return parts * (2 + D);
@@ -569,26 +585,75 @@ cudaError_t launch_split(dim3 grid, cudaStream_t stream, const void* q, const vo
   return cudaGetLastError();
 }
 
-// Checks the shapes, picks the instance and launches the split kernel, then
-// the combine; a shape the kernel cannot take gives cudaErrorInvalidValue.
+// The group path: one launch of decode_attn::decode_kernel over the pages.
+template <int D, typename P>
+cudaError_t launch_group(const void* q, const void* k, const void* v, const void* tbl,
+                         const void* lens, void* out, void* lse, int B, int Hkv, int group,
+                         int bs, int max_blocks, int num_blocks, float scale,
+                         cudaStream_t stream) {
+  decode_attn::Params dp{};
+  dp.B = B, dp.Hkv = Hkv, dp.R = group;
+  dp.scale_log2 = scale * kLog2e;
+  dp.q = static_cast<const __nv_bfloat16*>(q);
+  dp.out = static_cast<__nv_bfloat16*>(out);
+  dp.lse = static_cast<float*>(lse);
+  dp.k = k, dp.v = v;
+  dp.tbl = static_cast<const int*>(tbl);
+  dp.lens = static_cast<const int*>(lens);
+  dp.bs = bs, dp.max_blocks = max_blocks, dp.num_blocks = num_blocks;
+  constexpr int kKeys = decode_attn::kKeys;
+  const long long splits = ((long long)max_blocks * bs + kKeys - 1) / kKeys;
+  if (splits > 0x7fffffff) return cudaErrorInvalidValue;
+  dp.max_splits = (int)splits;
+  return decode_attn::launch<D, kKeys, P>(dp, stream);
+}
+
+// The path a call takes: 1, the group path, for bf16 q with a group of 2 to
+// decode_attn::kMaxRows at D = 64 or 128, else 0, the split path.  A path
+// asked for (path >= 0) comes back where it can take the call, -1 where not.
+int route(bool bf16, int group, int D, int path) {
+  const bool group_ok =
+      bf16 && (D == 64 || D == 128) && group >= 1 && group <= decode_attn::kMaxRows;
+  if (path < 0) return group_ok && group >= 2 ? 1 : 0;
+  return path == 0 || (path == 1 && group_ok) ? path : -1;
+}
+
+// Checks the shapes, picks the path and the instance, and launches: the
+// group path's one kernel, or the split kernel and then the combine.
+// path: -1 routes by route(), 0 asks for the split path, 1 for the group
+// path.  Returns the path that ran (0 split, 1 group), or minus a
+// cudaError_t (cudaErrorInvalidValue for a shape the path cannot take).
 template <typename T, typename P>
 int launch(const void* q, const void* k, const void* v, const void* tbl, const void* lens,
            void* out, void* lse, int B, int Hkv, int group, int D, int bs, int max_blocks,
-           int num_blocks, float scale, void* stream_ptr) {
+           int num_blocks, float scale, int path, void* stream_ptr) {
   constexpr int kEpc = 16 / sizeof(P);
   if (B <= 0 || Hkv <= 0) return 0;
   if (group <= 0 || D <= 0 || bs <= 0 || max_blocks < 0 || D % (16 / (int)sizeof(T)) != 0 ||
       D % kEpc != 0)
-    return (int)cudaErrorInvalidValue;
+    return -(int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  path = route(kBf16, group, D, path);
+  if (path < 0) return -(int)cudaErrorInvalidValue;
+  if (path == 1) {
+    if constexpr (kBf16) {
+      const cudaError_t e =
+          D == 64 ? launch_group<64, P>(q, k, v, tbl, lens, out, lse, B, Hkv, group, bs,
+                                        max_blocks, num_blocks, scale, stream)
+                  : launch_group<128, P>(q, k, v, tbl, lens, out, lse, B, Hkv, group, bs,
+                                         max_blocks, num_blocks, scale, stream);
+      return e == cudaSuccess ? 1 : -(int)e;
+    }
+  }
   const int n_splits = split_count(bs, max_blocks);
-  if (n_splits > 65535) return (int)cudaErrorInvalidValue;
+  if (n_splits > 65535) return -(int)cudaErrorInvalidValue;
   const int chunks = D / kEpc;
   int nc = 1;
   while (nc * 32 < chunks) nc <<= 1;
   constexpr int kGh = kLaneFloats / kEpc;  // heads a block takes when group > 1
   const int gh = nc == 1 && group > 1 ? kGh : 1;
   const dim3 grid(B * Hkv * ((group + gh - 1) / gh), n_splits);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   float* ws_ml = static_cast<float*>(lse) + (long long)B * Hkv * group;
   float* ws_acc = ws_ml + 2LL * B * Hkv * group * n_splits;
 #define PAGED_SPLIT(NC, GH, TMA)                                                          \
@@ -614,12 +679,12 @@ int launch(const void* q, const void* k, const void* v, const void* tbl, const v
     else if constexpr (kEpc == 4)
       e = PAGED_SPLIT(16, 1, false);
     else
-      return (int)cudaErrorInvalidValue;
+      return -(int)cudaErrorInvalidValue;
   } else {
-    return (int)cudaErrorInvalidValue;
+    return -(int)cudaErrorInvalidValue;
   }
 #undef PAGED_SPLIT
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return -(int)e;
   // programmatic dependent launch: the combine's blocks may start while
   // the split kernel's last blocks run
   cudaLaunchAttribute attr[1];
@@ -636,19 +701,20 @@ int launch(const void* q, const void* k, const void* v, const void* tbl, const v
                          (const float*)ws_acc, static_cast<const int*>(lens),
                          static_cast<T*>(out), static_cast<float*>(lse), Hkv, group, D, bs,
                          max_blocks, pages_per_split(bs) * bs, n_splits);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  if (e != cudaSuccess) return -(int)e;
+  return -(int)cudaGetLastError();
 }
 
 }  // namespace
 
+// path as for launch().
 #define PAGED_ENTRY(NAME, T, P)                                                            \
   extern "C" int NAME(const void* q, const void* k, const void* v, const void* tbl,        \
                       const void* lens, void* out, void* lse, int B, int Hkv, int group,   \
-                      int D, int bs, int max_blocks, int num_blocks, float scale,          \
+                      int D, int bs, int max_blocks, int num_blocks, float scale, int path, \
                       void* stream) {                                                      \
     return launch<T, P>(q, k, v, tbl, lens, out, lse, B, Hkv, group, D, bs, max_blocks,    \
-                        num_blocks, scale, stream);                                        \
+                        num_blocks, scale, path, stream);                                  \
   }
 
 PAGED_ENTRY(paged_attention_f32, float, float)
@@ -659,11 +725,17 @@ PAGED_ENTRY(paged_attention_bf16_fp8, __nv_bfloat16, __nv_fp8_e4m3)
 // Tokens one block of the split kernel takes at this page size.
 extern "C" int paged_attention_split_tokens(int bs) { return pages_per_split(bs) * bs; }
 
-// Floats of f32 workspace a call at these shapes needs; the entry points take
-// it right after the LSE's B * Hkv * group floats, in one buffer.
-extern "C" long long paged_attention_workspace_floats(int B, int Hkv, int group, int D,
-                                                      int bs, int max_blocks) {
-  return workspace_floats(B, Hkv, group, D, bs, max_blocks);
+// The path a call takes, as route() gives it (q_bf16: 1 for bf16 q).
+extern "C" int paged_attention_path(int q_bf16, int group, int D, int path) {
+  return route(q_bf16 != 0, group, D, path);
+}
+
+// Floats of f32 workspace a call at these shapes needs on this path (0
+// split, 1 group: none); the entry points take it right after the LSE's
+// B * Hkv * group floats, in one buffer.
+extern "C" long long paged_attention_workspace_floats(int path, int B, int Hkv, int group,
+                                                      int D, int bs, int max_blocks) {
+  return path == 0 ? workspace_floats(B, Hkv, group, D, bs, max_blocks) : 0;
 }
 
 extern "C" const char* cuda_error_string(int status) {

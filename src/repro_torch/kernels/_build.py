@@ -2,7 +2,8 @@
 
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface under ``<repo>/build/kernels/`` (git-ignored),
-named by a hash of its source and flags, and loaded with ``ctypes``.  Nothing
+named by a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, and loaded with ``ctypes``.  Nothing
 is built when a module is imported: the CPU paths never touch this file's
 functions.  :func:`build` starts one ``nvcc`` per source, all at once.
 """
@@ -43,7 +44,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

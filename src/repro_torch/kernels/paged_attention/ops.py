@@ -10,10 +10,22 @@ widened to f32 in the kernel; the output is in q's type.  With
 ``return_lse`` the call also returns the f32 log-sum-exp of each query
 head's scaled, masked scores, (B, Hkv, group), -inf for a length-0 row.
 
-On the card one call makes two CUDA launches (the split kernel, then the
-combine) and counts one in ``kernels.launches["paged_attention"]``.  It reads
-neither ``seq_lens`` nor the table on the host, so it can be captured in a
-CUDA graph.
+The kernel takes one of two paths, chosen in the source by the types, the
+group and D alone (:func:`route`; a path that fails raises, none falls
+back):
+
+* ``"group"``: bf16 q with a group of 2 to 64 at D = 64 or 128, over bf16
+  or fp8 pages: the group on tensor cores, each page read once per
+  (sequence, KV head), a cluster of up to eight blocks a (sequence, KV
+  head) merging its partials in shared memory; one CUDA launch a call.
+* ``"split"``: every other call (f32 q, a group of one or over 64):
+  flash-decoding on CUDA cores, a split kernel and then a combine, two CUDA
+  launches a call.
+
+A call counts one in ``kernels.launches["paged_attention"]`` and one in
+``kernels.launches["paged_attention:<path>"]``, and sets ``last_path``.  It
+reads neither ``seq_lens`` nor the table on the host, so it can be captured
+in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -26,7 +38,11 @@ from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import ref as _ref
 
-__all__ = ["paged_attention", "split_tokens"]
+__all__ = ["paged_attention", "route", "split_tokens"]
+
+#: the kernel path of the last launch: "split" or "group" (see above)
+last_path = None
+_PATHS = ("split", "group")
 
 # (q dtype, page dtype) -> C entry point
 _ENTRY = {
@@ -86,22 +102,42 @@ def split_tokens(block_size: int) -> int:
 @functools.cache
 def _entry(name: str):
     fn = getattr(_build.library("paged_attention"), name)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=1024)
-def _workspace_floats(B, Hkv, group, D, bs, max_blocks) -> int:
+def _workspace_floats(path, B, Hkv, group, D, bs, max_blocks) -> int:
     """f32 floats of the split kernel's partials, (m, l, acc[D]) per
-    (b, h, g) and split."""
+    (b, h, g) and split; none on the group path (``path`` 1)."""
     fn = _build.library("paged_attention").paged_attention_workspace_floats
-    fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_longlong
-    return fn(B, Hkv, group, D, bs, max_blocks)
+    fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+    return fn(path, B, Hkv, group, D, bs, max_blocks)
 
 
-def _launch(q, k_pool, v_pool, block_tables, seq_lens, scale):
-    """The kernel on (B, Hkv, group, D) queries: (out, lse)."""
+@functools.lru_cache(maxsize=64)
+def _route(q_bf16: bool, group: int, D: int, want: int) -> int:
+    """The source's routing: the index of the path a call takes (``want``
+    -1) or of the one asked for where it can take the call, else -1."""
+    fn = _build.library("paged_attention").paged_attention_path
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    return fn(int(q_bf16), group, D, want)
+
+
+def route(q_dtype: torch.dtype, group: int, D: int) -> str:
+    """The path the kernel takes for q of this type at this group and head
+    width, ``"split"`` or ``"group"`` (builds the kernel)."""
+    return _PATHS[_route(q_dtype == torch.bfloat16, group, D, -1)]
+
+
+def _launch(q, k_pool, v_pool, block_tables, seq_lens, scale, path=None):
+    """The kernel on (B, Hkv, group, D) queries: (out, lse).  ``path``
+    ("split" or "group") asks for one path where the routing would take the
+    other, for timing both at one shape; a shape the path cannot take
+    raises."""
+    global last_path
     B, Hkv, group, D = q.shape
     nb, bs, hkv_pool, d_pool = k_pool.shape
     if v_pool.shape != k_pool.shape or (hkv_pool, d_pool) != (Hkv, D):
@@ -127,9 +163,12 @@ def _launch(q, k_pool, v_pool, block_tables, seq_lens, scale):
     out = torch.empty_like(q)
     if B == 0:
         return out, torch.empty(B, Hkv, group, dtype=torch.float32, device=q.device)
-    # one allocation: the LSE, then the workspace (the LSE keeps it alive)
+    # one allocation: the LSE, then the split path's workspace (the LSE keeps
+    # it alive); a path that cannot take the call gets none and is refused
+    want = -1 if path is None else _PATHS.index(path)
+    taken = _route(q.dtype == torch.bfloat16, group, D, want)
     n_lse = B * Hkv * group
-    buf = torch.empty(n_lse + _workspace_floats(B, Hkv, group, D, bs, tbl.shape[1]),
+    buf = torch.empty(n_lse + _workspace_floats(taken, B, Hkv, group, D, bs, tbl.shape[1]),
                       dtype=torch.float32, device=q.device)
     lse = buf[:n_lse].view(B, Hkv, group)
     lib = _build.library("paged_attention")
@@ -138,11 +177,14 @@ def _launch(q, k_pool, v_pool, block_tables, seq_lens, scale):
         status = _entry(entry)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tbl.data_ptr(),
             lens.data_ptr(), out.data_ptr(), buf.data_ptr(),
-            B, Hkv, group, D, bs, tbl.shape[1], nb, float(scale), stream,
+            B, Hkv, group, D, bs, tbl.shape[1], nb, float(scale), want, stream,
         )
-    # the source decides the split and the instance; shapes it cannot take
-    # come back as "invalid argument"
-    _build.check(lib, status, f"paged_attention (group={group}, D={D}, block_size={bs}, "
-                              f"{q.dtype}, pages {k_pool.dtype})")
+    # the source decides the path, the split and the instance; >= 0: the path
+    # that ran; < 0: minus a CUDA error (a shape it cannot take: "invalid
+    # argument")
+    _build.check(lib, max(-status, 0), f"paged_attention (group={group}, D={D}, "
+                                       f"block_size={bs}, {q.dtype}, pages {k_pool.dtype})")
+    last_path = _PATHS[status]
     kernels.launches["paged_attention"] += 1
+    kernels.launches[f"paged_attention:{last_path}"] += 1
     return out, lse

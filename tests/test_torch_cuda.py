@@ -350,6 +350,99 @@ def test_paged_attention_kernel_rejects_fp8_pages(cuda, case, q_dtype):
     _check_paged(out, lse, q, kp, vp, tbl, lens, 2e-2)
 
 
+# the group path's edges: lengths around its 64-token splits and the 16-token pages
+GROUP_LENS = [0, 1, 15, 16, 17, 63, 64, 65, 1024]
+
+
+def _group_inputs(seed, group, Hkv, D, pages, lens=GROUP_LENS, bs=16, maxb=64):
+    rng = np.random.default_rng(seed)
+    B, nb = len(lens), len(lens) * maxb
+    q = torch.from_numpy(rng.normal(size=(B, Hkv * group, D)).astype(np.float32)).cuda()
+    kp, vp = (torch.from_numpy(rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32)).cuda()
+              for _ in range(2))
+    tbl = np.full((B, maxb), -1, np.int32)
+    perm = rng.permutation(nb)
+    for b, n in enumerate(lens):
+        need = -(-n // bs)
+        tbl[b, :need] = perm[b * maxb:b * maxb + need]
+    page_dt = torch.float8_e4m3fn if pages == "fp8" else torch.bfloat16
+    return (q.to(torch.bfloat16), kp.to(page_dt), vp.to(page_dt), torch.from_numpy(tbl).cuda(),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "fp8"])
+@pytest.mark.parametrize("group,Hkv,D", [(3, 8, 64), (8, 8, 128), (48, 1, 128), (2, 4, 64),
+                                         (64, 1, 64)])
+def test_paged_attention_group_path_at_served_groups(cuda, group, Hkv, D, pages):
+    """bf16 q with a group of two or more at D 64 or 128 takes the group
+    path (granite_moe_3b_a800m's 3 x 64, qwen2_vl_72b's 8 x 128, granite_34b's
+    48 x 128, and two more), over bf16 and fp8 pages: within 2e-2 and one
+    bf16 ulp of the plain version, the LSE too, length-0 rows zero."""
+    args = _group_inputs(group * D, group, Hkv, D, pages)
+    before = kernels.launches["paged_attention:group"]
+    out, lse = pg_ops.paged_attention(*args, return_lse=True)
+    torch.cuda.synchronize()
+    assert pg_ops.last_path == "group" and kernels.launches["paged_attention:group"] == before + 1
+    _check_paged(out, lse, *args, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["split", "group"])
+def test_paged_attention_either_path_when_asked(cuda, path):
+    """``_launch(path=...)`` runs the path asked for (the bench times both):
+    the group path at a group of one, the split path at a group of 8."""
+    group = 1 if path == "group" else 8
+    q, kp, vp, tbl, lens = _group_inputs(3, group, 4, 64, "bf16")
+    out, lse = pg_ops._launch(q.reshape(len(GROUP_LENS), 4, group, 64), kp, vp, tbl, lens,
+                              64 ** -0.5, path=path)
+    torch.cuda.synchronize()
+    assert pg_ops.last_path == path
+    _check_paged(out.reshape(q.shape), lse, q, kp, vp, tbl, lens, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,group,D,path", [
+    (torch.bfloat16, 3, 64, "group"), (torch.bfloat16, 48, 128, "group"),
+    (torch.bfloat16, 64, 64, "group"), (torch.bfloat16, 65, 64, "split"),
+    (torch.bfloat16, 1, 128, "split"), (torch.bfloat16, 8, 32, "split"),
+    (torch.float32, 8, 64, "split"),
+])
+def test_paged_attention_route_and_workspace(cuda, dtype, group, D, path):
+    """The source's routing rule, and the f32 workspace behind the LSE: the
+    split path's partials, none on the group path."""
+    assert pg_ops.route(dtype, group, D) == path
+    taken = pg_ops._PATHS.index(path)
+    floats = pg_ops._workspace_floats(taken, 2, 4, group, D, 16, 8)
+    assert (floats == 0) == (path == "group")
+    q = torch.zeros(2, 4, group, D, dtype=dtype, device="cuda")
+    kp = torch.zeros(16, 16, 4, D, dtype=dtype, device="cuda")
+    tbl = torch.zeros(2, 8, dtype=torch.int32, device="cuda")
+    lens = torch.tensor([5, 0], dtype=torch.int32, device="cuda")
+    pg_ops._launch(q, kp, kp, tbl, lens, 0.125)
+    assert pg_ops.last_path == path
+
+
+@pytest.mark.cuda
+def test_paged_attention_group_path_replays_in_a_cuda_graph(cuda):
+    """One group-path call captured in a CUDA graph and replayed twice with
+    new lengths and tables: each replay matches the plain version."""
+    q, kp, vp, tbl, lens = _group_inputs(9, 8, 8, 128, "bf16", lens=[300] * 8)
+    pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)    # build, warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, lse = pg_ops.paged_attention(q, kp, vp, tbl, lens, return_lse=True)
+    assert pg_ops.last_path == "group"
+    base = tbl.clone()
+    for step, new in enumerate(([1, 64, 65, 200, 1000, 1024, 0, 129], [1024, 513, 2, 64, 0, 17, 300, 800])):
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        tbl.copy_(base.roll(step + 1, 0))
+        graph.replay()
+        torch.cuda.synchronize()
+        _check_paged(out, lse, q, kp, vp, tbl, lens, 2e-2)
+
+
 @pytest.mark.cuda
 def test_paged_attention_kernel_rejects_fp8_q(cuda):
     kp = torch.zeros(4, 16, 2, 64, device="cuda").to(torch.float8_e4m3fn)
@@ -1101,9 +1194,11 @@ def test_paged_decode_step_graph_counts_its_launches_per_replay(cuda):
         toks, pos, tbl, lens = _decode_inputs(cfg, 3, step)
         paged_decode_step_jit(params, cfg, toks, pos, kp, vp, tbl, lens, graphs=graphs)
         assert kernels.launches["paged_attention"] == step * cfg.n_layers
-    assert sum(kernels.launches.values()) == 4 * cfg.n_layers
+    path = pg_ops.last_path
+    assert sum(n for k, n in kernels.launches.items() if ":" not in k) == 4 * cfg.n_layers
+    assert kernels.launches[f"paged_attention:{path}"] == 4 * cfg.n_layers
     assert graphs.captures == 1 and graphs.steps[next(iter(graphs.steps))].launches == {
-        "paged_attention": cfg.n_layers}
+        "paged_attention": cfg.n_layers, f"paged_attention:{path}": cfg.n_layers}
 
 
 @pytest.mark.cuda

@@ -39,6 +39,13 @@ SHAPES = [
     (1, 4, 2, 128, 128, 64, True, "bfloat16"),
     (1, 48, 1, 33, 33, 128, True, np.float32),
     (1, 8, 2, 160, 160, 128, True, "bfloat16"),
+    # one and two query rows against ragged keys, full (cross attention in
+    # decode), at D 64 and 128, GQA 4 at one row
+    (2, 4, 4, 1, 129, 64, False, "bfloat16"),
+    (2, 4, 4, 2, 1000, 64, False, "bfloat16"),
+    (2, 4, 4, 1, 65, 128, False, "bfloat16"),
+    (1, 8, 2, 2, 200, 128, False, "bfloat16"),
+    (1, 16, 4, 1, 127, 64, False, "bfloat16"),
 ]
 
 

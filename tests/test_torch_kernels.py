@@ -21,12 +21,12 @@ from repro_torch.kernels.pud_bulk.ref import block_copy_ref  # noqa: E402
 TOL_F32 = 2e-5   # the reference's own paged-attention tolerance (f32)
 
 
-def _paged_inputs(seed, B, Hq, Hkv, D, nb, bs, maxb, zero_len_row=False):
+def _paged_inputs(seed, B, Hq, Hkv, D, nb, bs, maxb, zero_len_row=False, lens=None):
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, Hq, D)).astype(np.float32)
     kp = rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32)
     vp = rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32)
-    lens = rng.integers(1, maxb * bs, size=(B,))
+    lens = rng.integers(1, maxb * bs, size=(B,)) if lens is None else np.array(lens)
     if zero_len_row:
         lens[0] = 0
     tbl = np.full((B, maxb), -1, np.int32)
@@ -44,6 +44,12 @@ PAGED_CASES = [
     dict(B=3, Hq=16, Hkv=1, D=32, nb=64, bs=16, maxb=8),
     dict(B=3, Hq=8, Hkv=2, D=64, nb=32, bs=16, maxb=6, zero_len_row=True),
     dict(B=2, Hq=32, Hkv=2, D=64, nb=32, bs=16, maxb=5),
+    # the served groups (granite_moe_3b_a800m's 3, qwen2_vl_72b's 8,
+    # granite_34b's 48) at D 64 and 128, with lengths on both sides of the
+    # 16-token pages and of the card's 64-token splits
+    *[dict(B=4, Hq=group * Hkv, Hkv=Hkv, D=D, nb=40, bs=16, maxb=9, lens=lens)
+      for group, Hkv in ((3, 2), (8, 2), (48, 1)) for D in (64, 128)
+      for lens in ([1, 16, 17, 65] if D == 64 else [15, 63, 64, 129],)],
 ]
 
 
