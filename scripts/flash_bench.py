@@ -3,7 +3,7 @@
 
     python3 scripts/flash_bench.py [--root DIR ...] [--rounds N] [--forward N]
                                    [--dtype bfloat16|float32]
-                                   [--shape causal|full|d128|xdec ...] [--detail]
+                                   [--shape causal|full|d128|xdec|enc|vlm ...] [--detail]
 
 For each checkout root (default: this repository) it builds that tree's
 ``csrc/flash_attention.cu``, checks the kernel against the plain version and
@@ -15,7 +15,11 @@ mistral_nemo_12b's q (4, 32, 2048, 128) against k/v (4, 8, 2048, 128),
 causal (``d128_*``; the library with ``enable_gqa``, and also on k/v
 repeated to 32 heads beforehand, ``d128_sdpa_expanded_ms``), and (bf16
 only) seamless_m4t_medium's cross-attention decode, q (8, 16, 1, 64) against
-k/v (8, 16, 1024, 64), full (``xdec_*``, ``chip_smoke.FLASH_XDEC``), in
+k/v (8, 16, 1024, 64), full (``xdec_*``, ``chip_smoke.FLASH_XDEC``), its
+encoder and cross-attention prefill, q/k/v (4, 16, 2048, 64), full
+(``enc_*``, ``chip_smoke.FLASH_ENC``), and qwen2_vl_72b's q (4, 64, 2048,
+128) against k/v (4, 8, 2048, 128), causal (``vlm_*``, ``chip_smoke.FLASH_VLM``;
+the library with ``enable_gqa``, and on k/v repeated beforehand), in
 ``--dtype`` (bfloat16 by default; float32 times the f32 path, ``tf32x3`` in
 this tree and ``simt`` before it).  Each output is held to the plain version
 first (2e-2 bf16, 2e-5 f32; a miss is timed all the same and fails the run
@@ -99,9 +103,10 @@ def clean_l2_ms(fn, reps=50):
 
 # (key, B, Hq, Hkv, Sq, Sk, D, causal)
 shapes = [("causal", 4, 32, 32, 2048, 2048, 64, True), ("full", 4, 32, 32, 2048, 2048, 64, False),
-          ("d128", 4, 32, 8, 2048, 2048, 128, True), ("xdec", 8, 16, 16, 1, 1024, 64, False)]
+          ("d128", 4, 32, 8, 2048, 2048, 128, True), ("xdec", 8, 16, 16, 1, 1024, 64, False),
+          ("enc", 4, 16, 16, 2048, 2048, 64, False), ("vlm", 4, 64, 8, 2048, 2048, 128, True)]
 for key, B, Hq, Hkv, Sq, Sk, D, causal in shapes:
-    if key not in wanted or (dt != torch.bfloat16 and key in ("full", "xdec")):
+    if key not in wanted or (dt != torch.bfloat16 and key in ("full", "xdec", "enc", "vlm")):
         continue
     q, k, v = c.flash_inputs(gen, B, Hq, Hkv, Sq, Sk, D, dt)
     scale = D ** -0.5
@@ -159,7 +164,8 @@ def main() -> None:
                     help="also time this many eval and prefill forwards at 4 x 2048")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                     help="the kernels' input type (default bfloat16)")
-    ap.add_argument("--shape", action="append", choices=("causal", "full", "d128", "xdec"),
+    ap.add_argument("--shape", action="append",
+                    choices=("causal", "full", "d128", "xdec", "enc", "vlm"),
                     help="shape to time (repeatable; default: every shape of the type)")
     ap.add_argument("--detail", action="store_true",
                     help="also the kernel's device time and the times with the host's enqueue "
@@ -174,7 +180,8 @@ def main() -> None:
     for _ in range(args.rounds):
         for root in roots:
             r = subprocess.run([sys.executable, "-c", _CHILD, root, str(args.forward), args.dtype,
-                                ",".join(args.shape or ("causal", "full", "d128", "xdec")),
+                                ",".join(args.shape or ("causal", "full", "d128", "xdec", "enc",
+                                                        "vlm")),
                                 str(int(args.detail))],
                                cwd=root)
             failed |= r.returncode != 0

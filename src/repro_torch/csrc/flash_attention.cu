@@ -81,9 +81,12 @@
 //     out through each warpgroup's rows of its Q buffer by TMA.
 //     (PERF_HISTORY.md holds the variants measured and not kept: cp.async
 //     consumers without a producer; at D = 64 the turns of the two
-//     warpgroups, the split barriers and the TMA store; at D = 128 two
-//     products of width 64 for P V, a skipped rescale of O, 256-byte L2
-//     promotion.)
+//     warpgroups, the split barriers and the TMA store, a fourth stage, and
+//     O and the row sums rescaled only where a row's max passed the kept one
+//     by 2^8, with or without two P buffers; at D = 128 two products of
+//     width 64 for P V, a skipped rescale of O, 256-byte L2 promotion, and
+//     clusters of two blocks over a head pair sharing each K/V tile by TMA
+//     multicast.)
 //   * "mma": other bf16 with D a multiple of 16 up to 128, K/V rows on
 //     16-byte boundaries and q/out rows on 4-byte ones: one block per (q
 //     tile of 64 rows, query head, batch), the q tiles of a head in reverse

@@ -635,6 +635,27 @@ def test_flash_attention_kernel_with_other_scales(cuda, scale, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_on_rising_scores(cuda, causal, D):
+    """Keys moved along q's common direction by an amount that grows with
+    their position over the first half of the keys: each key tile's row
+    max passes the last one's by about ``rise`` in base-2 units there and
+    by nothing after, so O is rescaled by factors far from 1 and then
+    by 1."""
+    rise, key_tile = 12.0, 128       # base-2 units of score a tile of the kernel's keys
+    rng = np.random.default_rng(13)
+    q = rng.normal(size=(2, 4, 300, D)) + 2.0    # q . 1 is about 2 D
+    k = rng.normal(size=(2, 2, 1024, D))
+    v = rng.normal(size=(2, 2, 1024, D))
+    steps = np.minimum(np.arange(1024), 512)
+    k = k + (steps * rise / (math.log2(math.e) * 2.0 * D ** 0.5 * key_tile))[:, None]
+    q, k, v = [torch.from_numpy(a.astype(np.float32)).cuda().to(torch.bfloat16) for a in (q, k, v)]
+    _flash_check(q, k, v, causal)
+    assert fl_ops.last_path == "wgmma"
+
+
+@pytest.mark.cuda
 def test_flash_attention_raises_under_autograd(cuda):
     q, k, v = _flash_inputs(5, 1, 2, 2, 8, 8, 32, torch.float32)
     q.requires_grad_(True)
