@@ -1,0 +1,48 @@
+"""What the harness takes from the program (``repro_torch``, under the
+checkout's ``src/``): its config type, its model and its serving engine.
+Nothing here computes a result of its own."""
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+from portbench.arch import Arch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+
+def import_port():
+    """``repro_torch``, from the checkout's ``src/`` (raises where it is absent)."""
+    if not (SRC / "repro_torch").is_dir():
+        raise ImportError(f"the program is not in this checkout: no {SRC / 'repro_torch'}")
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import repro_torch
+    return repro_torch
+
+
+def port_config(a: Arch):
+    """The program's ``ModelConfig`` for ``a``.  The program's norms take an
+    epsilon of 1e-6 and no other: a configuration that states another
+    raises."""
+    import_port()
+    from repro_torch.configs.base import ModelConfig
+    if abs(a.norm_eps - 1e-6) > 1e-12:
+        raise ValueError(f"{a.name}: the program's norms take eps 1e-6, not {a.norm_eps}")
+    return ModelConfig(
+        name=a.name, family=a.family, n_layers=a.n_layers, d_model=a.d_model,
+        n_heads=a.n_heads, n_kv_heads=a.n_kv_heads, d_ff=a.d_ff, vocab_size=a.vocab_size,
+        head_dim=a.head_dim, rope="rope", rope_theta=a.rope_theta, n_experts=a.n_experts,
+        experts_per_tok=a.experts_per_tok, moe_capacity_factor=a.capacity_factor,
+        activation="swiglu", norm=a.norm, tie_embeddings=a.tie_embeddings, dtype=a.dtype,
+        kv_cache_dtype=a.dtype,
+    )
+
+
+def model(a: Arch, **kwargs):
+    """The program's model object for ``a`` (``kwargs``: ``LM``'s
+    ``attn_impl`` and ``remat``)."""
+    import_port()
+    from repro_torch.models.transformer import LM
+    return LM(port_config(a), **kwargs)
