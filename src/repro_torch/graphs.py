@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
+from repro_torch.trace import spans
 
 __all__ = ["CapturedStep", "GraphCache", "HostInputs", "decode_step_jit", "graph_cache"]
 
@@ -121,7 +122,7 @@ class HostInputs:
 
 class GraphCache:
     """Captured steps by key, in one memory pool; counts its captures and
-    their wall time (warm-up included)."""
+    their wall time (warm-up included), each a ``graph.capture`` span."""
 
     def __init__(self):
         self.steps: Dict[Hashable, CapturedStep] = {}
@@ -140,10 +141,11 @@ class GraphCache:
                 # PyTorch releases a pool with its last graph: capture into
                 # a new one
                 self.pool = torch.cuda.graph_pool_handle()
-            t0 = time.perf_counter()
-            step = make(self.pool)
-            torch.cuda.synchronize()
-            self.capture_ms += (time.perf_counter() - t0) * 1e3
+            with spans.span("graph.capture"):
+                t0 = time.perf_counter()
+                step = make(self.pool)
+                torch.cuda.synchronize()
+                self.capture_ms += (time.perf_counter() - t0) * 1e3
             self.captures += 1
             self.steps[key] = step
         return step

@@ -42,6 +42,7 @@ length would need a capture of its own.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import TYPE_CHECKING, Deque, Dict, List, Optional
 
@@ -58,6 +59,7 @@ from repro_torch.robustness import (
 )
 from repro_torch.graphs import graph_cache
 from repro_torch.serve.paged_runner import paged_decode_step_jit
+from repro_torch.trace import spans
 
 if TYPE_CHECKING:
     from repro_torch.robustness.faults import FaultInjector
@@ -100,6 +102,12 @@ class Request:
     tenant: Optional[str] = None           # traffic class (loadgen bookkeeping)
     preemptions: int = 0
     error: Optional[Exception] = None
+    # host ``perf_counter_ns`` stamps: submitted, first admitted, first token
+    # made, and done (or rejected or cancelled)
+    t_submit: Optional[int] = dataclasses.field(default=None, compare=False, repr=False)
+    t_admit: Optional[int] = dataclasses.field(default=None, compare=False, repr=False)
+    t_first: Optional[int] = dataclasses.field(default=None, compare=False, repr=False)
+    t_done: Optional[int] = dataclasses.field(default=None, compare=False, repr=False)
 
     def ctx_tokens(self) -> int:
         """Tokens whose KV must exist before the next decode step — the
@@ -172,6 +180,7 @@ class ServeEngine:
     def submit(self, req: Request) -> None:
         """Queue a request; raises :class:`RequestRejected` immediately if it
         can *never* be admitted (so no work is silently parked forever)."""
+        req.t_submit = time.perf_counter_ns()
         self.submitted += 1
         req.submit_clock = self.clock
         total_blocks = self.pool.blocks_for(len(req.prompt) + req.max_new)
@@ -190,6 +199,7 @@ class ServeEngine:
         req.status = "rejected"
         req.error = err
         req.finish_clock = self.clock
+        req.t_done = time.perf_counter_ns()
         self.rejected.append(req)
         raise err
 
@@ -222,12 +232,14 @@ class ServeEngine:
         req.status = "rejected"
         req.error = err
         req.finish_clock = self.clock
+        req.t_done = time.perf_counter_ns()
         self.rejected.append(req)
 
     def _cancel(self, req: Request, err: Exception) -> None:
         req.status = "cancelled"
         req.error = err
         req.finish_clock = self.clock
+        req.t_done = time.perf_counter_ns()
         self.cancelled.append(req)
 
     def _sweep_deadlines(self) -> None:
@@ -299,19 +311,20 @@ class ServeEngine:
         mc = self.maintenance
         if mc is None or self.clock - self._last_maintenance < mc.every:
             return
-        pool = self.pool.pool
-        total = pool.total_tiles
-        free_frac = pool.free_tiles() / total if total else 1.0
-        frag = pool.fragmentation()
-        contig = self.pool.contiguity_report()["mean_contiguous_fraction"]
-        if free_frac > mc.free_low and frag < mc.frag_high and contig > mc.contig_low:
-            return
-        self._last_maintenance = self.clock
-        report = self.pool.compact(max_moves=mc.max_moves)
-        if report is not None and report.executed:
-            self.compaction_passes += 1
-            self.blocks_migrated += report.executed
-            self.maintenance_ns += report.total_ns
+        with spans.span("engine.maintain"):
+            pool = self.pool.pool
+            total = pool.total_tiles
+            free_frac = pool.free_tiles() / total if total else 1.0
+            frag = pool.fragmentation()
+            contig = self.pool.contiguity_report()["mean_contiguous_fraction"]
+            if free_frac > mc.free_low and frag < mc.frag_high and contig > mc.contig_low:
+                return
+            self._last_maintenance = self.clock
+            report = self.pool.compact(max_moves=mc.max_moves)
+            if report is not None and report.executed:
+                self.compaction_passes += 1
+                self.blocks_migrated += report.executed
+                self.maintenance_ns += report.total_ns
 
     # -- prefill --------------------------------------------------------------
     def _prefill(self, req: Request) -> bool:
@@ -340,6 +353,7 @@ class ServeEngine:
             )
         if not req.out:
             req.out.append(int(torch.argmax(logits[0])))
+            req.t_first = time.perf_counter_ns()
         # account the pending token: it becomes the next decode input.
         # allow_preempt=False — admission must never evict decode progress.
         if not self._append_with_recovery(req.slot, allow_preempt=False):
@@ -358,22 +372,32 @@ class ServeEngine:
         """Admit + decode one token for all live seqs. False when idle.
 
         After the step, every registered ``step_hooks`` callable receives
-        ``(engine, step_sample())``, each its own copy."""
-        if self.trace is not None:
-            self._step_writes = []
+        ``(engine, step_sample())``, each its own copy.
+
+        The step is the root span ``engine.step`` (attributes: ``batch``,
+        ``admitted``, ``decoded``); its children are ``engine.admit`` (while
+        requests are queued; an ``engine.prefill`` a request admitted),
+        ``engine.batch``, ``engine.decode``, ``engine.readback`` and
+        ``engine.maintain`` (when a maintenance check is due), and its
+        attribute ``engine.kv_write`` sums the token K/V writes' ns.  What
+        the children leave of it is the bookkeeping."""
+        with spans.span("engine.step", clock=self.clock + 1) as sp:
             d0 = self.tokens_decoded
-        alive = self._step()
-        if self.trace is not None:
-            self.trace.on_step(
-                self.clock, self.tokens_decoded - d0, self._step_writes
-            )
-        if self.step_hooks:
-            sample = self.step_sample()
-            for hook in list(self.step_hooks):
-                hook(self, dict(sample))
+            if self.trace is not None:
+                self._step_writes = []
+            alive = self._step(sp)
+            sp.set(decoded=self.tokens_decoded - d0)
+            if self.trace is not None:
+                self.trace.on_step(
+                    self.clock, self.tokens_decoded - d0, self._step_writes
+                )
+            if self.step_hooks:
+                sample = self.step_sample()
+                for hook in list(self.step_hooks):
+                    hook(self, dict(sample))
         return alive
 
-    def _step(self) -> bool:
+    def _step(self, sp) -> bool:
         self.clock += 1
         self._sweep_deadlines()
 
@@ -381,30 +405,39 @@ class ServeEngine:
         #    admissible smaller requests behind it
         idx = 0
         scanned = 0
-        while idx < len(self.queue) and scanned < self.admission_lookahead:
-            req = self.queue[idx]
-            slot = self.pool.admit(req.ctx_tokens())
-            if slot is None:
-                idx += 1
-                scanned += 1
-                continue
-            # prefill appends the sampled token immediately: if that needs a
-            # growth block the pool doesn't have, leave the request queued.
-            if (self.pool.pool.free_tiles() == 0
-                    and self.pool.blocks_for(req.ctx_tokens() + 1)
-                    > self.pool.blocks_for(req.ctx_tokens())):
-                self.pool.release(slot)
-                idx += 1
-                scanned += 1
-                continue
-            del self.queue[idx]
-            req.slot = slot
-            req.status = "running"
-            req.admit_clock = self.clock
-            self.live[slot] = req
-            self._prefill(req)
+        admitted = 0
+        # an empty queue is no scan, and no span
+        with spans.span("engine.admit") if self.queue else spans.OFF:
+            while idx < len(self.queue) and scanned < self.admission_lookahead:
+                req = self.queue[idx]
+                slot = self.pool.admit(req.ctx_tokens())
+                if slot is None:
+                    idx += 1
+                    scanned += 1
+                    continue
+                # prefill appends the sampled token immediately: if that needs a
+                # growth block the pool doesn't have, leave the request queued.
+                if (self.pool.pool.free_tiles() == 0
+                        and self.pool.blocks_for(req.ctx_tokens() + 1)
+                        > self.pool.blocks_for(req.ctx_tokens())):
+                    self.pool.release(slot)
+                    idx += 1
+                    scanned += 1
+                    continue
+                del self.queue[idx]
+                req.slot = slot
+                req.status = "running"
+                req.admit_clock = self.clock
+                if req.t_admit is None:
+                    req.t_admit = time.perf_counter_ns()
+                self.live[slot] = req
+                admitted += 1
+                with spans.span("engine.prefill", device=self.device, rid=req.rid) as pf:
+                    pf.set(tokens=req.ctx_tokens())
+                    self._prefill(req)
 
         if not self.live:
+            sp.set(admitted=admitted, batch=0)
             if not self.queue:
                 return False
             # empty batch, non-empty queue: a stall.  Tolerate a few steps
@@ -428,30 +461,36 @@ class ServeEngine:
         self._stall_steps = 0
 
         # 2) fused decode for all live sequences
-        slots = sorted(self.live)
-        cfg = self.cfg
-        tbl_full = self.pool.block_table()
-        lens_full = self.pool.seq_lens()
-        tokens = np.array([[self.live[s].out[-1]] for s in slots], np.int64)
-        positions = np.array([[lens_full[s] - 1] for s in slots], np.int64)
-        if cfg.rope == "mrope":
-            positions = np.repeat(positions[..., None], 3, axis=-1)
+        with spans.span("engine.batch"):
+            slots = sorted(self.live)
+            cfg = self.cfg
+            tbl_full = self.pool.block_table()
+            lens_full = self.pool.seq_lens()
+            tokens = np.array([[self.live[s].out[-1]] for s in slots], np.int64)
+            positions = np.array([[lens_full[s] - 1] for s in slots], np.int64)
+            if cfg.rope == "mrope":
+                positions = np.repeat(positions[..., None], 3, axis=-1)
+        sp.set(admitted=admitted, batch=len(slots))
 
         # graphed, these are the graph's own outputs: consumed below, before
         # the next replay
-        logits, new_k, new_v = paged_decode_step_jit(
-            self.params, cfg, tokens, positions, self.pool.k, self.pool.v,
-            tbl_full[slots], lens_full[slots], graphs=self.graphs,
-        )
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        with spans.span("engine.decode", device=self.device):
+            logits, new_k, new_v = paged_decode_step_jit(
+                self.params, cfg, tokens, positions, self.pool.k, self.pool.v,
+                tbl_full[slots], lens_full[slots], graphs=self.graphs,
+            )
+        with spans.span("engine.readback"):
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
 
         # 3) write current-token KV into PUMA-placed blocks, advance seqs
+        kv_write = spans.part("engine.kv_write")
         for bi, slot in enumerate(slots):
             if slot not in self.live:
                 continue                    # preempted earlier this loop
             req = self.live[slot]
-            for li in range(cfg.n_layers):
-                self.pool.write_token_kv(slot, li, new_k[li, bi], new_v[li, bi])
+            with kv_write:
+                for li in range(cfg.n_layers):
+                    self.pool.write_token_kv(slot, li, new_k[li, bi], new_v[li, bi])
             if self.trace is not None:
                 self._step_writes.append(
                     (slot, self.pool.block_of_token(slot))
@@ -469,6 +508,7 @@ class ServeEngine:
                 req.slot = None
                 req.status = "done"
                 req.finish_clock = self.clock
+                req.t_done = time.perf_counter_ns()
                 self.done.append(req)
             elif not self._append_with_recovery(slot):
                 self.pool.release(slot)
@@ -579,6 +619,9 @@ class ServeEngine:
             maintenance_ns=float(self.maintenance_ns),
             compaction_passes=float(self.compaction_passes),
             blocks_migrated=float(self.blocks_migrated),
+            # the graph cache's, shared by every engine over the model
+            graph_captures=float(self.graphs.captures if self.graphs else 0),
+            graph_capture_ms=float(self.graphs.capture_ms if self.graphs else 0.0),
         )
         return rep
 

@@ -8,6 +8,10 @@
 * :mod:`repro_torch.trace.replay` — a replay executor that re-prices a trace
   through :mod:`repro_torch.core.pud` + :mod:`repro_torch.core.controller`
   bit-exactly, independent of the live engine.
+* :mod:`repro_torch.trace.spans` — the span recorder: host-clock spans
+  (and CUDA-event device time) at the serving engine's step phases, the
+  graph captures and the train step's forward, backward and optimizer,
+  kept in memory with per-name totals; timings, where ``record`` prices.
 
 :mod:`repro_torch.trace.gemv` is the Tracegen-style GEMV/MoE offload
 model: it places every decode weight matrix with each of the four

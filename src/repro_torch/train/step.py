@@ -11,6 +11,11 @@ the reference, then takes and returns the error state.
 Under a mesh (``dist.sharding.set_mesh``) the same step runs over DTensor
 params and batches: each gradient is laid out as its param, AdamW is
 elementwise, and the metrics are gathered to plain 0-d tensors.
+
+A step is the span ``train.step``, over ``train.forward`` and
+``train.backward`` (one each a micro-batch) and ``train.optimizer``
+(AdamW, its norm and clip included), each with device time on a card
+(:mod:`repro_torch.trace.spans`).
 """
 from __future__ import annotations
 
@@ -22,18 +27,24 @@ from torch.distributed.tensor import DTensor
 from repro_torch.dist.sharding import spmd
 from repro_torch.optim import adamw as opt
 from repro_torch.optim import compression as comp
+from repro_torch.trace import spans
 from repro_torch.tree import flatten, unflatten
 
 
 def value_and_grad(loss_fn, params: Any, batch: Dict) -> Tuple[torch.Tensor, Any]:
-    """(loss, grads) of ``loss_fn(params, batch)``; grads has params' tree."""
+    """(loss, grads) of ``loss_fn(params, batch)``; grads has params' tree.
+    The spans ``train.forward`` (the loss) and ``train.backward`` (the
+    gradients, rematerialisation's recompute included) carry device time."""
     flat, tdef = flatten(params)
+    device = flat[0].device
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_(True) for p in flat]
-        loss = loss_fn(unflatten(tdef, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
-    grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor) else g
-             for p, g in zip(flat, grads)]
+        with spans.span("train.forward", device=device):
+            loss = loss_fn(unflatten(tdef, leaves), batch)
+        with spans.span("train.backward", device=device):
+            grads = torch.autograd.grad(loss, leaves)
+            grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor)
+                     else g for p, g in zip(flat, grads)]
     return loss.detach(), unflatten(tdef, grads)
 
 
@@ -53,7 +64,7 @@ def build_train_step(
         return model.train_loss(params, batch)
 
     def train_step(params, opt_state, batch, err_state=None):
-        with spmd():
+        with spmd(), spans.span("train.step", device=opt_state.step.device):
             return step(params, opt_state, batch, err_state)
 
     def step(params, opt_state, batch, err_state):
@@ -75,8 +86,9 @@ def build_train_step(
             grads = unflatten(tdef, grads)
         if grad_compression:
             grads, err_state = comp.compress_grads(grads, err_state)
-        params, opt_state, metrics = opt.apply_updates(params, grads, opt_state, ocfg,
-                                                       donate=donate)
+        with spans.span("train.optimizer", device=opt_state.step.device):
+            params, opt_state, metrics = opt.apply_updates(params, grads, opt_state, ocfg,
+                                                           donate=donate)
         metrics["loss"] = loss
         metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
                    for k, v in metrics.items()}
