@@ -19,7 +19,7 @@ table entries contiguous, so a sequence's pages stream from adjacent memory.
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -220,11 +220,11 @@ class PagedKVPool:
         """Current tile list of a live sequence (trace emission)."""
         return list(self._seqs[slot][0].tiles)
 
-    def block_of_token(self, slot: int) -> int:
-        """Pool block holding the sequence's latest token — the block a
-        decode-step ``write_token_kv`` just landed in."""
+    def token_position(self, slot: int) -> Tuple[int, int]:
+        """(block, offset) of the sequence's latest token: where a decode
+        step writes its K/V."""
         h, ntok = self._seqs[slot]
-        return h.tiles[(ntok - 1) // self.cfg.block_size]
+        return h.tiles[(ntok - 1) // self.cfg.block_size], (ntok - 1) % self.cfg.block_size
 
     # -- device views -----------------------------------------------------------
     def block_table(self) -> np.ndarray:
@@ -261,16 +261,46 @@ class PagedKVPool:
         self.v[layer].index_copy_(0, idx, vb.to(self.v.dtype))
 
     def write_token_kv(
-        self, slot: int, layer: int, k1: torch.Tensor, v1: torch.Tensor
+        self,
+        slot: Union[int, Sequence[Tuple[int, int, int]]],
+        layer: Optional[int],
+        k1: torch.Tensor,
+        v1: torch.Tensor,
     ) -> None:
-        """Write one decoded token's K/V (kv_heads, head_dim), in place."""
+        """Write decoded tokens' K/V into the pool, in place.
+
+        One token: ``slot`` an int, ``layer`` an int, ``k1`` / ``v1``
+        (kv_heads, head_dim), written at the sequence's latest position.
+
+        A batch (a decode step's writes): ``slot`` a sequence of
+        ``(row, block, offset)``, ``layer`` None for every layer, ``k1`` /
+        ``v1`` (n_layers, B, kv_heads, head_dim); row ``row`` of every layer
+        lands at ``(block, offset)``.  The positions are given, not read from
+        the bookkeeping, so they may be recorded before the sequences moved
+        on or were released; they must be distinct, and rows of ``k1`` left
+        out are not written.  One index transfer and one scatter a pool."""
         cfg = self.cfg
-        h, ntok = self._seqs[slot]
-        pos = ntok - 1
-        block = h.tiles[pos // cfg.block_size]
-        off = pos % cfg.block_size
-        self.k[layer, block, off] = k1.to(self.k.dtype)
-        self.v[layer, block, off] = v1.to(self.v.dtype)
+        if layer is not None:
+            h, ntok = self._seqs[slot]
+            block = h.tiles[(ntok - 1) // cfg.block_size]
+            off = (ntok - 1) % cfg.block_size
+            self.k[layer, block, off] = k1.to(self.k.dtype)
+            self.v[layer, block, off] = v1.to(self.v.dtype)
+            return
+        pos = np.asarray(slot, np.int64).reshape(-1, 3)
+        rows = pos[:, 0]
+        select = not np.array_equal(rows, np.arange(k1.shape[1]))   # some rows left out
+        host = np.concatenate([pos[:, 1] * cfg.block_size + pos[:, 2]] + ([rows] if select else []))
+        # a plain blocking copy: the stream is idle after a decode step's
+        # read-back, and pinned staging measured slower on an H100's host
+        idx = torch.from_numpy(host).to(self.device)
+        flat, sel = idx[:len(pos)], idx[len(pos):]
+        for pool, new in ((self.k, k1), (self.v, v1)):
+            src = (new.index_select(1, sel) if select else new).to(pool.dtype)
+            dst = pool.view(pool.shape[0], -1, *pool.shape[3:])     # (L, blocks x block_size, ...)
+            if pool.element_size() == 1:    # float8 has no index_copy_: scatter its bytes
+                dst, src = dst.view(torch.uint8), src.view(torch.uint8)
+            dst.index_copy_(1, flat, src)
 
     def occupancy(self) -> Dict[str, float]:
         """Point-in-time pool occupancy sample (all floats, JSON-friendly)."""

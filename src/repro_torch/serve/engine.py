@@ -10,8 +10,9 @@ Lifecycle per step:
      per-layer K/V pages are scattered into the pool blocks.
   3. **decode** — one fused step for every live sequence via
      ``paged_decode_step`` (block tables + seq_lens), greedy sampling.
-  4. **bookkeeping** — new-token K/V written to the PUMA-chosen block
-     (``extend`` keeps arena locality), finished sequences release blocks.
+  4. **bookkeeping** — sequences advance (``extend`` keeps arena locality)
+     and finished ones release blocks; then every new token's K/V, all
+     layers, lands in its PUMA-chosen block in one pool write.
 
 Degraded mode — no request is ever silently dropped: ``submit`` rejects
 never-admissible requests with :class:`~repro_torch.robustness.RequestRejected`;
@@ -161,6 +162,8 @@ class ServeEngine:
         self.tokens_prefilled = 0               # teacher-forced KV-fill tokens
         self.preemptions = 0
         self.submitted = 0
+        self.kv_write_calls = 0                 # pool writes of decoded tokens' K/V
+        self.kv_rows_written = 0                # (slot, token) rows they carried
         self._stall_steps = 0
         #: step-level metric hooks: each callable gets ``(engine, sample)``
         #: after every :meth:`step`, where ``sample`` is :meth:`step_sample`.
@@ -379,8 +382,9 @@ class ServeEngine:
         requests are queued; an ``engine.prefill`` a request admitted),
         ``engine.batch``, ``engine.decode``, ``engine.readback`` and
         ``engine.maintain`` (when a maintenance check is due), and its
-        attribute ``engine.kv_write`` sums the token K/V writes' ns.  What
-        the children leave of it is the bookkeeping."""
+        attribute ``engine.kv_write`` the ns of the step's one pool write of
+        every layer's and slot's token K/V.  What the children leave of it is
+        the bookkeeping."""
         with spans.span("engine.step", clock=self.clock + 1) as sp:
             d0 = self.tokens_decoded
             if self.trace is not None:
@@ -482,19 +486,18 @@ class ServeEngine:
         with spans.span("engine.readback"):
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
 
-        # 3) write current-token KV into PUMA-placed blocks, advance seqs
-        kv_write = spans.part("engine.kv_write")
+        # 3) advance seqs, recording where each current token's K/V go; the
+        #    loop writes no pool bytes, so one write after it lands them all
+        #    where a write at each slot's turn would have
+        writes = []                         # (batch row, block, offset)
         for bi, slot in enumerate(slots):
             if slot not in self.live:
                 continue                    # preempted earlier this loop
             req = self.live[slot]
-            with kv_write:
-                for li in range(cfg.n_layers):
-                    self.pool.write_token_kv(slot, li, new_k[li, bi], new_v[li, bi])
+            block, off = self.pool.token_position(slot)
+            writes.append((bi, block, off))
             if self.trace is not None:
-                self._step_writes.append(
-                    (slot, self.pool.block_of_token(slot))
-                )
+                self._step_writes.append((slot, block))
             tok = int(nxt[bi])
             self.tokens_decoded += 1
             finished = (
@@ -518,6 +521,12 @@ class ServeEngine:
                     "KV pool cannot host the next token", rid=req.rid,
                     decoded=len(req.out),
                 ))
+        # 4) the current tokens' K/V into PUMA-placed blocks, every layer and
+        #    slot in one call, before maintenance moves blocks
+        with spans.part("engine.kv_write"):
+            self.pool.write_token_kv(writes, None, new_k, new_v)
+        self.kv_write_calls += 1
+        self.kv_rows_written += len(writes)
         self.steps += 1
         self._maybe_maintain()
         return bool(self.live or self.queue)
@@ -619,6 +628,8 @@ class ServeEngine:
             maintenance_ns=float(self.maintenance_ns),
             compaction_passes=float(self.compaction_passes),
             blocks_migrated=float(self.blocks_migrated),
+            kv_write_calls=float(self.kv_write_calls),
+            kv_rows_written=float(self.kv_rows_written),
             # the graph cache's, shared by every engine over the model
             graph_captures=float(self.graphs.captures if self.graphs else 0),
             graph_capture_ms=float(self.graphs.capture_ms if self.graphs else 0.0),

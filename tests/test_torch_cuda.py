@@ -27,7 +27,7 @@ from repro_torch.kernels.paged_attention import ops as pg_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.pud_bulk import ops as pud_ops  # noqa: E402
 from repro_torch.kernels.pud_bulk.ref import block_copy_ref, bulk_op_ref  # noqa: E402
-from repro_torch.core.kv_pool import KVPoolConfig  # noqa: E402
+from repro_torch.core.kv_pool import KVPoolConfig, PagedKVPool  # noqa: E402
 from repro_torch.graphs import GraphCache, decode_step_jit  # noqa: E402
 from repro_torch.launch.inputs import make_batch  # noqa: E402
 from repro_torch.models import linear_scan  # noqa: E402
@@ -1286,18 +1286,20 @@ def test_graph_cache_captures_again_once_every_step_is_retired(cuda):
 
 
 @pytest.mark.cuda
-def test_graphed_engine_after_fork_and_compaction_equals_eager(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_engine_after_fork_and_compaction_equals_eager(cuda, dtype):
     """Two engines over one model and params, graphed (the default) and
     eager, with watermark compaction and a fork part-way: the same ids and
     host metrics, and the pools bit for bit, so every replay after a fork
-    or a compaction matched eager.  The graphed engine's pools kept their
+    or a compaction, and every step's one scatter of its tokens' K/V,
+    matched eager; f32 and bf16.  The graphed engine's pools kept their
     storage (the graphs read them where they are)."""
-    model, params = _dense_smoke("float32")
+    model, params = _dense_smoke(dtype)
     cfg = model.cfg
     pool_cfg = KVPoolConfig(
         num_blocks=64, block_size=8, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
         n_layers=cfg.n_layers, max_seqs=4, max_blocks_per_seq=16, blocks_per_arena=16,
-        dtype="float32")
+        dtype=dtype)
     maint = MaintenanceConfig(free_low=0.9, frag_high=0.05, contig_low=0.999, max_moves=64,
                               every=2)
     rng = np.random.default_rng(7)
@@ -1327,8 +1329,39 @@ def test_graphed_engine_after_fork_and_compaction_equals_eager(cuda):
     assert {k: v for k, v in ma.items() if k not in graph_keys} == {
         k: v for k, v in mb.items() if k not in graph_keys}
     assert ma["graph_captures"] == a.graphs.captures and mb["graph_captures"] == 0
+    assert (ma["kv_write_calls"], ma["kv_rows_written"]) == (ma["steps"], ma["tokens"])
     assert torch.equal(a.pool.k, b.pool.k) and torch.equal(a.pool.v, b.pool.v)
     assert a.graphs is model._cuda_graphs and a.graphs.captures >= 1 and b.graphs is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float8_e4m3fn"])
+def test_batched_token_write_equals_one_at_a_time(cuda, dtype):
+    """The pool's one scatter a decode step on the card, at a ``decode_32``
+    -like batch (24 layers, 32 rows, one left out, bf16 K/V as the model
+    makes them): K and V bit-equal to the same writes one token and layer at
+    a time."""
+    L, B, KV, hd = 24, 32, 4, 64
+    kw = dict(num_blocks=512, block_size=16, kv_heads=KV, head_dim=hd, n_layers=L,
+              max_seqs=B, max_blocks_per_seq=16, blocks_per_arena=64, dtype=dtype)
+    batched, single = (PagedKVPool(KVPoolConfig(**kw), device="cuda") for _ in range(2))
+    lens = np.random.default_rng(4).integers(1, 250, B).tolist()
+    slots = [batched.admit(n) for n in lens]
+    assert [single.admit(n) for n in lens] == slots
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    new_k, new_v = (torch.randn(L, B, KV, hd, generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+    rows = [bi for bi in range(B) if bi != 7]
+    batched.write_token_kv([(bi, *batched.token_position(slots[bi])) for bi in rows], None,
+                           new_k, new_v)
+    for bi in rows:
+        for li in range(L):
+            single.write_token_kv(slots[bi], li, new_k[li, bi], new_v[li, bi])
+    for x, y in ((batched.k, single.k), (batched.v, single.v)):
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+    block, off = batched.token_position(slots[7])
+    assert bool(batched.k.view(torch.uint8).any())
+    assert not bool(batched.k[:, block, off].view(torch.uint8).any())
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The port's paged decode runner and serving engine against the reference
 (f32, CPU): runner outputs on random block tables, and the engine's
 generated ids, host metrics, fork pages and block tables in the scenarios of
-tests/test_serve.py."""
+tests/test_serve.py; the pool's batched token write and the engine's one
+write a step against the same writes one token and layer at a time."""
 import numpy as np
 import pytest
 
@@ -108,6 +109,8 @@ def _assert_same_serving(r_eng, r_done, o_eng, o_done):
     om, rm = o_eng.metrics(), r_eng.metrics()
     for key in HOST_METRICS:
         assert om[key] == rm[key], key
+    # one pool write a decode step, carrying a row for each decoded token
+    assert (om["kv_write_calls"], om["kv_rows_written"]) == (om["steps"], om["tokens"])
 
 
 def test_engine_matches_reference_four_requests(pair):
@@ -188,6 +191,110 @@ def test_pool_write_paths_match_reference(pair):
     rpool.write_token_kv(rslot, 0, jnp.asarray(t), jnp.asarray(2 * t))
     np.testing.assert_array_equal(pool.k.numpy(), np.asarray(rpool.k))
     np.testing.assert_array_equal(pool.v.numpy(), np.asarray(rpool.v))
+
+
+def _bytes(t):
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+@pytest.mark.parametrize("skip", [None, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float8_e4m3fn"])
+def test_batched_token_write_equals_one_at_a_time(dtype, skip):
+    """``write_token_kv`` over (row, block, offset) positions, every layer in
+    one call, leaves K and V bit-equal to the same writes one token and
+    layer at a time: rows in four blocks at four offsets, with and without
+    a batch row left out (which stays unwritten)."""
+    L, B, KV, hd = 3, 4, 2, 8
+    kw = dict(num_blocks=16, block_size=4, kv_heads=KV, head_dim=hd, n_layers=L,
+              max_seqs=B, max_blocks_per_seq=8, blocks_per_arena=16, dtype=dtype)
+    batched, single = (PagedKVPool(KVPoolConfig(**kw), device="cpu") for _ in range(2))
+    lens = [3, 8, 9, 14]
+    slots = [batched.admit(n) for n in lens]
+    assert [single.admit(n) for n in lens] == slots
+    gen = torch.Generator().manual_seed(5)
+    new_k, new_v = (torch.randn(L, B, KV, hd, generator=gen) * 4 for _ in range(2))
+    rows = [bi for bi in range(B) if bi != skip]
+    writes = [(bi, *batched.token_position(slots[bi])) for bi in rows]
+    assert len({(b, o) for _, b, o in writes}) == len(writes)
+    assert len({o for _, _, o in writes}) == len(writes) > 2
+    batched.write_token_kv(writes, None, new_k, new_v)
+    for bi in rows:
+        for li in range(L):
+            single.write_token_kv(slots[bi], li, new_k[li, bi], new_v[li, bi])
+    for a, b in ((batched.k, single.k), (batched.v, single.v)):
+        assert torch.equal(_bytes(a), _bytes(b))
+    assert bool(_bytes(batched.k).any())
+    if skip is not None:
+        block, off = batched.token_position(slots[skip])
+        assert not bool(_bytes(batched.k[:, block, off]).any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_engine_preempting_within_a_step_writes_as_one_at_a_time(pair, monkeypatch, dtype):
+    """A pool so small that a growing slot preempts another inside the
+    step's loop, both a slot later in the loop (its row is left out of the
+    step's write) and one written earlier in it: the served tokens, clocks
+    and host metrics equal the reference engine's, and after every step the
+    pools equal, bit for bit, those of the same run with each slot's K/V
+    written layer by layer at its turn in the loop."""
+    from repro_torch.serve import engine as E
+
+    cfg = pair[2].cfg
+    kw = _pool_kw(cfg, num_blocks=16, block_size=4, max_seqs=4, dtype=dtype)
+    rng = np.random.default_rng(3)
+    specs = [(rng.integers(0, 64, int(rng.integers(3, 14))), int(rng.integers(6, 16)))
+             for _ in range(6)]
+    ref, ref_params, model, params = pair
+
+    def run(eng):
+        for i, (p, n) in enumerate(specs):
+            eng.submit(Request(rid=i, prompt=[int(t) for t in p], max_new=n))
+        victims, pools = [], []
+        eng.step_hooks.append(lambda e, _: pools.append((e.pool.k.clone(), e.pool.v.clone())))
+        pick = eng._pick_victim
+
+        def picked(exclude):
+            victim = pick(exclude)
+            victims.append((exclude, victim))
+            return victim
+
+        eng._pick_victim = picked
+        return eng.run(), victims, pools
+
+    r_eng = RefEngine(ref, ref_params, RefPoolConfig(**kw), use_kernel=False)
+    for i, (p, n) in enumerate(specs):
+        r_eng.submit(RefRequest(rid=i, prompt=list(p), max_new=n))
+    r_done = r_eng.run()
+    o_eng = ServeEngine(model, params, KVPoolConfig(**kw), device="cpu")
+    o_done, victims, o_pools = run(o_eng)
+    assert any(v > s for s, v in victims) and any(v < s for s, v in victims)
+    _assert_same_serving(r_eng, r_done, o_eng, o_done)
+
+    # the same run, each slot's writes at its turn in the loop
+    p_eng = ServeEngine(model, params, KVPoolConfig(**kw), device="cpu")
+    pool, step_out = p_eng.pool, {}
+    decode, position = E.paged_decode_step_jit, pool.token_position
+
+    def decode_noting(*args, **kwargs):
+        step_out["slots"] = sorted(p_eng.live)
+        step_out["kv"] = out = decode(*args, **kwargs)
+        return out
+
+    def position_writing(slot):
+        _, new_k, new_v = step_out["kv"]
+        bi = step_out["slots"].index(slot)
+        for li in range(cfg.n_layers):
+            PagedKVPool.write_token_kv(pool, slot, li, new_k[li, bi], new_v[li, bi])
+        return position(slot)
+
+    monkeypatch.setattr(E, "paged_decode_step_jit", decode_noting)
+    pool.token_position = position_writing
+    pool.write_token_kv = lambda slot, layer, k1, v1: None
+    p_done, p_victims, p_pools = run(p_eng)
+    assert p_victims == victims and len(p_pools) == len(o_pools) == o_eng.clock
+    assert {r.rid: r.out for r in p_done} == {r.rid: r.out for r in o_done}
+    for (ok, ov), (pk, pv) in zip(o_pools, p_pools):
+        assert torch.equal(ok, pk) and torch.equal(ov, pv)
 
 
 def test_engine_refuses_maintenance(pair):
