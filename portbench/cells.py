@@ -10,6 +10,11 @@ under ``workloads``, or list no cells at all.  Each name is a file:
   or None where the run holds nothing to read;
 * the comparison's limits: ``limits/<cell>.json``.
 
+The configuration names the reference that runs it (``arch.py``),
+``reference/<name>.py``, found under the same root; a configuration that
+``arch.load`` refuses, and a training cell whose reference gives no
+training path, are refused here.
+
 So a new cell, mix or metric is a new file and a new entry: nothing here
 changes.
 """
@@ -20,6 +25,8 @@ import importlib.util
 import json
 from pathlib import Path
 from typing import Callable, Dict, List
+
+from portbench import arch, reference
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -63,6 +70,9 @@ def resolve(bench: Dict, workload: str, root: Path = ROOT) -> Cell:
             raise FileNotFoundError(f"{workload}: {getattr(cell, name)} is missing")
     for m in cell.end_to_end + cell.per_layer:
         reader_path(m["name"], root)
+    a = arch.load(cell.config_file, root)
+    if json.loads(cell.traffic_file.read_text())["kind"] == "train":
+        reference.forward(a.reference, root)
     return cell
 
 

@@ -2,8 +2,10 @@
 
 Once the window has closed and the program's state is freed, a sample of
 the finished requests, drawn from the seed and always holding the one with
-most served tokens, is run through the reference (``reference/model.py``):
-one forward pass over each prompt and its served tokens.  At each position
+most served tokens, is run through the reference that the configuration
+names (``reference/<arch.reference>.py``, ``reference/model.py`` where it
+names none; its ``logits``): one forward pass over each prompt and its
+served tokens.  At each position
 that produced a served token, the gap is how far that token's reference
 logit lies below the reference's best; the number compared is the widest
 gap over the sample (``logit_gap``).  Greedy decoding makes the served
@@ -17,6 +19,9 @@ has its limit in ``limits/<cell>.json``.
 ``control`` (off in a benchmark run) also runs the control: the same
 reference rounded through float8 e4m3 at every product, reading the gap of
 the token it puts first at the same positions (``control_gap``).
+
+A training cell's numbers (``train_gaps``) come from ``reference/train.py``,
+which runs the same configuration's reference.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from portbench import reference
 from portbench.reference import model as ref_model
 
 
@@ -45,6 +51,7 @@ def sample(records, seed: int, k: int) -> List:
 
 def compare(weights: Dict, arch, sampled, *, control: bool = False) -> Dict:
     """The reference's readings over ``sampled`` (see the module's text)."""
+    ref_mod = reference.module(arch.reference)
     gaps: List[float] = []
     cgaps: List[float] = []
     short = 0
@@ -54,10 +61,10 @@ def compare(weights: Dict, arch, sampled, *, control: bool = False) -> Dict:
         short += len(out) != r.max_new
         tokens = list(r.prompt) + out[:-1]
         rows = range(len(r.prompt) - 1, len(tokens))
-        ref = ref_model.logits(weights, arch, tokens, rows)
+        ref = ref_mod.logits(weights, arch, tokens, rows)
         gaps += ref_model.served_gaps(ref, out)
         if control:
-            low = ref_model.logits(weights, arch, tokens, rows, precision="fp8")
+            low = ref_mod.logits(weights, arch, tokens, rows, precision="fp8")
             cgaps += ref_model.control_gaps(ref, low)
     readings = {
         "logit_gap": max(gaps) if gaps else float("inf"),

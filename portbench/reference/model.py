@@ -19,11 +19,18 @@ Then the final norm and the head (or the tied table) over the real
 vocabulary.  ``precision="fp8"`` is the control: every product's two
 operands rounded through float8 e4m3 with one scale per operand (its
 largest magnitude to 448), the rest as in float32.
+
+The forward is four pieces (``embed``, ``block``, ``final``, and the
+sublayers ``attend`` and ``feed_forward`` that ``block`` adds to the
+residual stream), gathered in :data:`FORWARD`.  A reference of its own
+(``reference/<name>.py``) reuses them and gives a ``Forward`` of its own;
+``logits`` and ``train.steps`` run whichever a configuration names.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Sequence
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -97,9 +104,12 @@ def _rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).reshape(x.shape)
 
 
-def _attention(ops: _Ops, q, k, v, heads_per_chunk: int = 8) -> torch.Tensor:
-    """Causal attention, q (S, H, hd), k/v (S, KV, hd) -> (S, H, hd)."""
+def _attention(ops: _Ops, q, k, v, heads_per_chunk: int = 8,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Causal attention, q (S, H, hd), k/v (S, KV, hd) -> (S, H, hd), the
+    scores scaled by ``scale`` (1 / sqrt(hd) where None)."""
     S, H, hd = q.shape
+    scale = hd ** -0.5 if scale is None else scale
     KV = k.shape[1]
     g = H // KV
     qg = q.view(S, KV, g, hd)
@@ -107,7 +117,7 @@ def _attention(ops: _Ops, q, k, v, heads_per_chunk: int = 8) -> torch.Tensor:
     out = torch.empty_like(qg)
     step = max(1, heads_per_chunk // g)
     for c in range(0, KV, step):
-        s = ops.einsum("qkgd,skd->kgqs", qg[:, c:c + step], k[:, c:c + step]) * hd ** -0.5
+        s = ops.einsum("qkgd,skd->kgqs", qg[:, c:c + step], k[:, c:c + step]) * scale
         p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
         del s
         out[:, c:c + step] = ops.einsum("kgqs,skd->qkgd", p, v[:, c:c + step])
@@ -138,24 +148,70 @@ def _layer(w: Dict, li: int) -> Dict:
     return {k: _layer(v, li) for k, v in w.items()}
 
 
-def block(ops: _Ops, a: Arch, lp: Dict, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """One layer over one sequence, x (S, d) float32 -> (S, d)."""
-    S = x.shape[0]
+def attend(ops: _Ops, a: Arch, at: Dict, h: torch.Tensor, pos: torch.Tensor,
+           scale: Optional[float] = None) -> torch.Tensor:
+    """The attention sublayer's output over h (S, d), before the residual
+    add; the scores scaled by ``scale`` (1 / sqrt(hd) where None)."""
+    S = h.shape[0]
     H, KV, hd = a.n_heads, a.n_kv_heads, a.head_dim
-    h = _norm(x, lp["ln1"], a.norm, a.norm_eps)
-    at = lp["attn"]
     q = ops.mm(h, at["wq"].float().reshape(a.d_model, H * hd)).view(S, H, hd)
     k = ops.mm(h, at["wk"].float().reshape(a.d_model, KV * hd)).view(S, KV, hd)
     v = ops.mm(h, at["wv"].float().reshape(a.d_model, KV * hd)).view(S, KV, hd)
     q, k = _rope(q, pos, a.rope_theta), _rope(k, pos, a.rope_theta)
-    o = _attention(ops, q, k, v)
-    x = x + ops.mm(o.reshape(S, H * hd), at["wo"].float().reshape(H * hd, a.d_model))
-    h = _norm(x, lp["ln2"], a.norm, a.norm_eps)
+    o = _attention(ops, q, k, v, scale=scale)
+    return ops.mm(o.reshape(S, H * hd), at["wo"].float().reshape(H * hd, a.d_model))
+
+
+def feed_forward(ops: _Ops, a: Arch, lp: Dict, h: torch.Tensor) -> torch.Tensor:
+    """The MLP's (or the experts') output over h (S, d), before the residual
+    add."""
     if a.n_experts:
-        return x + _moe(ops, a, h, lp["moe"])
+        return _moe(ops, a, h, lp["moe"])
     m = lp["mlp"]
     u = torch.nn.functional.silu(ops.mm(h, m["wg"].float())) * ops.mm(h, m["wu"].float())
-    return x + ops.mm(u, m["wo"].float())
+    return ops.mm(u, m["wo"].float())
+
+
+def block(ops: _Ops, a: Arch, lp: Dict, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """One layer over one sequence, x (S, d) float32 -> (S, d)."""
+    x = x + attend(ops, a, lp["attn"], _norm(x, lp["ln1"], a.norm, a.norm_eps), pos)
+    return x + feed_forward(ops, a, lp, _norm(x, lp["ln2"], a.norm, a.norm_eps))
+
+
+def embed(weights: Dict, a: Arch, tok: torch.Tensor) -> torch.Tensor:
+    """The residual stream's start, (S, d) float32, for the ids ``tok``."""
+    return weights["embed"]["tok"][tok].float()
+
+
+def final(ops: _Ops, a: Arch, final_ln: Dict, head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Logits from the residual stream x (rows, d): the final norm, then the
+    head (d, vocab)."""
+    return ops.mm(_norm(x, final_ln, a.norm, a.norm_eps), head.float())
+
+
+@dataclasses.dataclass(frozen=True)
+class Forward:
+    """A reference's forward, by its pieces: ``embed(weights, a, tok)``,
+    ``block(ops, a, layer, x, pos)``, ``final(ops, a, final_ln, head, x)``."""
+    embed: Callable
+    block: Callable
+    final: Callable
+
+    def logits(self, weights: Dict, a: Arch, tokens: Sequence[int], rows: Sequence[int], *,
+               precision: str = "f32") -> torch.Tensor:
+        """Logits over the real vocabulary, (len(rows), vocab_size) float32,
+        at the given positions of ``tokens``, with the harness's ``weights``
+        on their device."""
+        ops = _Ops(precision)
+        dev = weights["embed"]["tok"].device
+        with torch.no_grad(), exact_f32():
+            tok = torch.tensor(list(tokens), dtype=torch.long, device=dev)
+            pos = torch.arange(tok.numel(), device=dev)
+            x = self.embed(weights, a, tok)
+            for li in range(a.n_layers):
+                x = self.block(ops, a, _layer(weights["layers"], li), x, pos)
+            sel = x[torch.tensor(list(rows), dtype=torch.long, device=dev)]
+            return self.final(ops, a, weights["final_ln"], head_of(weights, a), sel)
 
 
 def head_of(weights: Dict, a: Arch) -> torch.Tensor:
@@ -164,22 +220,8 @@ def head_of(weights: Dict, a: Arch) -> torch.Tensor:
     return emb["head"][:, :a.vocab_size] if "head" in emb else emb["tok"][:a.vocab_size].T
 
 
-def logits(weights: Dict, a: Arch, tokens: Sequence[int], rows: Sequence[int], *,
-           precision: str = "f32") -> torch.Tensor:
-    """Logits over the real vocabulary, (len(rows), vocab_size) float32, at
-    the given positions of ``tokens``, with the harness's ``weights`` on
-    their device."""
-    ops = _Ops(precision)
-    dev = weights["embed"]["tok"].device
-    with torch.no_grad(), exact_f32():
-        tok = torch.tensor(list(tokens), dtype=torch.long, device=dev)
-        pos = torch.arange(tok.numel(), device=dev)
-        x = weights["embed"]["tok"][tok].float()
-        for li in range(a.n_layers):
-            x = block(ops, a, _layer(weights["layers"], li), x, pos)
-        sel = _norm(x[torch.tensor(list(rows), dtype=torch.long, device=dev)],
-                    weights["final_ln"], a.norm, a.norm_eps)
-        return ops.mm(sel, head_of(weights, a).float())
+FORWARD = Forward(embed=embed, block=block, final=final)
+logits = FORWARD.logits
 
 
 def served_gaps(ref: torch.Tensor, served: Sequence[int]) -> List[float]:

@@ -1,5 +1,8 @@
 """The plain reference of a training job's first steps: float32 with TF32
-off, the configuration's forward pass (``model.block``), token cross
+off, the forward pass of the configuration's reference (its ``FORWARD``:
+the embedding, each layer, the final norm and head; ``model.py``'s where
+the configuration names none, and a reference without one has no training
+path), token cross
 entropy averaged over every target, autograd, and AdamW as the job states
 it (decoupled weight decay, clipping by the global norm, the linear warm-up
 and cosine schedule), written out here.
@@ -20,8 +23,9 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from portbench import reference
 from portbench.arch import Arch
-from portbench.reference.model import _layer, _norm, _Ops, block, exact_f32, head_of
+from portbench.reference.model import _layer, _Ops, exact_f32, head_of
 
 LOSS_ROWS = 1024        # positions of one block of the head and loss
 
@@ -39,24 +43,29 @@ def _rebuild(tree: Dict, values: Dict[str, torch.Tensor], path=()) -> Dict:
     return {k: _rebuild(v, values, path + (k,)) for k, v in tree.items()}
 
 
-def _nll_sum(h, final_ln, head, targets, a):
-    x = _norm(h, final_ln, a.norm, a.norm_eps)
-    logits = x @ head
+#: the head's product in float32 in the control too
+F32 = _Ops("f32")
+
+
+def _nll_sum(final, h, final_ln, head, targets, a):
+    logits = final(F32, a, final_ln, head, h)
     return (torch.logsumexp(logits, -1) - logits.gather(-1, targets[:, None])[:, 0]).sum()
 
 
-def row_loss_sum(ops: _Ops, a: Arch, w: Dict, tokens: torch.Tensor, targets: torch.Tensor):
-    """The summed token losses of one row (S,) of the batch."""
+def row_loss_sum(fwd, ops: _Ops, a: Arch, w: Dict, tokens: torch.Tensor,
+                 targets: torch.Tensor):
+    """The summed token losses of one row (S,) of the batch, by the forward
+    ``fwd`` (a ``model.Forward``)."""
     pos = torch.arange(tokens.numel(), device=tokens.device)
-    x = w["embed"]["tok"][tokens]
+    x = fwd.embed(w, a, tokens)
     for li in range(a.n_layers):
-        x = checkpoint(block, ops, a, _layer(w["layers"], li), x, pos, use_reentrant=False)
+        x = checkpoint(fwd.block, ops, a, _layer(w["layers"], li), x, pos, use_reentrant=False)
     head = head_of(w, a)
     total = 0.0
     for r in range(0, x.shape[0], LOSS_ROWS):
         sl = slice(r, r + LOSS_ROWS)
-        total = total + checkpoint(_nll_sum, x[sl], w["final_ln"], head, targets[sl], a,
-                                   use_reentrant=False)
+        total = total + checkpoint(_nll_sum, fwd.final, x[sl], w["final_ln"], head, targets[sl],
+                                   a, use_reentrant=False)
     return total
 
 
@@ -74,6 +83,7 @@ def steps(weights: Dict, a: Arch, batches: Sequence[Tuple[torch.Tensor, torch.Te
     """Run len(batches) steps from ``weights``; batches are (tokens, targets),
     each (B, S) on the weights' device.  Returns {"loss": [...],
     "grad": {leaf: norm}, "change": {leaf: norm}}."""
+    fwd = reference.forward(a.reference)
     ops = _Ops(precision)
     names = [n for n, _ in leaves(weights)]
     p0 = {n: t.detach().float() for n, t in leaves(weights)}
@@ -88,7 +98,7 @@ def steps(weights: Dict, a: Arch, batches: Sequence[Tuple[torch.Tensor, torch.Te
             grads = {n: torch.zeros_like(t) for n, t in p0.items()}
             loss = 0.0
             for b in range(tokens.shape[0]):
-                part = row_loss_sum(ops, a, w, tokens[b], targets[b]) / n_tok
+                part = row_loss_sum(fwd, ops, a, w, tokens[b], targets[b]) / n_tok
                 gs = torch.autograd.grad(part, [p[n] for n in names], allow_unused=True)
                 for n, g in zip(names, gs):
                     if g is not None:
